@@ -1,0 +1,495 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (an H100).
+
+  python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero and prints no result line:
+
+1. Print the card's name and power limit (``nvidia-smi``), then build
+   the kernels from ``src/repro_torch/csrc/`` with nvcc for sm_90a.
+2. Kernels.  The rail device functions must equal the plain torch rail
+   bit for bit over every finite bf16 value.  Each paged kernel (decode,
+   prefill, verify), on both rails, runs at the main path's shapes
+   (qwen3-1.7b: 16 query heads over 8 KV heads, d_head 128, page 16,
+   bf16 pools, shuffled page tables, ragged lengths up to 2048, a free
+   slot) and is held against its plain version on the same CUDA
+   tensors.  One line per kernel: its time, the plain version's, one
+   ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
+   (fa2 rail; a yardstick the port never calls) and the bound.
+3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
+   the same logits through the kernels on the card as through the plain
+   versions on the CPU.
+4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
+   seed 0) serves 16 requests sharing a 520-token system prompt through
+   ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
+   must finish with its token count, every logit must be finite, the
+   cache invariants must hold, and each kernel's launch counter must
+   grow on every run whose path uses it.
+5. Print ``{"kernels": [...]}``, the card line again, and last
+   ``{"ok": true, "device": {...}}``.
+
+There is no CPU fallback: without a card the script stops at once.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.kernels import cuda_lib  # noqa: E402
+from repro_torch.kernels import decode as decode_k  # noqa: E402
+from repro_torch.kernels import page_codec  # noqa: E402
+from repro_torch.kernels import bitmath  # noqa: E402
+from repro_torch.kernels import paged_decode as pd  # noqa: E402
+from repro_torch.kernels import paged_prefill as pp  # noqa: E402
+from repro_torch.kernels import paged_verify as pv  # noqa: E402
+from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.serving import Request, ServingEngine  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
+BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+SRC = "src/repro_torch/csrc/paged_attention.cu"
+REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
+            "paged_prefill": "src/repro/kernels/paged_prefill.py:38",
+            "paged_verify": "src/repro/kernels/paged_verify.py:47"}
+MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
+# Tolerances on the finalized attention output, kernel vs plain version
+# on the same CUDA tensors.  fa2: both are exact softmax in f32, differing
+# only in summation order (online over 16-position tiles vs one shot).
+# hfa: the kernel rescales online on the rail, so a key's weight is a
+# product of quantized exponentials where the plain version quantizes
+# once; one rail step is 2^(1/128) - 1 = 0.54% and a dot-order difference
+# can flip a step.  m (the running max) is plain f32 on both rails.
+ATOL_OUT = {"fa2": 1e-3, "hfa": 1e-2}
+ATOL_M = 1e-3
+
+
+def card_line() -> str:
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def timed(fn, reps: int = 20, inner: int = 5) -> float:
+    """Median ms per call over ``reps`` CUDA-event windows of ``inner``
+    calls each, after a warm-up."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(inner):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / inner)
+    return statistics.median(times)
+
+
+# ------------------------------------------------------------- phase 2
+def check_rail() -> None:
+    bits = torch.arange(1 << 16, dtype=torch.int32) << 16
+    x = bits.view(torch.float32)
+    x = x[torch.isfinite(x)].cuda()
+    rail, pexp, recip = cuda_lib.rail_eval(x)
+    want_rail = bitmath.quant_rail(x)
+    want = (want_rail, bitmath.exp2_hfa_rail(want_rail),
+            bitmath.recip_logdiv(x))
+    for name, got, w in zip(("quant_rail", "exp2_hfa_rail", "recip_logdiv"),
+                            (rail, pexp, recip), want):
+        bad = int((got.view(torch.int32) != w.view(torch.int32)).sum())
+        if bad:
+            raise AssertionError(f"rail {name}: {bad} of {x.numel()} values "
+                                 "differ from the plain version")
+    print(f"rail: quant_rail, exp2_hfa_rail, recip_logdiv bit-equal to the "
+          f"plain torch rail over {x.numel()} finite bf16 values")
+
+
+def kernel_cases(gen: torch.Generator):
+    """Main-path shapes of qwen3-1.7b: (name, args, rows, live mask)."""
+    hkv, g, d, page, j = 8, 2, 128, 16, 128           # 2048 tokens/slot
+    rng = np.random.default_rng(0)
+
+    def pools(b):
+        num_pages = b * j + 16
+        kp = torch.randn((num_pages, page, hkv, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        vp = torch.randn((num_pages, page, hkv, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        pt = rng.permutation(num_pages)[:b * j].reshape(b, j)
+        return kp, vp, torch.tensor(pt, dtype=torch.int32, device="cuda")
+
+    def q(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device="cuda")
+
+    cases = {}
+    b = 8
+    kvl = rng.integers(1, 2049, b)
+    kvl[3], kvl[5] = 0, 2048                          # free slot, full slot
+    cases["paged_decode"] = ((q(b, hkv, g, d), *pools(b), i32(kvl)),
+                             (kvl > 0)[:, None], kvl - 1, kvl)
+    sl = rng.integers(1, 2048 - 5, b)
+    cl = rng.integers(1, 6, b)
+    sl[3], cl[3] = 0, 0                               # free slot
+    cl[0] = 5
+    cases["paged_verify"] = ((q(b, hkv, g, 5, d), *pools(b), i32(sl),
+                              i32(cl)),
+                             np.arange(5)[None] < cl[:, None], sl, sl + cl)
+    start = np.array([520, 1000])
+    chunk = np.array([512, 300])
+    cases["paged_prefill"] = ((q(2, hkv, g, 512, d), *pools(2), i32(start),
+                               i32(start + chunk)),
+                              np.arange(512)[None] < chunk[:, None],
+                              start, start + chunk)
+    return cases
+
+
+def _bound(args, live, base, limit):
+    """Least time for the same work: bytes (live K/V pages, q, triplet
+    out) over the memory rate vs flops (QK and PV over visible keys)
+    over the bf16 peak."""
+    q, kp = args[0], args[1]
+    b, hkv, g = q.shape[:3]
+    ell = 1 if q.dim() == 4 else q.shape[3]
+    d, page = q.shape[-1], kp.shape[1]
+    pos = base[:, None] + np.arange(ell)[None]              # (B, L)
+    vis = np.clip(np.minimum(pos + 1, limit[:, None]), 0, None)
+    n_kv = vis.max(axis=1)                                  # per slot
+    kv_bytes = int(np.sum(-(-n_kv // page))) * page * hkv * d * 2 * 2
+    io_bytes = q.numel() * 2 + b * hkv * g * ell * (d + 2) * 4
+    flops = 4 * d * hkv * g * float(np.sum(vis * live))
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def _sdpa(args, name):
+    """One SDPA call on a pre-gathered dense view: (fn, inputs built
+    outside the timed region)."""
+    q, kp, vp, pt = args[:4]
+    b, hkv, g = q.shape[:3]
+    d = q.shape[-1]
+    ell = 1 if q.dim() == 4 else q.shape[3]
+    # (B, S, Hkv, d) -> (B, H, S, d), kv heads repeated kv-major.
+    kd = pd.gather_pages(kp, pt).permute(0, 2, 1, 3).repeat_interleave(
+        g, dim=1).contiguous()
+    vd = pd.gather_pages(vp, pt).permute(0, 2, 1, 3).repeat_interleave(
+        g, dim=1).contiguous()
+    qd = q.reshape(b, hkv * g, ell, d)
+    s = kd.shape[2]
+    kv = torch.arange(s, device="cuda")
+    if name == "paged_decode":
+        base, limit = args[4] - 1, args[4]
+    elif name == "paged_prefill":
+        base, limit = args[4], args[5]
+    else:
+        base, limit = args[4], args[4] + args[5]
+    pos = base[:, None] + torch.arange(ell, device="cuda")[None]
+    mask = (kv[None, None] <= pos[..., None]) & \
+        (kv[None, None] < limit[:, None, None])
+    mask = mask[:, None]                                    # (B,1,L,S)
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd,
+                                                  attn_mask=mask)
+
+
+def check_kernels() -> list[dict]:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for name, (args, live, base, limit) in kernel_cases(gen).items():
+        mod = MODULES[name]
+        wrapper = getattr(mod, f"{name}_partial")
+        plain = getattr(mod, f"{name}_partial_plain")
+        entry = {"name": name, "route": "cuda", "source": SRC,
+                 "replaces": REPLACES[name]}
+        for rail in ("fa2", "hfa"):
+            use_hfa = rail == "hfa"
+            ko, km, kl = wrapper(*args, use_hfa=use_hfa)
+            po, pm, pl_ = plain(*args, use_hfa=use_hfa)
+            torch.cuda.synchronize()
+            shape = ko.shape[:3] + ((1,) if ko.dim() == 4 else ko.shape[3:4])
+            mask = torch.tensor(np.broadcast_to(live[:, None, None, :],
+                                                (shape[0], shape[1],
+                                                 shape[2], shape[3])),
+                                device="cuda")
+            kout = decode_k.finalize_decode(ko, kl, use_hfa=use_hfa)
+            pout = decode_k.finalize_decode(po, pl_, use_hfa=use_hfa)
+            kout, pout = kout.reshape(*shape, -1), pout.reshape(*shape, -1)
+            err = float((kout - pout)[mask].abs().max())
+            err_m = float((km.reshape(shape) - pm.reshape(shape))[mask]
+                          .abs().max())
+            if not (torch.isfinite(kout[mask]).all() and err <= ATOL_OUT[rail]
+                    and err_m <= ATOL_M):
+                raise AssertionError(
+                    f"{name}[{rail}] disagrees with its plain version: "
+                    f"max |out| err {err:.3g} (atol {ATOL_OUT[rail]}), "
+                    f"max |m| err {err_m:.3g} (atol {ATOL_M})")
+            ms = timed(lambda: wrapper(*args, use_hfa=use_hfa))
+            plain_ms = timed(lambda: plain(*args, use_hfa=use_hfa), reps=5,
+                             inner=2)
+            if rail == "fa2":
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            entry[f"{rail}_ms"] = ms
+            entry[f"{rail}_plain_ms"] = plain_ms
+            entry[f"{rail}_max_abs_err"] = err
+        entry["max_abs_err"] = max(entry["fa2_max_abs_err"],
+                                   entry["hfa_max_abs_err"])
+        entry["bound_ms"], entry["bound_by"] = _bound(args, live, base, limit)
+        entry["library_ms"] = timed(_sdpa(args, name))
+        print(f"kernel {name}: kernel_ms fa2 {entry['fa2_ms']:.4f} hfa "
+              f"{entry['hfa_ms']:.4f} | plain_ms fa2 "
+              f"{entry['fa2_plain_ms']:.4f} hfa {entry['hfa_plain_ms']:.4f} | "
+              f"library_ms {entry['library_ms']:.4f} | bound_ms "
+              f"{entry['bound_ms']:.4f} ({entry['bound_by']}) | max_abs_err "
+              f"fa2 {entry['fa2_max_abs_err']:.3g} hfa "
+              f"{entry['hfa_max_abs_err']:.3g}")
+        rows.append(entry)
+    return rows
+
+
+# ------------------------------------------------------------- phase 3
+def check_small_reference() -> None:
+    """Reduced qwen3-1.7b in f32: kernels on the card vs plain versions
+    on the CPU, one chunked prefill, one decode and one verify step."""
+    # fa2: f32 on both sides, summation order only.  hfa: the kernels
+    # rescale online on the rail (see ATOL_OUT), which moves attention
+    # outputs by up to ~1e-2 and the logits of this model by less.
+    for rail, tol in (("fa2", 1e-4), ("hfa", 2e-2)):
+        cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                                  attn_impl=rail)
+        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        gpu = LM(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        rng = np.random.default_rng(1)
+        pt = rng.permutation(40)[:32].reshape(2, 16).astype(np.int32)
+        toks = rng.integers(1, cfg.vocab_size, (2, 40)).astype(np.int32)
+        calls = (("paged_prefill", (toks, pt), dict(
+                    last_pos=np.array([39, 30], np.int32),
+                    start_pos=np.array([0, 0], np.int32))),
+                 ("paged_decode_step", (toks[:, :1], pt,
+                                        np.array([40, 31], np.int32)), {}),
+                 ("paged_verify_step", (toks[:, 1:6], pt,
+                                        np.array([41, 32], np.int32),
+                                        np.array([5, 5], np.int32)), {}))
+        caches = {m: m.init_paged_cache(40, 4) for m in (cpu, gpu)}
+        for meth, args, kw in calls:
+            out = {}
+            for m in (cpu, gpu):
+                dev = m.device
+                t = [torch.tensor(a, device=dev) for a in args]
+                k = {key: torch.tensor(v, device=dev) for key, v in kw.items()}
+                out[dev.type], caches[m] = getattr(m, meth)(caches[m], *t, **k)
+            err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
+            if not err <= tol:
+                raise AssertionError(f"reduced model {meth}[{rail}]: card vs "
+                                     f"CPU logits differ by {err:.3g} "
+                                     f"(atol {tol})")
+            print(f"reference: reduced qwen3-1.7b {meth} [{rail}] card "
+                  f"kernels vs CPU plain: max |logit| diff {err:.3g}")
+
+
+# ------------------------------------------------------------- phase 4
+def workload(vocab: int) -> list[Request]:
+    rng = np.random.default_rng(0)
+    sysp = rng.integers(1, vocab, 520).tolist()
+    return [Request(rid=i, prompt=sysp + rng.integers(
+        1, vocab, int(rng.integers(32, 257))).tolist(), max_new_tokens=64)
+        for i in range(16)]
+
+
+def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
+    finite = torch.ones((), dtype=torch.bool, device="cuda")
+    originals = {}
+    for meth in ("paged_prefill", "paged_decode_step", "paged_verify_step"):
+        orig = getattr(model, meth)
+        originals[meth] = orig
+
+        def checked(*a, _orig=orig, **k):
+            nonlocal finite
+            logits, layers = _orig(*a, **k)
+            finite = finite & torch.isfinite(logits).all()
+            return logits, layers
+        setattr(model, meth, checked)
+    try:
+        eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
+                            prefill_budget=512, spec_k=spec_k)
+        cfg = model.cfg
+        kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b
+        if kv_bytes != cfg.n_layers * page_codec.bytes_per_token(
+                "fp", cfg.n_kv_heads, cfg.d_head, torch.bfloat16):
+            raise AssertionError(f"pool holds {kv_bytes} B per token")
+        reqs = workload(cfg.vocab_size)
+        for mod in MODULES.values():
+            mod.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done = []
+        step = 0
+        arrivals = [(i, r) for i, r in enumerate(reqs)]
+        while arrivals or eng.sched.has_work:
+            while arrivals and arrivals[0][0] <= step:
+                eng.submit(arrivals.pop(0)[1])
+            done.extend(eng.step())
+            eng.cache.check_invariants()
+            step += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: m.launches for n, m in MODULES.items()}
+    finally:
+        for meth in originals:
+            model.__dict__.pop(meth, None)
+    if not bool(finite):
+        raise AssertionError("non-finite logits in the engine run")
+    streams = {f.rid: f.tokens for f in done}
+    if sorted(streams) != list(range(len(reqs))) or any(
+            len(t) != 64 for t in streams.values()):
+        raise AssertionError("not every request finished with 64 tokens")
+    return streams, {"launches": launches, "wall_s": wall,
+                     "stats": dict(eng.stats)}, wall
+
+
+def check_engine() -> dict:
+    totals = {n: 0 for n in MODULES}
+    for rail in ("fa2", "hfa"):
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
+        t0 = time.perf_counter()
+        model = LM(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        print(f"engine [{rail}]: qwen3-1.7b full width, {cfg.n_layers} "
+              f"layers, {n_params} parameters, init "
+              f"{time.perf_counter() - t0:.1f} s")
+        runs = {}
+        for spec_k in (0, 4):
+            streams, info, wall = run_engine(model, spec_k)
+            runs[spec_k] = streams
+            la = info["launches"]
+            need = ["paged_prefill",
+                    "paged_decode" if spec_k == 0 else "paged_verify"]
+            if any(la[n] <= 0 for n in need):
+                raise AssertionError(f"[{rail} spec_k={spec_k}] a kernel of "
+                                     f"the path never launched: {la}")
+            for n in MODULES:
+                totals[n] += la[n]
+            st = info["stats"]
+            print(f"engine [{rail} spec_k={spec_k}]: wall {wall:.3f} s, "
+                  f"{st['steps']} steps, {st['generated_tokens']} tokens "
+                  f"({st['generated_tokens'] / wall:.1f} tok/s), prefill "
+                  f"{st['prefill_tokens']} computed + "
+                  f"{st['cached_prefill_tokens']} cached, drafts "
+                  f"{st['draft_accepted']}/{st['draft_tokens']}, launches "
+                  f"{la}")
+        agree = sum(int(a == b) for rid in runs[0]
+                    for a, b in zip(runs[0][rid], runs[4][rid]))
+        total = sum(len(t) for t in runs[0].values())
+        same = sum(runs[0][rid] == runs[4][rid] for rid in runs[0])
+        print(f"engine [{rail}]: spec_k=4 vs spec_k=0 streams agree on "
+              f"{agree}/{total} tokens, {same}/{len(runs[0])} whole streams")
+        del model
+        torch.cuda.empty_cache()
+    return totals
+
+
+def profile_engine(steps: int = 10, warm: int = 30) -> None:
+    """Opt-in phase (``python3 chip_smoke.py profile``): torch.profiler
+    over ``steps`` engine steps of the fa2 spec_k=0 run after ``warm``
+    steps - device time by kernel, the device's busy share of the wall
+    window, and the host-side calls that wait on the card."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="fa2")
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
+                        prefill_budget=512)
+    reqs = workload(cfg.vocab_size)
+    for i in range(warm):
+        if i < len(reqs):
+            eng.submit(reqs[i])
+        eng.step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    print(f"profile: {steps} steps, wall {wall * 1e3:.1f} ms "
+          f"({wall / steps * 1e3:.2f} ms/step), device busy {busy * 1e3:.1f} "
+          f"ms = {busy / wall:.1%} of wall")
+    for e in sorted(ev, key=dev_us, reverse=True)[:15]:
+        if dev_us(e) <= 0:
+            break
+        print(f"profile device: {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x "
+              f"{e.key[:90]}")
+    for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:15]:
+        print(f"profile host: {e.self_cpu_time_total / 1e3:9.3f} ms "
+              f"{e.count:6d}x {e.key[:90]}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on the card only",
+              file=sys.stderr)
+        return 1
+    phases = sys.argv[1:] or ["kernels", "reference", "engine"]
+    card = card_line()
+    print(card)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}")
+    t0 = time.perf_counter()
+    cuda_lib.build(force=True)
+    cuda_lib.library()
+    print(f"build: nvcc sm_90a {time.perf_counter() - t0:.1f} s")
+    for line in cuda_lib.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            print("ptxas:", line.strip())
+    rows = []
+    if "kernels" in phases:
+        check_rail()
+        rows = check_kernels()
+    if "reference" in phases:
+        check_small_reference()
+    if "profile" in phases:
+        profile_engine()
+    if "engine" in phases:
+        totals = check_engine()
+        for r in rows:
+            r["launches"] = totals[r["name"]]
+    print(json.dumps({"kernels": rows}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,18 @@
+"""qwen3-1.7b: qk-norm + GQA [hf:Qwen/Qwen3-8B family; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+QWEN3_1_7B = register(ModelConfig(
+    name="qwen3-1.7b",
+    family="dense",
+    n_layers=28,
+    d_model=2048,
+    n_heads=16,
+    n_kv_heads=8,
+    d_head=128,
+    d_ff=6144,
+    vocab_size=151936,
+    qk_norm=True,
+    rope_theta=1000000.0,
+    attn_impl="fa2",
+    param_dtype="bfloat16",
+))

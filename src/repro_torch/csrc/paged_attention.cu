@@ -1,0 +1,394 @@
+// Paged attention for Hopper (sm_90a): decode, chunked prefill and
+// speculative verify over a paged KV block pool, on the fa2 rail (exp,
+// float divide later) or the H-FA rail (FIX16 quantized exponentials).
+//
+// Replaces the three Pallas TPU kernels of the reference package:
+//   src/repro/kernels/paged_decode.py   _paged_decode_kernel
+//   src/repro/kernels/paged_prefill.py  _paged_prefill_kernel
+//   src/repro/kernels/paged_verify.py   _paged_verify_kernel
+// All three share one body: walk a slot's page table, stream each KV tile
+// through the Alg. 2 online update and emit the unnormalized triplet
+// (o~, m, l) per query row.  They differ only in how many query rows a
+// (slot, kv head) has and in the mask, so here they are one kernel with
+// three C entry points.
+//
+// Query row r of a (slot b, kv head h) sits at local position l = r % L
+// (rows are the flattened (G, L) block, kv-head major).  With per-slot
+// numbers `base` and `limit` it sees KV positions kv with
+//     kv <= base + l  and  kv < limit:
+//   decode  (L = 1): base = kv_lens - 1,  limit = kv_lens
+//   prefill (L = chunk): base = start_pos, limit = kv_lens
+//   verify  (L = K): base = seq_lens, limit = seq_lens + chunk_lens
+//
+// Design.  One block of 128 threads takes one (slot, kv head, tile of 16
+// query rows).  The TPU kernel's sequential page axis becomes a loop
+// inside the block over 16-position KV tiles; the block reads its own
+// page ids from the page table.  The loop stops at the last position any
+// of its rows can see - exact, not an approximation: a fully masked tile
+// leaves m unchanged, so alpha is exp(0) = 1 on the fa2 rail and
+// exp2_hfa_rail(quant_rail(0)) = 1 on the hfa rail, and p = 0.
+// Each warp owns 4 rows as two row pairs; in a pair, lanes 0-15 take row
+// one and lanes 16-31 row two, lane k of a half scoring KV position k of
+// the tile and owning accumulator columns {k, k+16, ...}.  Everything is
+// f32 (pools are read as bf16 or f32 and widened), p included, as in the
+// Pallas kernel.
+//
+// What bounds it: the bytes of the live K/V pages (every page is read
+// once per 16-row tile, once per block from device memory and the rest
+// from L2).  This first version uses CUDA cores, plain loads and no
+// split of the page walk across blocks; wgmma, TMA and split-page merges
+// come later.
+//
+// Numerics of the H-FA rail are bit-equal to the plain torch versions in
+// repro_torch/kernels/bitmath.py: every step is exact or a single
+// correctly rounded f32 operation, written with __fmul_rn/__fadd_rn so
+// nvcc cannot contract them into FMAs, and rounding is half-to-even
+// (rintf), as jnp.round and torch.round are.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+namespace {
+
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;  // f32, as the reference rounds it
+constexpr float kClampNat = -15.0f;
+constexpr int kTile = 16;                         // KV positions per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kRowsPerWarp = 4;                   // two row pairs
+constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
+
+struct Lut {        // 8-segment PWL 2^-f, Q1.15 slopes then intercepts
+  float a[8];
+  float b[8];
+};
+
+struct Params {
+  const void* q;      // (B, Hkv, R, D), compute dtype
+  const void* k;      // (P, page, Hkv, D)
+  const void* v;      // (P, page, Hkv, D)
+  const int* pt;      // (B, J)
+  const int* lens_a;  // (B,)
+  const int* lens_b;  // (B,) or null (decode)
+  float* o;           // (B, Hkv, R, D)
+  float* m;           // (B, Hkv, R)
+  float* l;           // (B, Hkv, R)
+  int R, L, J, page, hkv, mode;
+  float scale;
+};
+
+// ---------------------------------------------------------------- H-FA rail
+__device__ __forceinline__ float lut8(float seg, const float* t) {
+  float out = t[0];
+#pragma unroll
+  for (int i = 1; i < 8; ++i) out = (seg >= (float)i) ? t[i] : out;
+  return out;
+}
+
+__device__ __forceinline__ float exp2_int(float p) {
+  int pi = (int)p;
+  pi = min(max(pi, -126), 127);
+  return __int_as_float((pi + 127) << 23);
+}
+
+// quant[(.)*log2 e] to the FIX16 rail (Eq. 14b/c); +0.0 folds -0 into +0.
+__device__ __forceinline__ float quant_rail(float x) {
+  const float d = fminf(fmaxf(x, kClampNat), 0.0f);
+  return __fadd_rn(rintf(__fmul_rn(__fmul_rn(d, kLog2e), 128.0f)), 0.0f);
+}
+
+// 2^(rail/128) for a non-positive rail value: PWL 2^-f, exponent packing.
+__device__ __forceinline__ float exp2_hfa_rail(float rail, const Lut& lut) {
+  const float d = -rail;
+  const float p = floorf(__fmul_rn(d, 0.0078125f));
+  const float f7 = __fsub_rn(d, __fmul_rn(p, 128.0f));
+  const float seg = fminf(fmaxf(floorf(__fmul_rn(f7, 0.0625f)), 0.0f), 7.0f);
+  const float a = lut8(seg, lut.a);
+  const float b = lut8(seg, lut.b);
+  const float g_q15 = __fadd_rn(floorf(__fmul_rn(__fmul_rn(a, f7), 0.0078125f)), b);
+  const float g7 = floorf(__fmul_rn(__fadd_rn(g_q15, 128.0f), 0.00390625f));
+  return __fmul_rn(__fmul_rn(g7, 0.0078125f), exp2_int(-p));
+}
+
+// LogDiv: 1/x by Blinn log2 on the f32 bits, rail negate, bit-pack.
+__device__ __forceinline__ float recip_logdiv(float x) {
+  const int mag = __float_as_int(x) & 0x7FFFFFFF;
+  const float lg = __fmul_rn(__int2float_rn(mag - (127 << 23)), 1.1920928955078125e-07f);
+  const float rail = rintf(__fmul_rn(lg, 128.0f));
+  const float neg = -rail;
+  const float ip = floorf(__fmul_rn(neg, 0.0078125f));
+  const float fp = __fsub_rn(__fmul_rn(neg, 0.0078125f), ip);
+  return __fmul_rn(exp2_int(ip), __fadd_rn(1.0f, fp));
+}
+
+// ------------------------------------------------------------------ loads
+template <typename T>
+struct Load4;
+
+template <>
+struct Load4<float> {
+  static __device__ __forceinline__ void run(const float* p, float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
+  }
+};
+
+template <>
+struct Load4<__nv_bfloat16> {
+  static __device__ __forceinline__ void run(const __nv_bfloat16* p, float* o) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+    const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+    o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
+  }
+};
+
+// ----------------------------------------------------------------- kernel
+template <typename T, int D, bool HFA>
+__global__ void __launch_bounds__(kThreads)
+paged_attention_kernel(const Params p, const Lut lut) {
+  constexpr int DK = D + 1;    // odd stride: the 16 score lanes hit 16 banks
+  constexpr int DQ = D + 16;   // the two rows of a pair sit 16 banks apart
+  constexpr int VPL = D / 16;  // accumulator columns per lane per row
+  __shared__ float q_s[kRowsPerBlock][DQ];
+  __shared__ float k_s[kTile][DK];
+  __shared__ float v_s[kTile][D];
+
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int row0 = blockIdx.x * kRowsPerBlock;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int half = lane >> 4;
+  const int kk = lane & 15;
+
+  const int a = p.lens_a[b];
+  int base, limit;
+  if (p.mode == 0) {
+    base = a - 1; limit = a;
+  } else if (p.mode == 1) {
+    base = a; limit = p.lens_b[b];
+  } else {
+    base = a; limit = a + p.lens_b[b];
+  }
+  // Furthest position any row of this block can see, within the table.
+  const int last_row = min(row0 + kRowsPerBlock, p.R) - 1;
+  const int max_l = (last_row / p.L != row0 / p.L) ? p.L - 1 : last_row % p.L;
+  const int n_kv = max(0, min(min(base + max_l + 1, limit), p.J * p.page));
+
+  const size_t bh = (size_t)b * p.hkv + h;
+  const T* q = static_cast<const T*>(p.q) + bh * p.R * D;
+  for (int idx = tid * 4; idx < kRowsPerBlock * D; idx += kThreads * 4) {
+    const int r = idx / D, c = idx % D;
+    float t4[4] = {0.f, 0.f, 0.f, 0.f};
+    if (row0 + r < p.R) Load4<T>::run(q + (size_t)(row0 + r) * D + c, t4);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) q_s[r][c + i] = t4[i];
+  }
+
+  float m_run[2], l_run[2], acc[2][VPL];
+  int qpos[2], rloc[2];
+  bool rvalid[2];
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    rloc[pr] = warp * kRowsPerWarp + pr * 2 + half;
+    const int row = row0 + rloc[pr];
+    rvalid[pr] = row < p.R;
+    qpos[pr] = base + row % p.L;
+    m_run[pr] = kNegInf;
+    l_run[pr] = 0.f;
+#pragma unroll
+    for (int c = 0; c < VPL; ++c) acc[pr][c] = 0.f;
+  }
+
+  const T* kpool = static_cast<const T*>(p.k);
+  const T* vpool = static_cast<const T*>(p.v);
+  const int* ptb = p.pt + (size_t)b * p.J;
+  for (int t0 = 0; t0 < n_kv; t0 += kTile) {
+    __syncthreads();  // the previous tile is consumed (and q_s written)
+    for (int idx = tid * 4; idx < kTile * D; idx += kThreads * 4) {
+      const int r = idx / D, c = idx % D;
+      const int kv = t0 + r;
+      float kt[4] = {0.f, 0.f, 0.f, 0.f}, vt[4] = {0.f, 0.f, 0.f, 0.f};
+      if (kv < n_kv) {
+        const int page_id = ptb[kv / p.page];
+        const size_t off = (((size_t)page_id * p.page + kv % p.page) * p.hkv + h) * D + c;
+        Load4<T>::run(kpool + off, kt);
+        Load4<T>::run(vpool + off, vt);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        k_s[r][c + i] = kt[i];
+        v_s[r][c + i] = vt[i];
+      }
+    }
+    __syncthreads();
+
+    const int kv = t0 + kk;
+#pragma unroll
+    for (int pr = 0; pr < 2; ++pr) {
+      const bool vis = rvalid[pr] && kv < n_kv && kv <= qpos[pr] && kv < limit;
+      const float* qr = q_s[rloc[pr]];
+      const float* kr = k_s[kk];
+      float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+#pragma unroll 8
+      for (int i = 0; i < D; i += 4) {
+        d0 = fmaf(qr[i], kr[i], d0);
+        d1 = fmaf(qr[i + 1], kr[i + 1], d1);
+        d2 = fmaf(qr[i + 2], kr[i + 2], d2);
+        d3 = fmaf(qr[i + 3], kr[i + 3], d3);
+      }
+      const float s = vis ? ((d0 + d1) + (d2 + d3)) * p.scale : kNegInf;
+      float mx = s;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m_run[pr], mx);
+      float alpha, pv;
+      if (HFA) {
+        alpha = exp2_hfa_rail(quant_rail(fminf(m_run[pr] - m_new, 0.f)), lut);
+        pv = exp2_hfa_rail(quant_rail(s - m_new), lut);
+      } else {
+        alpha = expf(fminf(m_run[pr] - m_new, 0.f));
+        pv = expf(s - m_new);
+      }
+      pv = (vis && m_new != kNegInf) ? pv : 0.f;
+      float ps = pv;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l_run[pr] = l_run[pr] * alpha + ps;
+      float pvacc[VPL];
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) pvacc[c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < kTile; ++j) {
+        const float pj = __shfl_sync(0xffffffffu, pv, (half << 4) + j);
+#pragma unroll
+        for (int c = 0; c < VPL; ++c) pvacc[c] = fmaf(pj, v_s[j][c * 16 + kk], pvacc[c]);
+      }
+#pragma unroll
+      for (int c = 0; c < VPL; ++c) acc[pr][c] = acc[pr][c] * alpha + pvacc[c];
+      m_run[pr] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int pr = 0; pr < 2; ++pr) {
+    if (!rvalid[pr]) continue;
+    const size_t orow = bh * p.R + row0 + rloc[pr];
+#pragma unroll
+    for (int c = 0; c < VPL; ++c) p.o[orow * D + c * 16 + kk] = acc[pr][c];
+    if (kk == 0) {
+      p.m[orow] = m_run[pr];
+      p.l[orow] = l_run[pr];
+    }
+  }
+}
+
+__global__ void rail_eval_kernel(const float* x, float* rail, float* pexp, float* recip,
+                                 int n, const Lut lut) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float r = quant_rail(x[i]);
+  rail[i] = r;
+  pexp[i] = exp2_hfa_rail(r, lut);
+  recip[i] = recip_logdiv(x[i]);
+}
+
+template <typename T, int D, bool HFA>
+void launch_t(const Params& p, const Lut& lut, int B, cudaStream_t s) {
+  const dim3 grid((p.R + kRowsPerBlock - 1) / kRowsPerBlock, p.hkv, B);
+  paged_attention_kernel<T, D, HFA><<<grid, kThreads, 0, s>>>(p, lut);
+}
+
+template <typename T, int D>
+void launch_rail(const Params& p, const Lut& lut, int B, int use_hfa, cudaStream_t s) {
+  if (use_hfa)
+    launch_t<T, D, true>(p, lut, B, s);
+  else
+    launch_t<T, D, false>(p, lut, B, s);
+}
+
+int launch(const Params& p, int B, int D, int use_hfa, int bf16, const void* lut_host,
+           void* stream) {
+  Lut lut;
+  memcpy(&lut, lut_host, sizeof(Lut));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || p.R <= 0 || p.L <= 0 || p.J <= 0 || p.page <= 0 || p.hkv <= 0 ||
+      (D != 64 && D != 128))
+    return (int)cudaErrorInvalidValue;
+  if (bf16) {
+    if (D == 64) launch_rail<__nv_bfloat16, 64>(p, lut, B, use_hfa, s);
+    else launch_rail<__nv_bfloat16, 128>(p, lut, B, use_hfa, s);
+  } else {
+    if (D == 64) launch_rail<float, 64>(p, lut, B, use_hfa, s);
+    else launch_rail<float, 128>(p, lut, B, use_hfa, s);
+  }
+  return (int)cudaGetLastError();
+}
+
+Params make_params(const void* q, const void* k, const void* v, const void* pt,
+                   const void* lens_a, const void* lens_b, void* o, void* m, void* l,
+                   int R, int L, int J, int page, int hkv, int mode, float scale) {
+  Params p;
+  p.q = q; p.k = k; p.v = v;
+  p.pt = static_cast<const int*>(pt);
+  p.lens_a = static_cast<const int*>(lens_a);
+  p.lens_b = static_cast<const int*>(lens_b);
+  p.o = static_cast<float*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.R = R; p.L = L; p.J = J; p.page = page; p.hkv = hkv; p.mode = mode;
+  p.scale = scale;
+  return p;
+}
+
+}  // namespace
+
+// Each entry point returns cudaGetLastError() after its launch (0 = ok).
+extern "C" int paged_decode_fwd(const void* q, const void* k, const void* v, const void* pt,
+                                const void* kv_lens, void* o, void* m, void* l, int B,
+                                int hkv, int G, int D, int J, int page, float scale,
+                                int use_hfa, int bf16, const void* lut, void* stream) {
+  const Params p = make_params(q, k, v, pt, kv_lens, nullptr, o, m, l, G, 1, J, page, hkv, 0,
+                               scale);
+  return launch(p, B, D, use_hfa, bf16, lut, stream);
+}
+
+extern "C" int paged_prefill_fwd(const void* q, const void* k, const void* v, const void* pt,
+                                 const void* start_pos, const void* kv_lens, void* o, void* m,
+                                 void* l, int B, int hkv, int G, int L, int D, int J, int page,
+                                 float scale, int use_hfa, int bf16, const void* lut,
+                                 void* stream) {
+  const Params p = make_params(q, k, v, pt, start_pos, kv_lens, o, m, l, G * L, L, J, page,
+                               hkv, 1, scale);
+  return launch(p, B, D, use_hfa, bf16, lut, stream);
+}
+
+extern "C" int paged_verify_fwd(const void* q, const void* k, const void* v, const void* pt,
+                                const void* seq_lens, const void* chunk_lens, void* o, void* m,
+                                void* l, int B, int hkv, int G, int K, int D, int J, int page,
+                                float scale, int use_hfa, int bf16, const void* lut,
+                                void* stream) {
+  const Params p = make_params(q, k, v, pt, seq_lens, chunk_lens, o, m, l, G * K, K, J, page,
+                               hkv, 2, scale);
+  return launch(p, B, D, use_hfa, bf16, lut, stream);
+}
+
+// The rail device functions, elementwise over n f32 values: rail =
+// quant_rail(x), pexp = exp2_hfa_rail(rail), recip = recip_logdiv(x).
+extern "C" int hfa_rail_eval(const void* x, void* rail, void* pexp, void* recip, int n,
+                             const void* lut_host, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  Lut lut;
+  memcpy(&lut, lut_host, sizeof(Lut));
+  rail_eval_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<float*>(rail), static_cast<float*>(pexp),
+      static_cast<float*>(recip), n, lut);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,65 @@
+"""Bit-trick float math of the H-FA rail, as plain torch.
+
+These are the plain versions of the device functions in
+``csrc/paged_attention.cu`` (``quant_rail``, ``exp2_hfa_rail``,
+``recip_logdiv``): every step is exact or a single correctly rounded
+float32 operation, so the CUDA kernels and these functions agree bit for
+bit.  Rounding is half-to-even everywhere (``torch.round`` here,
+``rintf`` in CUDA).
+
+The straight-through estimator of the reference is left out: it only
+matters for training, which this package does not port yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import lns
+from repro_torch.core.numerics import FRAC_ONE
+
+F32_BIAS = 127
+F32_MANT = 23
+
+
+def exp2_int(p: torch.Tensor) -> torch.Tensor:
+    """Exact 2^p for integer-valued float/int p via exponent-field packing."""
+    pi = torch.clamp(p.to(torch.int32), -126, 127)
+    bits = torch.bitwise_left_shift(pi + F32_BIAS, F32_MANT)
+    return bits.view(torch.float32)
+
+
+def log2_mitchell_f32(x: torch.Tensor) -> torch.Tensor:
+    """Blinn/Mitchell log2 of |x| for float32 x (Eq. 18 on f32 bits):
+    log2(x) ~= E + M - one bitcast, one int subtract, one scale."""
+    bits = x.to(torch.float32).contiguous().view(torch.int32)
+    mag = torch.bitwise_and(bits, 0x7FFFFFFF)
+    return (mag - (F32_BIAS << F32_MANT)).to(torch.float32) * (2.0 ** -F32_MANT)
+
+
+def exp2_hfa_rail(rail: torch.Tensor) -> torch.Tensor:
+    """H-FA hardware 2^{rail/128} for a non-positive FIX16 rail value:
+    PWL for the fractional 2^{-f}, exponent packing for the 2^{-p} shift,
+    the PWL output quantized to the 7-bit rail like the FIX16 datapath."""
+    d = -rail  # non-negative
+    p = torch.floor(d / FRAC_ONE)
+    f7 = d - p * FRAC_ONE
+    g7 = lns.pwl_exp2_frac(f7)          # fraction rail in [64, 128]
+    return (g7 * (1.0 / FRAC_ONE)) * exp2_int(-p)
+
+
+def quant_rail(diff_nat: torch.Tensor) -> torch.Tensor:
+    """quant[(.)*log2 e] to the FIX16 rail (Eq. 14b/c).  Adding 0.0
+    folds a rounded -0.0 into +0.0, the zero the reference yields."""
+    diff = torch.clamp(diff_nat, lns.DIFF_CLAMP_NAT, 0.0)
+    return torch.round(diff * lns.LOG2E * FRAC_ONE) + 0.0
+
+
+def recip_logdiv(ell: torch.Tensor) -> torch.Tensor:
+    """1/ell without a divider: Blinn log2, rail negate, inverse bit-pack
+    (the LogDiv unit's division-free normalization on a float
+    accumulator, quantized to the 7-bit fraction rail)."""
+    rail = torch.round(log2_mitchell_f32(ell) * FRAC_ONE)
+    neg = -rail
+    i_part = torch.floor(neg / FRAC_ONE)
+    f_part = neg / FRAC_ONE - i_part
+    return exp2_int(i_part) * (1.0 + f_part)

@@ -1,0 +1,64 @@
+"""Paged multi-query verify for self-speculative decode: kernel wrapper
+and plain version.
+
+One verify step scores K = 1 + spec_k tokens per slot (the carry token
+plus drafts) in a single page-table walk.  Token i of slot b sits at
+``seq_lens[b] + i``; its K/V is already in the pools
+(``paged_prefill.write_chunk_kv`` with ``start_pos = seq_lens``).  Row i
+sees KV positions ``<= seq_lens[b] + i`` and ``< seq_lens[b] +
+chunk_lens[b]``; ``chunk_lens[b] == 0`` is a free slot riding along and
+yields (0, NEG_INF, 0).  With K = 1 it is the paged decode.
+
+``paged_verify_partial`` replaces the Pallas kernel
+``src/repro/kernels/paged_verify.py::_paged_verify_kernel`` (wrapper
+``paged_verify_partial_pallas``).  On a CUDA tensor it launches
+``paged_verify_fwd`` from ``csrc/paged_attention.cu`` and counts it in
+:data:`launches`; on a CPU tensor it runs the plain version, which is
+also the counterpart of the reference's ``paged_verify_partial_ref``.
+On the card it is bound by the bytes of the live K/V pages: G*K rows
+(10 at qwen3-1.7b with spec_k 4) fit one 16-row block per (slot, kv
+head), so each page is read once.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import cuda_lib
+from repro_torch.kernels.paged_decode import (_default_scale,
+                                              paged_partial_plain)
+
+launches = 0
+
+
+def paged_verify_partial_plain(q, k_pages, v_pages, page_table, seq_lens,
+                               chunk_lens, *, scale=None, use_hfa=False):
+    """Plain version of the paged verify kernel."""
+    kw = q.shape[3]
+    sl = seq_lens.to(torch.int32)
+    q_pos = sl[:, None] + torch.arange(kw, dtype=torch.int32,
+                                       device=q.device)[None]
+    return paged_partial_plain(q, k_pages, v_pages, page_table, q_pos,
+                               sl + chunk_lens.to(torch.int32),
+                               scale=scale, use_hfa=use_hfa)
+
+
+def paged_verify_partial(q: torch.Tensor, k_pages: torch.Tensor,
+                         v_pages: torch.Tensor, page_table: torch.Tensor,
+                         seq_lens: torch.Tensor, chunk_lens: torch.Tensor, *,
+                         scale: float | None = None, use_hfa: bool = False):
+    """Partial paged verify attention: q (B, Hkv, G, K, d); returns o~
+    (B, Hkv, G, K, d) and m, l (B, Hkv, G, K), all f32.  Rows at
+    ``i >= chunk_lens[b]`` are garbage the caller ignores."""
+    if q.device.type == "cpu":
+        return paged_verify_partial_plain(q, k_pages, v_pages, page_table,
+                                          seq_lens, chunk_lens, scale=scale,
+                                          use_hfa=use_hfa)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_verify_partial: no kernel for {q.device}")
+    global launches
+    out = cuda_lib.launch_paged(
+        "paged_verify_fwd", q, k_pages, v_pages, page_table, seq_lens,
+        chunk_lens, scale=_default_scale(q.shape[-1], scale),
+        use_hfa=use_hfa)
+    launches += 1
+    return out

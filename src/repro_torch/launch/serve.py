@@ -1,0 +1,117 @@
+"""Serving entry point of the port: greedy continuous batching over paged
+KV on the card.
+
+  python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --reduced --device cpu --batch 2 --steps 4
+
+Weights are random, drawn from ``--seed`` (nothing is downloaded);
+prompts are random token ids from the same seed, one new arrival per
+engine step.  ``--attn-impl`` picks the attention rail: ``fa2`` (exp and
+a float divide) or ``hfa`` (the FIX16 H-FA rail and LogDiv).
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import numpy as np
+
+
+def parse_prefill_budget(value: str | None) -> int | None:
+    """CLI form of the engine's ``prefill_budget``: "none"/"" -> None
+    (unbounded), else an int token budget."""
+    if value is None or value.lower() in ("", "none"):
+        return None
+    try:
+        return int(value)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"expected an int or 'none', got {value!r}")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the default) or cpu for the plain versions")
+    ap.add_argument("--attn-impl", choices=("fa2", "hfa"), default=None,
+                    help="attention rail (default: the config's)")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="concurrent decode slots")
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=32,
+                    help="decode tokens per request")
+    ap.add_argument("--max-seq", type=int, default=128)
+    ap.add_argument("--requests", type=int, default=0,
+                    help="total requests (default 2x batch)")
+    ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--prefill-budget", type=parse_prefill_budget,
+                    default=None,
+                    help="prefill token budget per engine step (chunked "
+                         "prefill): an int or 'none' (unbounded, default)")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable shared-prefix page reuse")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="max prompt-lookup draft tokens verified per "
+                         "decode step (0 = no speculation)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of the random weights and prompts")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import Request, ServingEngine
+
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    model = build_model(cfg, device=args.device)
+    model.init(torch.Generator(device=model.device).manual_seed(args.seed))
+
+    n_req = args.requests or 2 * args.batch
+    rng = np.random.default_rng(args.seed)
+    prompts = rng.integers(1, cfg.vocab_size, (n_req, args.prompt_len))
+    engine = ServingEngine(model, max_batch=args.batch,
+                           page_size=args.page_size, max_seq=args.max_seq,
+                           prefill_budget=args.prefill_budget,
+                           prefix_caching=not args.no_prefix_cache,
+                           spec_k=args.spec_k, device=args.device)
+    arrivals = [(i, Request(rid=i, prompt=prompts[i].tolist(),
+                            max_new_tokens=args.steps))
+                for i in range(n_req)]
+    t0 = time.perf_counter()
+    finished = engine.run(arrivals)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    engine.cache.check_invariants()
+    st = engine.stats
+    print(f"device {model.device}"
+          + (f" ({torch.cuda.get_device_name(model.device)})"
+             if model.device.type == "cuda" else "")
+          + f", {cfg.name}, rail {cfg.attn_impl}")
+    print(f"served {len(finished)} requests in {st['steps']} steps "
+          f"({st['prefill_chunks']} prefill chunks, "
+          f"{st['preemptions']} preemptions, page_size={args.page_size})")
+    print(f"prefill: {st['prefill_tokens']} tokens computed, "
+          f"{st['cached_prefill_tokens']} reused from prefix cache")
+    print(f"generated {st['generated_tokens']} tokens in {dt:.2f} s "
+          f"-> {st['generated_tokens'] / dt:.1f} tok/s")
+    print(f"kv pool {engine.pool_bytes()} B, {engine.bytes_per_token()} "
+          f"B/token")
+    if args.spec_k:
+        rate = st["draft_accepted"] / max(st["draft_tokens"], 1)
+        print(f"speculation: {st['draft_accepted']}/{st['draft_tokens']} "
+              f"drafts accepted ({rate:.0%}), {st['rollbacks']} rollbacks")
+    print("sample:", finished[0].tokens[:12])
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,196 @@
+"""Layers of the dense transformer, as ``nn.Module`` parameter holders
+plus the reference's ``*_apply`` functions.
+
+Parameters keep the reference's einsum layouts (``wq`` is (d_model, H,
+dh), ``wo`` is (H, dh, d_model), ``wg``/``wu`` are (d_model, d_ff)) so
+:mod:`repro_torch.models.convert` copies them unchanged.  Norms,
+softmax-adjacent math and RoPE run in f32 and cast back, as in the
+reference.
+
+Attention is ported as far as its paged branch: the serving engine
+always passes a paged cache and a ``page_state``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import page_codec
+from repro_torch.kernels import paged_decode as paged_k
+from repro_torch.kernels import paged_prefill as paged_pf_k
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ---------------------------------------------------------------- modules
+class RMSNorm(nn.Module):
+    def __init__(self, d: int, dtype, device):
+        super().__init__()
+        self.scale = _param((d,), dtype, device)
+
+
+class Embedding(nn.Module):
+    def __init__(self, vocab: int, d: int, dtype, device):
+        super().__init__()
+        self.emb = _param((vocab, d), dtype, device)
+
+
+class Attention(nn.Module):
+    """GQA attention params (qk-norm and qkv bias optional)."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        d, h, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = _param((d, h, dh), dtype, device)
+        self.wk = _param((d, hkv, dh), dtype, device)
+        self.wv = _param((d, hkv, dh), dtype, device)
+        self.wo = _param((h, dh, d), dtype, device)
+        if cfg.qkv_bias:
+            self.bq = _param((h, dh), dtype, device)
+            self.bk = _param((hkv, dh), dtype, device)
+            self.bv = _param((hkv, dh), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = _param((dh,), dtype, device)
+            self.k_norm = _param((dh,), dtype, device)
+
+
+class SwiGLU(nn.Module):
+    def __init__(self, d: int, ff: int, dtype, device):
+        super().__init__()
+        self.wg = _param((d, ff), dtype, device)
+        self.wu = _param((d, ff), dtype, device)
+        self.wd = _param((ff, d), dtype, device)
+
+
+def init_dense_(w: torch.Tensor, generator: torch.Generator,
+                scale: float) -> None:
+    """Fill ``w`` with N(0, 1) * scale drawn from ``generator`` (on the
+    generator's device, then copied to ``w``)."""
+    x = torch.randn(tuple(w.shape), generator=generator,
+                    device=generator.device, dtype=torch.float32) * scale
+    w.copy_(x.to(w.dtype))
+
+
+# ---------------------------------------------------------------- apply
+def rmsnorm_apply(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * p.scale.to(torch.float32)).to(x.dtype)
+
+
+def embedding_lookup(p: Embedding, ids: torch.Tensor) -> torch.Tensor:
+    return p.emb[ids]
+
+
+def rope_apply(x: torch.Tensor, positions: torch.Tensor,
+               theta: float = 10000.0) -> torch.Tensor:
+    """Rotary embedding, half-split, in f32. x: (B, S, H, dh),
+    positions: (B, S) or (S,)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=x.device) / half))
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    ang = positions[..., None].to(torch.float32) * freqs     # (B, S, half)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1 = x[..., :half].to(torch.float32)
+    x2 = x[..., half:].to(torch.float32)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _head_rmsnorm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6):
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)
+            * scale.to(torch.float32)).to(x.dtype)
+
+
+def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    g = torch.einsum("bsd,df->bsf", x, p.wg.to(x.dtype))
+    u = torch.einsum("bsd,df->bsf", x, p.wu.to(x.dtype))
+    y = torch.nn.functional.silu(g.to(torch.float32)).to(x.dtype) * u
+    return torch.einsum("bsf,fd->bsd", y, p.wd.to(x.dtype))
+
+
+def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
+                    positions: torch.Tensor, cache: dict, page_state: dict):
+    """Paged self-attention.  Returns (out (B, S, d_model), pools).
+
+    ``cache`` is a paged block pool {"k_pages", "v_pages"} of this
+    layer and ``page_state`` the engine's tables: {"page_table" (B, J),
+    "seq_lens" (B,)} for decode, plus "chunk_lens" and "verify" for a
+    speculative verify step, or "prefill", "start_pos" and "chunk_lens"
+    for a chunked prefill.  ``cfg.attn_impl`` picks the rail: "hfa..."
+    runs the H-FA rail, anything else fa2.
+    """
+    wdt = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(wdt))
+    k = torch.einsum("bsd,dhk->bshk", x, p.wk.to(wdt))
+    v = torch.einsum("bsd,dhk->bshk", x, p.wv.to(wdt))
+    if cfg.qkv_bias:
+        q = q + p.bq.to(wdt)
+        k = k + p.bk.to(wdt)
+        v = v + p.bv.to(wdt)
+    if cfg.qk_norm:
+        q = _head_rmsnorm(p.q_norm, q)
+        k = _head_rmsnorm(p.k_norm, k)
+    if cfg.pos_emb != "rope":
+        raise NotImplementedError("paged attention needs rope positions")
+    q = rope_apply(q, positions, cfg.rope_theta)
+    k = rope_apply(k, positions, cfg.rope_theta)
+    out, new_pools = _paged_attention(q, k, v, cache, page_state,
+                                      impl=cfg.attn_impl)
+    out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(wdt))
+    return out, new_pools
+
+
+def _paged_attention(q, k, v, cache, page_state, *, impl):
+    """Attention against a paged block-pool KV cache (serving path).
+
+    Verify: scatter the K step tokens at positions seq_lens[b].. (rows
+    past chunk_lens dropped), then score all K positions in one walk.
+    Decode: append the token at seq_lens[b], then attend over each
+    slot's pages.  Chunked prefill: scatter the chunk at start_pos[b]..
+    (padding rows dropped), then attend causally against everything
+    written for the sequence.  The reference's legacy whole-prompt
+    prefill (no start_pos) and its tensor-parallel branch are not
+    ported; the engine never takes the first, and the second waits for
+    ROADMAP.md Queue 1 item 11.
+    """
+    pt = page_state["page_table"]
+    codec = page_codec.get_codec(page_state.get("codec"))
+    if page_state.get("verify", False):
+        sl = page_state["seq_lens"]
+        cl = page_state["chunk_lens"]
+        pools = page_codec.encode_write(paged_pf_k.write_chunk_kv, codec,
+                                        cache, k, v, pt, sl, cl)
+        out = kops.paged_verify_attention(
+            q, pools["k_pages"], pools["v_pages"], pt, sl, cl, impl=impl)
+    elif not page_state.get("prefill", False):
+        sl = page_state["seq_lens"]
+        pools = page_codec.encode_write(paged_k.append_kv, codec, cache, k,
+                                        v, pt, sl)
+        kv_lens = torch.where(sl > 0, sl + 1, torch.zeros_like(sl))
+        out = kops.paged_decode_attention(
+            q, pools["k_pages"], pools["v_pages"], pt, kv_lens, impl=impl)
+    elif "start_pos" in page_state:
+        sp = page_state["start_pos"]
+        cl = page_state["chunk_lens"]
+        pools = page_codec.encode_write(paged_pf_k.write_chunk_kv, codec,
+                                        cache, k, v, pt, sp, cl)
+        out = kops.paged_prefill_attention(
+            q, pools["k_pages"], pools["v_pages"], pt, sp, cl, impl=impl)
+    else:
+        raise NotImplementedError(
+            "legacy whole-prompt paged prefill is not ported: pass "
+            "start_pos and last_pos (chunked prefill)")
+    return out, pools
+

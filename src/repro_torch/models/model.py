@@ -1,0 +1,180 @@
+"""LM facade for paged serving.
+
+``LM(cfg, device=...)`` is an ``nn.Module`` holding the parameters (the
+reference passes a params pytree to pure functions; here the module is
+the params).  It builds on ``cuda`` unless the caller passes
+``device="cpu"``.  :meth:`LM.init` draws random weights of the
+reference's shapes and distributions from an explicit
+``torch.Generator``; :mod:`repro_torch.models.convert` loads the
+reference's own weights instead.
+
+Ported so far: dense GQA stacks with RoPE, RMSNorm and SwiGLU (the
+qwen3 family) and the paged serving methods - ``init_paged_cache``,
+chunked ``paged_prefill``, ``paged_decode_step`` and
+``paged_verify_step``.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as T
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        if (cfg.family != "dense" or cfg.pos_emb != "rope"
+                or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu"):
+            raise NotImplementedError(
+                f"{cfg.name}: only dense rope/rmsnorm/swiglu stacks are "
+                "ported so far")
+        self.cfg = cfg
+        dev = resolve_device(device)
+        pdt = DTYPES[cfg.param_dtype]
+        self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, pdt, dev)
+        self.layers = nn.ModuleList(T.Block(cfg, pdt, dev)
+                                    for _ in range(cfg.n_layers))
+        self.final_norm = L.RMSNorm(cfg.d_model, pdt, dev)
+        if not cfg.tie_embeddings:
+            self.lm_head = L._param((cfg.d_model, cfg.padded_vocab), pdt,
+                                    dev)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.emb.device
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return DTYPES[self.cfg.compute_dtype]
+
+    # ------------------------------------------------------------- init
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "LM":
+        """Random weights with the reference's shapes and distributions
+        (``LM._init``): embeddings and head N(0, 0.02^2), projections
+        N(0, 1/fan_in), norm scales 1.  Returns self."""
+        cfg = self.cfg
+        d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
+        L.init_dense_(self.embed.emb, generator, 0.02)
+        for blk in self.layers:
+            at = blk.mixer
+            for w in (at.wq, at.wk, at.wv):
+                L.init_dense_(w, generator, 1.0 / math.sqrt(d))
+            L.init_dense_(at.wo, generator, 1.0 / math.sqrt(h * dh))
+            for name in ("bq", "bk", "bv"):
+                if hasattr(at, name):
+                    getattr(at, name).zero_()
+            for name in ("q_norm", "k_norm"):
+                if hasattr(at, name):
+                    getattr(at, name).fill_(1.0)
+            L.init_dense_(blk.ffn.wg, generator, 1.0 / math.sqrt(d))
+            L.init_dense_(blk.ffn.wu, generator, 1.0 / math.sqrt(d))
+            L.init_dense_(blk.ffn.wd, generator, 1.0 / math.sqrt(cfg.d_ff))
+            blk.norm1.scale.fill_(1.0)
+            blk.norm2.scale.fill_(1.0)
+        self.final_norm.scale.fill_(1.0)
+        if not cfg.tie_embeddings:
+            L.init_dense_(self.lm_head, generator, 0.02)
+        return self
+
+    # ------------------------------------------------------------ pieces
+    def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
+        return L.embedding_lookup(self.embed, tokens).to(self.compute_dtype)
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        """Logits over the padded vocab (the same columns the reference's
+        argmax sees)."""
+        w = self.embed.emb.T if self.cfg.tie_embeddings else self.lm_head
+        return torch.einsum("bsd,dv->bsv", x, w.to(x.dtype))
+
+    def _finish(self, x: torch.Tensor) -> torch.Tensor:
+        return self._head(L.rmsnorm_apply(self.final_norm, x,
+                                          self.cfg.norm_eps))
+
+    # ------------------------------------------------ paged decode (serving)
+    def init_paged_cache(self, num_pages: int, page_size: int,
+                         codec: str = "fp"):
+        """Shared block-pool KV caches for continuous batching, stacked
+        (groups, P, page, Hkv, dh), on this model's device."""
+        return T.stack_init_paged_cache(self.cfg, num_pages, page_size,
+                                        self.compute_dtype, self.device,
+                                        codec=codec)
+
+    @torch.no_grad()
+    def paged_prefill(self, layers, tokens, page_table, last_pos=None,
+                      start_pos=None, codec: str = "fp"):
+        """Chunked prefill into paged KV storage.
+
+        tokens (B, L) rows padded to a common L; row b is a chunk of
+        ``last_pos[b] + 1`` real tokens starting at absolute position
+        ``start_pos[b]``.  The chunk attends causally against all KV
+        already written for its sequence plus itself; padding rows are
+        never written.  The LM head runs only at ``last_pos``.  Returns
+        (logits (B, 1, V), layers) - the pools are updated in place.
+        """
+        if start_pos is None or last_pos is None:
+            raise NotImplementedError(
+                "only chunked paged prefill (start_pos and last_pos) is "
+                "ported")
+        x = self._embed_in(tokens)
+        start_pos = start_pos.to(torch.int32)
+        positions = start_pos[:, None] + torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
+        ps = {"page_table": page_table, "prefill": True, "codec": codec,
+              "start_pos": start_pos,
+              "chunk_lens": last_pos.to(torch.int32) + 1}
+        x, layers = T.stack_apply(self.layers, x, self.cfg,
+                                  positions=positions, caches=layers,
+                                  page_state=ps)
+        rows = torch.arange(x.shape[0], device=x.device)
+        x = x[rows, last_pos.to(torch.int64)][:, None]
+        return self._finish(x), layers
+
+    @torch.no_grad()
+    def paged_verify_step(self, layers, tokens, page_table, seq_lens,
+                          chunk_lens, codec: str = "fp"):
+        """K-token speculative verify step across every slot.
+
+        tokens (B, K): the carry token and up to K-1 drafts, landing at
+        ``seq_lens[b] + i``; chunk_lens (B,) real inputs per slot (0 =
+        free or mid-prefill slot: nothing written, logits garbage).
+        Returns (logits (B, K, V), layers).
+        """
+        x = self._embed_in(tokens)
+        seq_lens = seq_lens.to(torch.int32)
+        positions = seq_lens[:, None] + torch.arange(
+            tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
+        ps = {"page_table": page_table, "seq_lens": seq_lens,
+              "codec": codec, "chunk_lens": chunk_lens.to(torch.int32),
+              "verify": True}
+        x, layers = T.stack_apply(self.layers, x, self.cfg,
+                                  positions=positions, caches=layers,
+                                  page_state=ps)
+        return self._finish(x), layers
+
+    @torch.no_grad()
+    def paged_decode_step(self, layers, tokens, page_table, seq_lens,
+                          codec: str = "fp"):
+        """One continuous-batching decode step: tokens (B, 1) land at
+        ``seq_lens[b]`` (0 = free slot: write dropped, logits garbage).
+        Returns (logits (B, 1, V), layers)."""
+        x = self._embed_in(tokens)
+        seq_lens = seq_lens.to(torch.int32)
+        ps = {"page_table": page_table, "seq_lens": seq_lens,
+              "codec": codec}
+        x, layers = T.stack_apply(self.layers, x, self.cfg,
+                                  positions=seq_lens[:, None], caches=layers,
+                                  page_state=ps)
+        return self._finish(x), layers
+
+
+def build_model(cfg: ModelConfig, device=None) -> LM:
+    return LM(cfg, device=device)

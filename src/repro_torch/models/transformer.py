@@ -1,0 +1,81 @@
+"""Dense pre-norm transformer blocks and the paged cache layout.
+
+A block is attention + SwiGLU FFN, each behind an RMSNorm with a
+residual.  The reference scans over a leading ``groups`` axis
+(``lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
+Python loop.  The paged KV pools keep the reference's stacked layout,
+``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups, P, page, Hkv,
+dh), so layer ``g * period + i`` reads pools ``["l{i}"][...][g]`` - a
+view, so the in-place page writes land in the stacked tensor.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import page_codec
+from repro_torch.models import layers as L
+
+
+class Block(nn.Module):
+    """Attention + dense SwiGLU FFN, pre-norm residual."""
+
+    def __init__(self, cfg, dtype, device):
+        super().__init__()
+        self.norm1 = L.RMSNorm(cfg.d_model, dtype, device)
+        self.mixer = L.Attention(cfg, dtype, device)
+        self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
+        self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+
+
+def block_apply(blk: Block, x, cfg, *, positions, cache, page_state):
+    """Returns (x, this layer's pools)."""
+    h = L.rmsnorm_apply(blk.norm1, x, cfg.norm_eps)
+    y, new_cache = L.attention_apply(blk.mixer, h, cfg, positions=positions,
+                                     cache=cache, page_state=page_state)
+    x = x + y
+    h = L.rmsnorm_apply(blk.norm2, x, cfg.norm_eps)
+    return x + L.swiglu_apply(blk.ffn, h), new_cache
+
+
+def period_pattern(cfg) -> tuple[list[str], list[str], int]:
+    """(mixer kinds, ffn kinds, period length) - the repeating unit the
+    stacked cache layout is grouped by."""
+    kinds = cfg.layer_kinds()
+    ffns = cfg.ffn_kinds()
+    n = cfg.n_layers
+    for p in range(1, n + 1):
+        if n % p:
+            continue
+        if (kinds == kinds[:p] * (n // p)) and (ffns == ffns[:p] * (n // p)):
+            return kinds[:p], ffns[:p], p
+    return kinds, ffns, n
+
+
+def stack_apply(layers: nn.ModuleList, x, cfg, *, positions, caches,
+                page_state):
+    """Run every layer; ``caches`` are the stacked pools, updated in
+    place.  ``page_state`` is shared by all layers of one step."""
+    period = period_pattern(cfg)[2]
+    for idx, blk in enumerate(layers):
+        g, i = divmod(idx, period)
+        cache = {key: pool[g] for key, pool in caches[f"l{i}"].items()}
+        x, _ = block_apply(blk, x, cfg, positions=positions, cache=cache,
+                           page_state=page_state)
+    return x, caches
+
+
+def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,
+                           device, codec: str = "fp"):
+    """Paged block-pool caches, stacked (groups, P, page, Hkv, dh), one
+    shared pool per layer, zero-filled."""
+    kinds, _, period = period_pattern(cfg)
+    groups = cfg.n_layers // period
+    if not all(k == "attn" for k in kinds):
+        raise NotImplementedError(
+            f"paged KV cache supports attention-only stacks, got {kinds}")
+    sdt = page_codec.get_codec(codec).storage_dtype(dtype)
+    shape = (groups, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
+    return {f"l{i}": {"k_pages": torch.zeros(shape, dtype=sdt, device=device),
+                      "v_pages": torch.zeros(shape, dtype=sdt, device=device)}
+            for i in range(period)}

@@ -1,0 +1,105 @@
+"""The port stands alone and never moves to the CPU on its own.
+
+* Every module of ``repro_torch`` - and ``chip_smoke.py`` - imports in a
+  subprocess where ``jax`` and ``repro`` cannot be imported.
+* Without a card, the default device (``cuda``) raises instead of
+  falling back: building the LM or the engine, and loading the kernels.
+* What this slice does not port is refused with a clear error.
+"""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.kernels import cuda_lib, page_codec
+from repro_torch.kernels import paged_decode as tpd
+from repro_torch.models.model import LM
+from repro_torch.serving import Request, SamplingParams, ServingEngine
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, importlib.util, pkgutil, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", sys.argv[1])
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k, v in sys.modules.items() if v is not None)
+print(len(names))
+"""
+
+
+def test_every_module_imports_without_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL,
+                          str(ROOT / "chip_smoke.py")],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[-1]) >= 20      # the whole package
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device works here")
+
+
+def _small_lm():
+    return LM(get_config("qwen3-1.7b").reduced(), device="cpu")
+
+
+def test_default_device_raises_without_a_card():
+    _no_card()
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LM(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(_small_lm())          # the engine defaults to cuda
+
+
+def test_kernel_route_raises_without_a_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cuda_lib.library()
+    q = torch.zeros(1, 1, 1, 1, 64)
+    pool = torch.zeros(2, 4, 1, 64)
+    lens = torch.ones(1, dtype=torch.int32)
+    pt = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_lib.launch_paged("paged_decode_fwd", q, pool, pool, pt, lens,
+                              None, scale=0.125, use_hfa=False)
+    with pytest.raises(ValueError, match="no kernel"):
+        tpd.paged_decode_partial(q[..., 0, :].to("meta"), pool, pool, pt,
+                                 lens)
+
+
+def test_engine_refuses_what_is_not_ported():
+    lm = _small_lm()
+    for kw in ({"mesh": object()}, {"kv_codec": "int8"},
+               {"kv_codec": "log16"}, {"spec_k": "auto"},
+               {"prefill_budget": "adaptive"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ServingEngine(lm, device="cpu", **kw)
+    with pytest.raises(ValueError, match="unknown page codec"):
+        page_codec.get_codec("fp8")
+    eng = ServingEngine(lm, device="cpu", max_seq=32, page_size=4)
+    for kw in ({"sampling": SamplingParams(temperature=0.7)},
+               {"sampling": SamplingParams(repetition_penalty=1.3)},
+               {"n": 2}, {"best_of": 2}, {"beam_width": 2},
+               {"logprobs": True}):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2,
+                               **kw))
+    # Greedy with top-k/top-p set is still plain argmax: accepted.
+    eng.submit(Request(rid=1, prompt=[1, 2, 3], max_new_tokens=2,
+                       sampling=SamplingParams(top_k=5, top_p=0.9)))
