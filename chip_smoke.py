@@ -6,26 +6,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 1. Print the card's name and power limit (``nvidia-smi``), then build
    the kernels from ``src/repro_torch/csrc/`` with nvcc for sm_90a.
-2. Kernels.  The rail device functions must equal the plain torch rail
-   bit for bit over every finite bf16 value.  Each paged kernel (decode,
+2. Kernels.  The rail device functions of both sources must equal the
+   plain torch rail bit for bit over every finite bf16 value.  Each
+   paged kernel (decode,
    prefill, verify), on both rails, runs at the main path's shapes
    (qwen3-1.7b: 16 query heads over 8 KV heads, d_head 128, page 16,
    bf16 pools, shuffled page tables, ragged lengths up to 2048, a free
    slot) and is held against its plain version on the same CUDA
    tensors.  One line per kernel: its time, the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
-   (fa2 rail; a yardstick the port never calls) and the bound.
+   (fa2 rail; a yardstick the port never calls) and the bound.  Then
+   the four dense kernels (FA-2 forward, dq, dk/dv, H-FA forward) at
+   the training shape (B 4, H 16 after the GQA expand, L 2048, d 128,
+   bf16, causal), each against its plain version on the same CUDA
+   tensors, timed beside SDPA's forward or autograd backward.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
    the same logits through the kernels on the card as through the plain
-   versions on the CPU.
+   versions on the CPU, and the same training loss and gradients.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
    must finish with its token count, every logit must be finite, the
    cache invariants must hold, and each kernel's launch counter must
    grow on every run whose path uses it.
-5. Print ``{"kernels": [...]}``, the card line again, and last
+5. Train.  Full-width qwen3-1.7b (random bf16 weights from seed 0) on
+   the fa2_pallas and hfa_pallas rails: 2 warm and 3 timed
+   ``make_train_step`` steps at global batch 4 x seq 2048 from
+   ``DataPipeline``; loss and grad norm must be finite and each dense
+   kernel of the rail must launch.  Step time, tokens/s and peak memory
+   are printed.  Then ``Trainer.run`` on the reduced config with an
+   injected failure restarts from its step-4 checkpoint (under
+   ``build/``).
+6. Print ``{"kernels": [...]}``, the card line again, and last
    ``{"ok": true, "device": {...}}``.
+
+Opt-in phases, named on the command line (``python3 chip_smoke.py
+kernels profile_train`` runs just those): ``profile`` traces engine
+steps and ``profile_train`` one full-width training step per rail under
+torch.profiler.
 
 There is no CPU fallback: without a card the script stops at once.
 """
@@ -33,6 +51,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,19 +70,39 @@ from repro_torch.kernels import cuda_lib  # noqa: E402
 from repro_torch.kernels import decode as decode_k  # noqa: E402
 from repro_torch.kernels import page_codec  # noqa: E402
 from repro_torch.kernels import bitmath  # noqa: E402
+from repro_torch.kernels import fa2 as fa2_k  # noqa: E402
+from repro_torch.kernels import fa2_bwd  # noqa: E402
+from repro_torch.kernels import hfa as hfa_k  # noqa: E402
 from repro_torch.kernels import paged_decode as pd  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp  # noqa: E402
 from repro_torch.kernels import paged_verify as pv  # noqa: E402
+from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
+from repro_torch.optim import build_optimizer  # noqa: E402
+from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.runtime.trainer import (  # noqa: E402
+    Trainer, TrainerConfig, make_train_step)
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 SRC = "src/repro_torch/csrc/paged_attention.cu"
+DENSE_SRC = "src/repro_torch/csrc/dense_attention.cu"
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:38",
-            "paged_verify": "src/repro/kernels/paged_verify.py:47"}
+            "paged_verify": "src/repro/kernels/paged_verify.py:47",
+            "fa2_fwd": "src/repro/kernels/fa2.py:26",
+            "fa2_bwd_dq": "src/repro/kernels/fa2_bwd.py:30",
+            "fa2_bwd_dkv": "src/repro/kernels/fa2_bwd.py:73",
+            "hfa_fwd": "src/repro/kernels/hfa.py:38"}
 MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
+# Launch counter of each dense kernel: (module, attribute).
+DENSE_COUNTERS = {"fa2_fwd": (fa2_k, "launches"),
+                  "fa2_bwd_dq": (fa2_bwd, "launches_dq"),
+                  "fa2_bwd_dkv": (fa2_bwd, "launches_dkv"),
+                  "hfa_fwd": (hfa_k, "launches")}
+RAIL_KERNELS = {"fa2_pallas": ("fa2_fwd", "fa2_bwd_dq", "fa2_bwd_dkv"),
+                "hfa_pallas": ("hfa_fwd",)}
 # Tolerances on the finalized attention output, kernel vs plain version
 # on the same CUDA tensors.  fa2: both are exact softmax in f32, differing
 # only in summation order (online over 16-position tiles vs one shot).
@@ -106,18 +145,21 @@ def check_rail() -> None:
     bits = torch.arange(1 << 16, dtype=torch.int32) << 16
     x = bits.view(torch.float32)
     x = x[torch.isfinite(x)].cuda()
-    rail, pexp, recip = cuda_lib.rail_eval(x)
     want_rail = bitmath.quant_rail(x)
     want = (want_rail, bitmath.exp2_hfa_rail(want_rail),
             bitmath.recip_logdiv(x))
-    for name, got, w in zip(("quant_rail", "exp2_hfa_rail", "recip_logdiv"),
-                            (rail, pexp, recip), want):
-        bad = int((got.view(torch.int32) != w.view(torch.int32)).sum())
-        if bad:
-            raise AssertionError(f"rail {name}: {bad} of {x.numel()} values "
-                                 "differ from the plain version")
-    print(f"rail: quant_rail, exp2_hfa_rail, recip_logdiv bit-equal to the "
-          f"plain torch rail over {x.numel()} finite bf16 values")
+    for source in cuda_lib.RAIL_ENTRIES:
+        got_all = cuda_lib.rail_eval(x, source)
+        for name, got, w in zip(("quant_rail", "exp2_hfa_rail",
+                                 "recip_logdiv"), got_all, want):
+            bad = int((got.view(torch.int32) != w.view(torch.int32)).sum())
+            if bad:
+                raise AssertionError(f"rail {name} ({source} source): {bad} "
+                                     f"of {x.numel()} values differ from the "
+                                     "plain version")
+        print(f"rail ({source} source): quant_rail, exp2_hfa_rail, "
+              f"recip_logdiv bit-equal to the plain torch rail over "
+              f"{x.numel()} finite bf16 values")
 
 
 def kernel_cases(gen: torch.Generator):
@@ -266,6 +308,146 @@ def check_kernels() -> list[dict]:
     return rows
 
 
+# The training shape of qwen3-1.7b at global batch 4 x seq 2048: 16 query
+# heads (8 KV heads repeated), d_head 128, bf16, causal.
+DENSE_B, DENSE_H, DENSE_L, DENSE_D = 4, 16, 2048, 128
+# Tolerances, kernel vs plain version on the same CUDA tensors.  Both
+# forwards walk the same 128-key tiles as their plain versions and form
+# each score from the same f32 dot product, so they differ by summation
+# order only (O and LSE within 1e-6 on an H100).  1e-5 sits far below
+# what a lost bf16 score rounding or rail quantization moves: one rail
+# step is 0.54% of a key's weight, and the H-FA output's distance to
+# exact softmax is printed beside its error.  dq/dk/dv: the kernels
+# round their f32 sums to bf16, so each is held to one bf16 ulp at the
+# top of its range: 2^-7 of its max magnitude.
+ATOL_FA2_FWD = 1e-5
+REL_BWD = 2.0 ** -7
+ATOL_HFA_FWD = 1e-5
+
+
+def _dense_bound(kind: str, q) -> tuple[float, str]:
+    """Least time for the same work: the bytes each input is read once
+    and each output written once, over the memory rate, against the
+    products over the causal visible (query, key) pairs at the bf16
+    peak (QK and PV forward; 3 products for dq, 4 for dk/dv)."""
+    bh, ell, d = q.shape
+    pairs = bh * ell * (ell + 1) / 2
+    bf16 = q.numel() * 2                      # one (BH, L, d) bf16 tensor
+    f32 = q.numel() * 4
+    row = bh * ell * 4                        # one (BH, L) f32 vector
+    if kind in ("fa2_fwd", "hfa_fwd"):
+        nbytes = 3 * bf16 + f32 + (row if kind == "fa2_fwd" else 0)
+        flops = 4 * d * pairs
+    elif kind == "fa2_bwd_dq":
+        nbytes = 3 * bf16 + f32 + 2 * row + bf16
+        flops = 6 * d * pairs
+    else:
+        nbytes = 3 * bf16 + f32 + 2 * row + 2 * bf16
+        flops = 8 * d * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations")
+
+
+def check_dense_kernels() -> list[dict]:
+    """Each dense kernel's wrapper at the training shape against its
+    plain version on the same CUDA tensors, timed beside its SDPA
+    yardstick.  dq and dk/dv share one wrapper, ``fa2_backward`` (delta,
+    the f32 cotangent and both launches), which is checked and timed as
+    a whole; each row also times its own launch."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    b, h, ell, d = DENSE_B, DENSE_H, DENSE_L, DENSE_D
+
+    def rnd(dtype=torch.bfloat16):
+        return torch.randn((b * h, ell, d), generator=gen,
+                           device="cuda").to(dtype)
+
+    q, k, v = rnd(), rnd(), rnd()
+    do = rnd(torch.float32)
+    kw = dict(causal=True, kv_len=ell, q_offset=0, scale=d ** -0.5)
+    o, lse = fa2_k.fa2_forward(q, k, v, return_lse=True, causal=True)
+    delta = torch.sum(do * o, dim=-1)
+    # SDPA yardsticks on (B, H, L, d) views of the same tensors.
+    q4, k4, v4 = (t.view(b, h, ell, d) for t in (q, k, v))
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
+    sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+    do4 = do.view(b, h, ell, d).to(torch.bfloat16)
+    lib_fwd = timed(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True))
+    lib_bwd = timed(lambda: torch.autograd.grad(
+        sdpa_out, (qg, kg, vg), do4, retain_graph=True))
+
+    def backward():
+        return fa2_bwd.fa2_backward(q, k, v, o, do, lse, causal=True)
+
+    def plain_backward():
+        return fa2_bwd.fa2_backward_plain(q, k, v, do, lse, delta, **kw)
+
+    bwd, bwd_plain = backward(), plain_backward()
+    bwd_ms = timed(backward)
+    bwd_plain_ms = timed(plain_backward, reps=3, inner=1)
+    fwd = {"fa2_fwd": (lambda: fa2_k.fa2_forward(q, k, v, causal=True,
+                                                 return_lse=True),
+                       lambda: fa2_k.fa2_forward_plain(q, k, v, causal=True)),
+           "hfa_fwd": (lambda: (hfa_k.hfa_forward(q, k, v, causal=True),),
+                       lambda: (hfa_k.hfa_forward_plain(q, k, v,
+                                                        causal=True),))}
+    # name: ((wrapper output, plain output) pairs, absolute tolerance or
+    # None for 2^-7 of the plain output's scale, timed launch, plain ms,
+    # wrapper ms, library ms)
+    cases = {}
+    for name, (kernel, plain) in fwd.items():
+        atol = ATOL_FA2_FWD if name == "fa2_fwd" else ATOL_HFA_FWD
+        cases[name] = (list(zip(kernel(), plain())), atol, kernel,
+                       timed(plain, reps=3, inner=1), None, lib_fwd)
+    rail_gap = float((cases["hfa_fwd"][0][0][0] -
+                      cases["fa2_fwd"][0][0][1]).abs().max())
+    cases["fa2_bwd_dq"] = ([(bwd[0], bwd_plain[0])], None,
+                           lambda: cuda_lib.launch_dense_dq(
+                               q, k, v, do, lse, delta, **kw),
+                           bwd_plain_ms, bwd_ms, lib_bwd)
+    cases["fa2_bwd_dkv"] = (list(zip(bwd[1:], bwd_plain[1:])), None,
+                            lambda: cuda_lib.launch_dense_dkv(
+                                q, k, v, do, lse, delta, **kw),
+                            bwd_plain_ms, bwd_ms, lib_bwd)
+    torch.cuda.synchronize()
+    rows = []
+    for name, (pairs, atol, launch, plain_ms, wrapper_ms,
+               lib_ms) in cases.items():
+        err, ok, finite, parts = 0.0, True, True, []
+        for got, want in pairs:
+            e = float((got.float() - want).abs().max())
+            bound = atol if atol is not None else \
+                REL_BWD * float(want.abs().max())
+            err, ok = max(err, e), ok and e <= bound
+            finite = finite and bool(torch.isfinite(got.float()).all())
+            parts.append(f"{e:.3g} (bound {bound:.3g})")
+        what = "max |err| " + ", ".join(parts)
+        if not (ok and finite):
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{what}, finite {finite}")
+        ms = timed(launch)
+        bound_ms, bound_by = _dense_bound(name, q)
+        row = {"name": name, "route": "cuda", "source": DENSE_SRC,
+               "replaces": REPLACES[name], "max_abs_err": err,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+        extra = ""
+        if name == "hfa_fwd":
+            what += f"; max |O - exact softmax O| {rail_gap:.3g}"
+        if wrapper_ms is not None:
+            row["wrapper_ms"] = wrapper_ms
+            extra = f" | fa2_backward (dq + dk/dv) {wrapper_ms:.4f}"
+        rows.append(row)
+        print(f"kernel {name} (B {b}, H {h}, L {ell}, d {d}, bf16, causal): "
+              f"kernel_ms {ms:.4f}{extra} | plain_ms {plain_ms:.4f} | "
+              f"library_ms {lib_ms:.4f} "
+              f"({'SDPA backward' if 'bwd' in name else 'SDPA'}) | bound_ms "
+              f"{bound_ms:.4f} ({bound_by}) | {what}")
+    return rows
+
+
 # ------------------------------------------------------------- phase 3
 def check_small_reference() -> None:
     """Reduced qwen3-1.7b in f32: kernels on the card vs plain versions
@@ -305,6 +487,53 @@ def check_small_reference() -> None:
                                      f"(atol {tol})")
             print(f"reference: reduced qwen3-1.7b {meth} [{rail}] card "
                   f"kernels vs CPU plain: max |logit| diff {err:.3g}")
+
+
+
+def _leaf_errors(got: dict, want: dict) -> tuple[float, float]:
+    """(max over leaves of max|g - w| / max|w|, min cosine)."""
+    worst, cos_min = 0.0, 1.0
+    for name, w in want.items():
+        g = got[name].to(w.device, torch.float32)
+        w = w.to(torch.float32)
+        worst = max(worst, float((g - w).abs().max() / w.abs().max()))
+        cos_min = min(cos_min, float(torch.sum(g * w) / torch.sqrt(
+            torch.sum(g * g) * torch.sum(w * w))))
+    return worst, cos_min
+
+
+def check_train_reference() -> None:
+    """Reduced qwen3-1.7b (f32): training loss and every gradient through
+    the kernels on the card against the plain versions on the CPU."""
+    # fa2: f32 on both sides.  hfa: a bf16 score flip between the card's
+    # and the CPU's f32 dot products moves a rail step, and the STE
+    # gradient splits row-max ties differently (tests/test_torch_train.py
+    # holds the CPU packages to 3e-2 for the same reason).
+    tols = {"fa2_pallas": (1e-4, 1e-3, 0.9999),
+            "hfa_pallas": (1e-3, 5e-2, 0.999)}
+    toks = np.random.default_rng(2).integers(1, 512, (2, 256))
+    for rail, (loss_tol, grad_tol, cos_tol) in tols.items():
+        cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                                  attn_impl=rail)
+        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        gpu = LM(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        out = {}
+        for m in (cpu, gpu):
+            loss, _ = m.loss({"tokens": torch.tensor(toks, device=m.device)})
+            loss.backward()
+            out[m.device.type] = (float(loss.detach()), {
+                k: p.grad for k, p in m.named_parameters()})
+        lerr = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+        gerr, cos = _leaf_errors(out["cuda"][1], out["cpu"][1])
+        if not (lerr <= loss_tol and gerr <= grad_tol and cos >= cos_tol):
+            raise AssertionError(
+                f"reduced model training [{rail}]: card vs CPU loss rel "
+                f"{lerr:.3g} (tol {loss_tol}), grad rel {gerr:.3g} (tol "
+                f"{grad_tol}), min cosine {cos:.6f} (tol {cos_tol})")
+        print(f"reference: reduced qwen3-1.7b loss+grads [{rail}] card "
+              f"kernels vs CPU plain: loss rel {lerr:.3g}, worst grad leaf "
+              f"rel {gerr:.3g}, min cosine {cos:.6f}")
 
 
 # ------------------------------------------------------------- phase 4
@@ -410,6 +639,119 @@ def check_engine() -> dict:
     return totals
 
 
+# ------------------------------------------------------------- phase 5
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+
+
+def _reset_dense_counters() -> None:
+    for mod, attr in DENSE_COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def _dense_counts() -> dict:
+    return {n: getattr(mod, attr) for n, (mod, attr) in DENSE_COUNTERS.items()}
+
+
+def _train_setup(rail: str, n_batches: int):
+    """Full-width qwen3-1.7b on one rail with random bf16 weights from
+    seed 0: (cfg, carry, step_fn, batches of TRAIN_BATCH x TRAIN_SEQ
+    tokens from ``DataPipeline`` on the card)."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    opt = build_optimizer(cfg, warmup_cosine(3e-4, 2, 10))
+    params = dict(model.named_parameters())
+    carry = {"params": params, "opt_state": opt.init(params)}
+    pipe = DataPipeline.for_config(cfg, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{"tokens": torch.from_numpy(pipe.batch(i)["tokens"]).cuda()}
+               for i in range(n_batches)]
+    return cfg, carry, make_train_step(model, opt), batches
+
+
+def run_train(rail: str, warm: int = 2, timed_steps: int = 3) -> dict:
+    """Full-width qwen3-1.7b training steps on one rail; returns the
+    launch counts of the timed steps."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, carry, step_fn, batches = _train_setup(rail, warm + timed_steps)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in carry["params"].values())
+    print(f"train [{rail}]: qwen3-1.7b full width, {cfg.n_layers} layers, "
+          f"{n_params} parameters ({cfg.param_dtype}, f32 AdamW state), "
+          f"init {time.perf_counter() - t0:.1f} s")
+    losses, times = [], []
+    for i, batch in enumerate(batches):
+        if i == warm:
+            _reset_dense_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        carry, met = step_fn(carry, batch)
+        loss, gnorm = float(met["loss"]), float(met["grad_norm"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"train [{rail}] step {i}: loss {loss}, "
+                                 f"grad norm {gnorm}")
+        losses.append(loss)
+        if i >= warm:
+            times.append(dt)
+    counts = _dense_counts()
+    peak = torch.cuda.max_memory_allocated()
+    need = RAIL_KERNELS[rail]
+    if any(counts[n] <= 0 for n in need):
+        raise AssertionError(f"train [{rail}]: a kernel of the path never "
+                             f"launched: {counts}")
+    step_s = statistics.median(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    print(f"train [{rail}]: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, step "
+          f"times {['%.4f' % t for t in times]} s, median {step_s:.4f} s, "
+          f"{tokens / step_s:.1f} tokens/s, peak memory "
+          f"{peak / 2**30:.2f} GiB, losses {['%.4f' % x for x in losses]}, "
+          f"grad norm {gnorm:.4f}, launches over {timed_steps} steps "
+          f"{counts} ({ {n: counts[n] / timed_steps for n in need} } "
+          "per step)")
+    del carry, step_fn, batches
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_trainer_restart() -> None:
+    """Reduced qwen3-1.7b through ``Trainer.run`` on the card: an injected
+    failure at step 6 restarts from the step-4 checkpoint and replays."""
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    cfg = get_config("qwen3-1.7b").reduced()
+    tcfg = TrainerConfig(steps=10, ckpt_every=4, ckpt_dir=str(ckpt),
+                         seq_len=128, global_batch=4, warmup=2)
+    tr = Trainer(LM(cfg, device="cuda"), tcfg)
+    res = tr.run(fail_at={6: RuntimeError("injected node failure")})
+    by_step: dict = {}
+    for m in res["metrics"]:
+        by_step.setdefault(m["step"], []).append(m["loss"])
+    replay = {s: v for s, v in by_step.items() if len(v) > 1}
+    ok = (res["final_step"] == 10 and res["restarts"] == 1
+          and any("restarted from step 4" in e for e in res["events"])
+          and sorted(replay) == [4, 5]
+          and all(abs(v[0] - v[1]) <= 1e-4 * abs(v[0])
+                  for v in replay.values()))
+    if not ok:
+        raise AssertionError(f"trainer restart: {res['events']}, replayed "
+                             f"{replay}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    print(f"trainer: reduced qwen3-1.7b on the card, injected failure at "
+          f"step 6 -> {res['events'][-1]}, replayed losses {replay}, final "
+          f"loss {res['metrics'][-1]['loss']:.4f}")
+
+
+def check_train() -> dict:
+    totals = {n: 0 for n in DENSE_COUNTERS}
+    for rail in RAIL_KERNELS:
+        for n, c in run_train(rail).items():
+            totals[n] += c
+    check_trainer_restart()
+    return totals
+
+
 def profile_engine(steps: int = 10, warm: int = 30) -> None:
     """Opt-in phase (``python3 chip_smoke.py profile``): torch.profiler
     over ``steps`` engine steps of the fa2 spec_k=0 run after ``warm``
@@ -434,24 +776,55 @@ def profile_engine(steps: int = 10, warm: int = 30) -> None:
             eng.step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    _report_profile(prof, wall, steps, "engine fa2 spec_k=0")
+
+
+def _report_profile(prof, wall: float, steps: int, label: str) -> None:
+    """From a torch.profiler window: the device's busy share of the wall
+    window (the sum of kernel times), the top kernels, the top ops by
+    the device time of the kernels they launched, and the host calls."""
+    from torch.autograd import DeviceType
     ev = prof.key_averages()
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    busy = sum(dev_us(e) for e in ev) / 1e6
-    print(f"profile: {steps} steps, wall {wall * 1e3:.1f} ms "
+    kernels = [e for e in ev if e.device_type == DeviceType.CUDA]
+    ops = [e for e in ev if e.device_type != DeviceType.CUDA
+           and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in kernels) / 1e6
+    print(f"profile [{label}]: {steps} steps, wall {wall * 1e3:.1f} ms "
           f"({wall / steps * 1e3:.2f} ms/step), device busy {busy * 1e3:.1f} "
-          f"ms = {busy / wall:.1%} of wall")
-    for e in sorted(ev, key=dev_us, reverse=True)[:15]:
-        if dev_us(e) <= 0:
-            break
-        print(f"profile device: {dev_us(e) / 1e3:9.3f} ms {e.count:6d}x "
-              f"{e.key[:90]}")
+          f"ms = {busy / wall:.1%} of wall ({len(kernels)} kernel names, "
+          f"{sum(e.count for e in kernels)} launches)")
+    for kind, events in (("kernel", kernels), ("op", ops)):
+        for e in sorted(events, key=dev_us, reverse=True)[:12]:
+            print(f"profile device {kind}: {dev_us(e) / 1e3:9.3f} ms "
+                  f"{e.count:6d}x {e.key[:90]}")
     for e in sorted(ev, key=lambda e: e.self_cpu_time_total,
-                    reverse=True)[:15]:
+                    reverse=True)[:10]:
         print(f"profile host: {e.self_cpu_time_total / 1e3:9.3f} ms "
               f"{e.count:6d}x {e.key[:90]}")
+
+
+def profile_train() -> None:
+    """Opt-in phase (``python3 chip_smoke.py profile_train``):
+    torch.profiler over one full-width training step of each rail (batch
+    4 x seq 2048) after one warm step."""
+    from torch.profiler import ProfilerActivity, profile
+    for rail in RAIL_KERNELS:
+        _, carry, step_fn, batches = _train_setup(rail, 2)
+        carry, _ = step_fn(carry, batches[0])
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            carry, met = step_fn(carry, batches[1])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        _report_profile(prof, wall, 1, f"train {rail}")
+        del carry, step_fn, batches, prof
+        torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -459,7 +832,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    phases = sys.argv[1:] or ["kernels", "reference", "engine"]
+    phases = sys.argv[1:] or ["kernels", "reference", "engine", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -474,15 +847,21 @@ def main() -> int:
     rows = []
     if "kernels" in phases:
         check_rail()
-        rows = check_kernels()
+        rows = check_kernels() + check_dense_kernels()
     if "reference" in phases:
         check_small_reference()
+        check_train_reference()
     if "profile" in phases:
         profile_engine()
+    if "profile_train" in phases:
+        profile_train()
+    totals = {}
     if "engine" in phases:
-        totals = check_engine()
-        for r in rows:
-            r["launches"] = totals[r["name"]]
+        totals.update(check_engine())
+    if "train" in phases:
+        totals.update(check_train())
+    for r in rows:
+        r["launches"] = totals.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

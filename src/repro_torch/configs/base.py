@@ -30,7 +30,8 @@ class ModelConfig:
     # attention options
     qk_norm: bool = False
     qkv_bias: bool = False
-    attn_impl: str = "fa2"          # rail: "fa2" or "hfa"
+    attn_impl: str = "fa2"          # paged rail "fa2"/"hfa"; dense impl
+                                    # (kernels/ops.py IMPLS)
     attn_block: int = 128           # flash KV/Q block size
     serve_attn: str = "xla"         # xla | shardmap_merge (paper ACC merge)
     rope_theta: float = 10000.0

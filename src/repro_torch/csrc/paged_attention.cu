@@ -39,32 +39,23 @@
 // split of the page walk across blocks; wgmma, TMA and split-page merges
 // come later.
 //
-// Numerics of the H-FA rail are bit-equal to the plain torch versions in
-// repro_torch/kernels/bitmath.py: every step is exact or a single
-// correctly rounded f32 operation, written with __fmul_rn/__fadd_rn so
-// nvcc cannot contract them into FMAs, and rounding is half-to-even
-// (rintf), as jnp.round and torch.round are.
+// The H-FA rail (quant_rail, exp2_hfa_rail, recip_logdiv) comes from
+// hfa_rail.cuh, bit-equal to the plain torch versions.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
 
+#include "hfa_rail.cuh"
+
 namespace {
 
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;  // f32, as the reference rounds it
-constexpr float kClampNat = -15.0f;
 constexpr int kTile = 16;                         // KV positions per tile
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kRowsPerWarp = 4;                   // two row pairs
 constexpr int kRowsPerBlock = kWarps * kRowsPerWarp;
-
-struct Lut {        // 8-segment PWL 2^-f, Q1.15 slopes then intercepts
-  float a[8];
-  float b[8];
-};
 
 struct Params {
   const void* q;      // (B, Hkv, R, D), compute dtype
@@ -79,50 +70,6 @@ struct Params {
   int R, L, J, page, hkv, mode;
   float scale;
 };
-
-// ---------------------------------------------------------------- H-FA rail
-__device__ __forceinline__ float lut8(float seg, const float* t) {
-  float out = t[0];
-#pragma unroll
-  for (int i = 1; i < 8; ++i) out = (seg >= (float)i) ? t[i] : out;
-  return out;
-}
-
-__device__ __forceinline__ float exp2_int(float p) {
-  int pi = (int)p;
-  pi = min(max(pi, -126), 127);
-  return __int_as_float((pi + 127) << 23);
-}
-
-// quant[(.)*log2 e] to the FIX16 rail (Eq. 14b/c); +0.0 folds -0 into +0.
-__device__ __forceinline__ float quant_rail(float x) {
-  const float d = fminf(fmaxf(x, kClampNat), 0.0f);
-  return __fadd_rn(rintf(__fmul_rn(__fmul_rn(d, kLog2e), 128.0f)), 0.0f);
-}
-
-// 2^(rail/128) for a non-positive rail value: PWL 2^-f, exponent packing.
-__device__ __forceinline__ float exp2_hfa_rail(float rail, const Lut& lut) {
-  const float d = -rail;
-  const float p = floorf(__fmul_rn(d, 0.0078125f));
-  const float f7 = __fsub_rn(d, __fmul_rn(p, 128.0f));
-  const float seg = fminf(fmaxf(floorf(__fmul_rn(f7, 0.0625f)), 0.0f), 7.0f);
-  const float a = lut8(seg, lut.a);
-  const float b = lut8(seg, lut.b);
-  const float g_q15 = __fadd_rn(floorf(__fmul_rn(__fmul_rn(a, f7), 0.0078125f)), b);
-  const float g7 = floorf(__fmul_rn(__fadd_rn(g_q15, 128.0f), 0.00390625f));
-  return __fmul_rn(__fmul_rn(g7, 0.0078125f), exp2_int(-p));
-}
-
-// LogDiv: 1/x by Blinn log2 on the f32 bits, rail negate, bit-pack.
-__device__ __forceinline__ float recip_logdiv(float x) {
-  const int mag = __float_as_int(x) & 0x7FFFFFFF;
-  const float lg = __fmul_rn(__int2float_rn(mag - (127 << 23)), 1.1920928955078125e-07f);
-  const float rail = rintf(__fmul_rn(lg, 128.0f));
-  const float neg = -rail;
-  const float ip = floorf(__fmul_rn(neg, 0.0078125f));
-  const float fp = __fsub_rn(__fmul_rn(neg, 0.0078125f), ip);
-  return __fmul_rn(exp2_int(ip), __fadd_rn(1.0f, fp));
-}
 
 // ------------------------------------------------------------------ loads
 template <typename T>
@@ -290,16 +237,6 @@ paged_attention_kernel(const Params p, const Lut lut) {
   }
 }
 
-__global__ void rail_eval_kernel(const float* x, float* rail, float* pexp, float* recip,
-                                 int n, const Lut lut) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float r = quant_rail(x[i]);
-  rail[i] = r;
-  pexp[i] = exp2_hfa_rail(r, lut);
-  recip[i] = recip_logdiv(x[i]);
-}
-
 template <typename T, int D, bool HFA>
 void launch_t(const Params& p, const Lut& lut, int B, cudaStream_t s) {
   const dim3 grid((p.R + kRowsPerBlock - 1) / kRowsPerBlock, p.hkv, B);
@@ -380,15 +317,10 @@ extern "C" int paged_verify_fwd(const void* q, const void* k, const void* v, con
   return launch(p, B, D, use_hfa, bf16, lut, stream);
 }
 
-// The rail device functions, elementwise over n f32 values: rail =
-// quant_rail(x), pexp = exp2_hfa_rail(rail), recip = recip_logdiv(x).
+// The rail device functions as compiled in this source (hfa_rail.cuh),
+// elementwise: rail = quant_rail(x), pexp = exp2_hfa_rail(rail),
+// recip = recip_logdiv(x).
 extern "C" int hfa_rail_eval(const void* x, void* rail, void* pexp, void* recip, int n,
                              const void* lut_host, void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
-  Lut lut;
-  memcpy(&lut, lut_host, sizeof(Lut));
-  rail_eval_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<float*>(rail), static_cast<float*>(pexp),
-      static_cast<float*>(recip), n, lut);
-  return (int)cudaGetLastError();
+  return rail_eval(x, rail, pexp, recip, n, lut_host, stream);
 }

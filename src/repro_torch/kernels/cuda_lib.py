@@ -1,12 +1,14 @@
 """Build, load and launch the hand-written CUDA kernels.
 
-``csrc/paged_attention.cu`` is compiled by ``nvcc`` into a shared
-library with a plain C interface and loaded with ``ctypes`` - no
-PyTorch headers, so a build takes seconds.  The build runs at first use,
-writes into ``build/repro_torch/`` under the repository root, and is
-keyed by a hash of the source and the flags.  Nothing here runs when the
-module is imported: the package imports on machines without ``nvcc`` or
-a card.
+Every source under ``csrc/`` (``paged_attention.cu``,
+``dense_attention.cu``, and the header ``hfa_rail.cuh`` they share) is
+compiled by ``nvcc`` - one process per ``.cu`` file, all started
+together - and linked into one shared library with a plain C interface,
+loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
+The build runs at first use, writes into ``build/repro_torch/`` under
+the repository root, and is keyed by a hash of every source and the
+flags.  Nothing here runs when the module is imported: the package
+imports on machines without ``nvcc`` or a card.
 
 Every pointer and the stream travel as ``ctypes.c_void_p``; each entry
 point returns ``cudaGetLastError()`` after its launch, and
@@ -25,15 +27,20 @@ import torch
 
 from repro_torch.core import lns
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "paged_attention.cu"
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Keys per tile of the dense forward kernel: the reference's block_kv,
+# where the H-FA rail's row max is taken.
+DENSE_KV_TILE = 128
 
 _lib = None
 # The 16 PWL LUT values, as a host array the entry points copy from.
 _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
 build_log = ""    # nvcc's stderr (ptxas register / spill report)
+# rail entry point of each source, for the bit-equality checks
+RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval"}
 
 
 def _nvcc() -> str:
@@ -44,22 +51,49 @@ def _nvcc() -> str:
                        "machine with the card (CUDA toolkit required)")
 
 
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
 def build(force: bool = False) -> Path:
-    """Compile the kernels for sm_90a; returns the library path."""
+    """Compile every ``csrc/*.cu`` for sm_90a (in parallel) and link them
+    into one library; returns its path."""
     global build_log
-    key = hashlib.sha256(SOURCE.read_bytes()
-                         + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = BUILD_DIR / f"libpaged_attention_{key}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode() + src.read_bytes())
+    out = BUILD_DIR / f"libhfa_kernels_{h.hexdigest()[:12]}.so"
     if out.exists() and not force:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stderr}")
-    build_log = proc.stderr
-    os.replace(tmp, out)
+    tag = f"{out.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    units = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in units]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for src, obj in zip(units, objs)]
+    logs, failed = [], []
+    for src, proc in zip(units, procs):
+        _, err = proc.communicate()
+        logs.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {src}:\n{err}")
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = BUILD_DIR / f"{tag}.so.tmp"
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                               *map(str, objs)], capture_output=True,
+                              text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    build_log = "".join(logs)
     return out
 
 
@@ -69,8 +103,8 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the paged attention kernels "
-                               "run only on the card")
+            raise RuntimeError("no CUDA device: the attention kernels run "
+                               "only on the card")
         lib = ctypes.CDLL(str(build()))
         ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.paged_decode_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [
@@ -78,9 +112,15 @@ def library() -> ctypes.CDLL:
         for name in ("paged_prefill_fwd", "paged_verify_fwd"):
             getattr(lib, name).argtypes = [ptr] * 9 + [i32] * 7 + [
                 f32, i32, i32, ptr, ptr]
-        lib.hfa_rail_eval.argtypes = [ptr] * 4 + [i32, ptr, ptr]
+        for name in RAIL_ENTRIES.values():
+            getattr(lib, name).argtypes = [ptr] * 4 + [i32, ptr, ptr]
+        lib.dense_attn_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [
+            f32, i32, i32, ptr, ptr]
+        lib.dense_attn_dq.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
+        lib.dense_attn_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
         for name in ("paged_decode_fwd", "paged_prefill_fwd",
-                     "paged_verify_fwd", "hfa_rail_eval"):
+                     "paged_verify_fwd", "dense_attn_fwd", "dense_attn_dq",
+                     "dense_attn_dkv", *RAIL_ENTRIES.values()):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -152,14 +192,91 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
     return o, m, l
 
 
-def rail_eval(x: torch.Tensor):
-    """The kernels' rail device functions over an f32 CUDA tensor:
-    (quant_rail(x), exp2_hfa_rail(quant_rail(x)), recip_logdiv(x))."""
+def _check_dense(entry: str, q, k, v, *extra) -> None:
+    tensors = [q, k, v, *extra]
+    _require(all(t.is_cuda and t.device == q.device for t in tensors),
+             f"{entry}: every tensor must be on the same CUDA device")
+    _require(q.dtype in (torch.bfloat16, torch.float32)
+             and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"{entry}: q, k, v must share a dtype in (bf16, f32), got "
+             f"{q.dtype}/{k.dtype}/{v.dtype}")
+    _require(q.dim() == 3 and k.dim() == 3 and k.shape == v.shape
+             and k.shape[0] == q.shape[0] and k.shape[2] == q.shape[2],
+             f"{entry}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+             f"{tuple(v.shape)} are not (BH, Lq, d) / (BH, Lkv, d)")
+    _require(q.shape[2] in (64, 128),
+             f"{entry}: head dim {q.shape[2]} not in (64, 128)")
+    _require(all(t.is_contiguous() for t in tensors),
+             f"{entry}: every tensor must be contiguous")
+
+
+def _dims(q, k, kv_len, q_offset, causal):
+    bh, lq, d = q.shape
+    return [bh, lq, k.shape[1], d, int(kv_len), int(q_offset), int(causal)]
+
+
+def launch_dense_fwd(q, k, v, *, causal: bool, scale: float, kv_len: int,
+                     q_offset: int, use_hfa: bool):
+    """Dense attention forward on the current stream: O (BH, Lq, d) f32
+    and, on the fa2 rail, LSE (BH, Lq) f32 (None on the H-FA rail)."""
+    _check_dense("dense_attn_fwd", q, k, v)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = None if use_hfa else torch.empty(q.shape[:2], dtype=torch.float32,
+                                           device=q.device)
+    err = library().dense_attn_fwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o),
+        None if lse is None else _ptr(lse), *_dims(q, k, kv_len, q_offset,
+                                                   causal),
+        ctypes.c_float(scale), int(use_hfa), int(q.dtype == torch.bfloat16),
+        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, "dense_attn_fwd")
+    return o, lse
+
+
+def _bwd_inputs(entry, q, k, v, do, lse, delta):
+    _check_dense(entry, q, k, v, do, lse, delta)
+    _require(do.dtype == torch.float32 and do.shape == q.shape
+             and lse.dtype == torch.float32 and delta.dtype == torch.float32
+             and lse.shape == q.shape[:2] and delta.shape == q.shape[:2],
+             f"{entry}: do must be f32 like q, lse and delta f32 (BH, Lq)")
+    return [_ptr(t) for t in (q, k, v, do, lse, delta)]
+
+
+def launch_dense_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                    kv_len: int, q_offset: int) -> torch.Tensor:
+    """FA-2 backward dq (BH, Lq, d) in q's dtype on the current stream."""
+    ptrs = _bwd_inputs("dense_attn_dq", q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    err = library().dense_attn_dq(
+        *ptrs, _ptr(dq), *_dims(q, k, kv_len, q_offset, causal),
+        ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream())
+    check(err, "dense_attn_dq")
+    return dq
+
+
+def launch_dense_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
+                     kv_len: int, q_offset: int):
+    """FA-2 backward (dk, dv) (BH, Lkv, d) in k's dtype on the current
+    stream."""
+    ptrs = _bwd_inputs("dense_attn_dkv", q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = library().dense_attn_dkv(
+        *ptrs, _ptr(dk), _ptr(dv), *_dims(q, k, kv_len, q_offset, causal),
+        ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream())
+    check(err, "dense_attn_dkv")
+    return dk, dv
+
+
+def rail_eval(x: torch.Tensor, source: str = "paged"):
+    """The rail device functions of one source (``paged`` or ``dense``)
+    over an f32 CUDA tensor: (quant_rail(x), exp2_hfa_rail(quant_rail(x)),
+    recip_logdiv(x))."""
     _require(x.is_cuda and x.dtype == torch.float32 and x.is_contiguous(),
              "rail_eval: needs a contiguous f32 CUDA tensor")
     outs = [torch.empty_like(x) for _ in range(3)]
-    err = library().hfa_rail_eval(_ptr(x), *map(_ptr, outs), x.numel(),
-                                  ctypes.cast(_LUT, ctypes.c_void_p), _stream())
-    check(err, "hfa_rail_eval")
+    entry = RAIL_ENTRIES[source]
+    err = getattr(library(), entry)(_ptr(x), *map(_ptr, outs), x.numel(),
+                                    ctypes.cast(_LUT, ctypes.c_void_p),
+                                    _stream())
+    check(err, entry)
     return tuple(outs)
-

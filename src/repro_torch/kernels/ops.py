@@ -1,4 +1,23 @@
-"""Paged attention ops: GQA plumbing around the paged kernels.
+"""Attention ops: GQA plumbing, padding and impl dispatch around the
+kernels.
+
+``multihead_attention`` is what the model's dense (training) attention
+calls: (B, Lq, H, d) queries against (B, Lkv, Hkv, d) keys/values, heads
+repeated kv-major to H, sequences padded to the block sizes, the kernel
+run through a ``torch.autograd.Function`` (:class:`_KernelAttention`,
+the reference's ``_pallas_attention`` custom_vjp) and the padding cut
+off again.  Impl names keep the reference's meaning:
+
+  exact          dense softmax in f32 (plain torch)
+  fa2            FA-2 forward + dq + dk/dv kernels (exact softmax in f32,
+                 as the reference's jnp FA-2)
+  fa2_pallas     the same kernels (the reference's Pallas FA-2)
+  hfa_pallas     the H-FA forward kernel; backward = autograd through
+                 the tile oracle under the STE
+  hfa            not ported (the per-element ``core/hfa.py`` emulation)
+  hfa_datapath   not ported (the per-element LNS validation kernel)
+
+The paged half below serves the engine:
 
 ``paged_{decode,prefill,verify}_partials`` return the block-FAU triplet
 (o~, m, l) for grouped queries; the ``paged_*_attention`` functions take
@@ -15,10 +34,127 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core import reference
 from repro_torch.kernels import decode as decode_k
+from repro_torch.kernels import fa2 as fa2_k
+from repro_torch.kernels import fa2_bwd
+from repro_torch.kernels import hfa as hfa_k
+from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_decode as paged_k
 from repro_torch.kernels import paged_prefill as paged_pf_k
 from repro_torch.kernels import paged_verify as paged_v_k
+
+
+IMPLS = ("exact", "fa2", "hfa", "fa2_pallas", "hfa_pallas", "hfa_datapath")
+# impl -> rail of the dense kernels
+_KERNEL_RAIL = {"fa2": "fa2", "fa2_pallas": "fa2", "hfa_pallas": "hfa"}
+_NOT_PORTED = {
+    "hfa": "the per-element H-FA emulation (core/hfa.py) is not ported "
+           "yet (ROADMAP.md Queue 1 item 12); hfa_pallas is the tiled "
+           "H-FA kernel, whose numerics differ",
+    "hfa_datapath": "the per-element LNS datapath kernel is not ported "
+                    "yet (ROADMAP.md Queue 2 item 8)",
+}
+
+
+def _pad_to(x: torch.Tensor, axis: int, mult: int) -> tuple[torch.Tensor, int]:
+    """Zero-pad ``axis`` up to a multiple of ``mult``; returns (x, old n)."""
+    n = x.shape[axis]
+    pad = (-n) % mult
+    if pad == 0:
+        return x, n
+    widths = [0, 0] * (x.dim() - 1 - axis) + [0, pad]
+    return torch.nn.functional.pad(x, widths), n
+
+
+def _gqa_expand(k: torch.Tensor, hq: int) -> torch.Tensor:
+    """Repeat KV heads to H query heads, kv-major (``jnp.repeat``
+    order): (B, L, Hkv, d) -> (B, L, H, d)."""
+    hkv = k.shape[2]
+    if hkv == hq:
+        return k
+    if hq % hkv:
+        raise ValueError(f"{hq} query heads over {hkv} KV heads")
+    return torch.repeat_interleave(k, hq // hkv, dim=2)
+
+
+class _KernelAttention(torch.autograd.Function):
+    """Differentiable kernel attention over padded (BH, L, d) tiles.
+
+    fa2: the FA-2 forward kernel saves (q, k, v, O, LSE) and the
+    backward runs the dq and dk/dv kernels.  hfa: the H-FA forward
+    kernel; the backward differentiates the tile oracle on the unpadded
+    keys with the cotangent in f32, so the gradient follows the
+    quantized numerics the kernel computed (STE) - the reference's
+    ``ops._pallas_attention_bwd``.
+    """
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, rail, causal, scale, block_q, block_kv,
+                kv_len, q_offset):
+        kw = dict(causal=causal, scale=scale, block_q=block_q,
+                  block_kv=block_kv, kv_len=kv_len, q_offset=q_offset)
+        ctx.kw, ctx.rail = kw, rail
+        if rail == "fa2":
+            out, lse = fa2_k.fa2_forward(q3, k3, v3, return_lse=True, **kw)
+            ctx.save_for_backward(q3, k3, v3, out, lse)
+        else:
+            out = hfa_k.hfa_forward(q3, k3, v3, **kw)
+            ctx.save_for_backward(q3, k3, v3)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        kw = ctx.kw
+        if ctx.rail == "fa2":
+            q3, k3, v3, out, lse = ctx.saved_tensors
+            dq, dk, dv = fa2_bwd.fa2_backward(q3, k3, v3, out, g, lse, **kw)
+        else:
+            q3, k3, v3 = ctx.saved_tensors
+            with torch.enable_grad():
+                q, k, v = (t.detach().requires_grad_() for t in (q3, k3, v3))
+                n = kw["kv_len"]
+                out = kref.ref_hfa_mxu(q, k[:, :n], v[:, :n],
+                                       causal=kw["causal"], scale=kw["scale"],
+                                       block_kv=kw["block_kv"],
+                                       q_offset=kw["q_offset"])
+                dq, dk, dv = torch.autograd.grad(out, (q, k, v),
+                                                 g.to(torch.float32))
+        return (dq.to(q3.dtype), dk.to(k3.dtype), dv.to(v3.dtype),
+                None, None, None, None, None, None, None)
+
+
+def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, impl: str = "fa2", causal: bool = True,
+                        scale: float | None = None, block_q: int = 128,
+                        block_kv: int = 128) -> torch.Tensor:
+    """Multi-head attention: q (B, Lq, H, d), k/v (B, Lkv, Hkv, d) with
+    Hkv | H; returns (B, Lq, H, d) in q's dtype."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
+    if impl in _NOT_PORTED:
+        raise NotImplementedError(f"impl {impl!r}: {_NOT_PORTED[impl]}")
+    b, lq, h, d = q.shape
+    lkv = k.shape[1]
+    k = _gqa_expand(k, h)
+    v = _gqa_expand(v, h)
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))    # (B, H, L, d)
+    if impl == "exact":
+        out = reference.exact_attention(qh, kh, vh, causal=causal,
+                                        scale=scale)
+    else:
+        q3 = qh.reshape(b * h, lq, d)
+        k3 = kh.reshape(b * h, lkv, d)
+        v3 = vh.reshape(b * h, lkv, d)
+        q3, lq0 = _pad_to(q3, 1, block_q)
+        k3, lkv0 = _pad_to(k3, 1, block_kv)
+        v3, _ = _pad_to(v3, 1, block_kv)
+        out = _KernelAttention.apply(
+            q3.contiguous(), k3.contiguous(), v3.contiguous(),
+            _KERNEL_RAIL[impl], causal, scale, block_q, block_kv, lkv0,
+            lkv0 - lq0)
+        out = out[:, :lq0].reshape(b, h, lq, d)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def _use_hfa(impl: str) -> bool:

@@ -9,8 +9,13 @@ per layer, so this unstacks them; every leaf keeps its layout (``wq``
 (d_model, H, dh), ``wo`` (H, dh, d_model), ...), which is why both
 packages compute the same function after conversion.
 
-This module imports neither jax nor the reference: it takes plain
-numpy arrays.
+:func:`reference_tree_from_state_dict` is the reverse view: any dict
+keyed by the port's parameter names (gradients, AdamW moments, master
+weights) restacked into the reference's nested, scan-stacked tree, so
+the two packages can be compared leaf by leaf.
+
+This module imports neither jax nor the reference: it takes and gives
+plain numpy arrays.
 """
 from __future__ import annotations
 
@@ -43,6 +48,35 @@ def state_dict_from_reference(ref_params: dict, cfg) -> dict:
         for g in range(np.shape(val)[0]):
             out[f"layers.{g * period + i}.{rest}"] = np.asarray(val[g])
     return out
+
+
+def reference_tree_from_state_dict(sd: dict, cfg) -> dict:
+    """Port-keyed leaves (tensors or arrays, keys as in ``LM``'s
+    ``state_dict``) -> the reference's nested tree of numpy f32 arrays,
+    layer leaves stacked (groups, ...) under ``layers.l{i}``."""
+    period = period_pattern(cfg)[2]
+    tree: dict = {}
+    stacks: dict = {}
+    for name, val in sd.items():
+        arr = (val.detach().to(torch.float32).cpu().numpy()
+               if isinstance(val, torch.Tensor)
+               else np.asarray(val, np.float32))
+        if name.startswith("layers."):
+            _, idx, rest = name.split(".", 2)
+            g, i = divmod(int(idx), period)
+            stacks.setdefault((f"l{i}", rest), {})[g] = arr
+            continue
+        _insert(tree, name.split("."), arr)
+    for (li, rest), by_group in stacks.items():
+        stacked = np.stack([by_group[g] for g in sorted(by_group)])
+        _insert(tree, ["layers", li, *rest.split(".")], stacked)
+    return tree
+
+
+def _insert(tree: dict, path: list[str], val) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = val
 
 
 @torch.no_grad()

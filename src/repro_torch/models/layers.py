@@ -7,8 +7,11 @@ dh), ``wo`` is (H, dh, d_model), ``wg``/``wu`` are (d_model, d_ff)) so
 softmax-adjacent math and RoPE run in f32 and cast back, as in the
 reference.
 
-Attention is ported as far as its paged branch: the serving engine
-always passes a paged cache and a ``page_state``.
+Attention has two branches: the paged one the serving engine takes
+(a paged cache and a ``page_state``), and the dense causal one of
+training (no cache), which runs :func:`repro_torch.kernels.ops.
+multihead_attention`.  Parameters are trainable; the serving methods
+run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -22,8 +25,7 @@ from repro_torch.kernels import paged_prefill as paged_pf_k
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
-    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
-                        requires_grad=False)
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device))
 
 
 # ---------------------------------------------------------------- modules
@@ -121,15 +123,20 @@ def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
 
 
 def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
-                    positions: torch.Tensor, cache: dict, page_state: dict):
-    """Paged self-attention.  Returns (out (B, S, d_model), pools).
+                    positions: torch.Tensor | None = None,
+                    cache: dict | None = None,
+                    page_state: dict | None = None):
+    """Causal self-attention.  Returns (out (B, S, d_model), pools).
 
-    ``cache`` is a paged block pool {"k_pages", "v_pages"} of this
-    layer and ``page_state`` the engine's tables: {"page_table" (B, J),
-    "seq_lens" (B,)} for decode, plus "chunk_lens" and "verify" for a
-    speculative verify step, or "prefill", "start_pos" and "chunk_lens"
-    for a chunked prefill.  ``cfg.attn_impl`` picks the rail: "hfa..."
-    runs the H-FA rail, anything else fa2.
+    Without a cache (training): dense causal attention over the
+    sequence, positions 0..S-1 unless given; pools is None.  With a
+    paged block pool {"k_pages", "v_pages"} of this layer, ``page_state``
+    holds the engine's tables: {"page_table" (B, J), "seq_lens" (B,)}
+    for decode, plus "chunk_lens" and "verify" for a speculative verify
+    step, or "prefill", "start_pos" and "chunk_lens" for a chunked
+    prefill.  ``cfg.attn_impl`` names the impl: on the paged path
+    "hfa..." runs the H-FA rail and anything else fa2; the dense path
+    dispatches it through ``multihead_attention``.
     """
     wdt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(wdt))
@@ -143,11 +150,19 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
         q = _head_rmsnorm(p.q_norm, q)
         k = _head_rmsnorm(p.k_norm, k)
     if cfg.pos_emb != "rope":
-        raise NotImplementedError("paged attention needs rope positions")
+        raise NotImplementedError("only rope positions are ported")
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
-    out, new_pools = _paged_attention(q, k, v, cache, page_state,
-                                      impl=cfg.attn_impl)
+    if cache is None:
+        out = kops.multihead_attention(q, k, v, impl=cfg.attn_impl,
+                                       causal=True, block_q=cfg.attn_block,
+                                       block_kv=cfg.attn_block)
+        new_pools = None
+    else:
+        out, new_pools = _paged_attention(q, k, v, cache, page_state,
+                                          impl=cfg.attn_impl)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(wdt))
     return out, new_pools
 

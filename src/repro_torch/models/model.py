@@ -1,4 +1,4 @@
-"""LM facade for paged serving.
+"""LM facade: training forward and loss, and paged serving.
 
 ``LM(cfg, device=...)`` is an ``nn.Module`` holding the parameters (the
 reference passes a params pytree to pure functions; here the module is
@@ -9,9 +9,10 @@ reference's shapes and distributions from an explicit
 reference's own weights instead.
 
 Ported so far: dense GQA stacks with RoPE, RMSNorm and SwiGLU (the
-qwen3 family) and the paged serving methods - ``init_paged_cache``,
-chunked ``paged_prefill``, ``paged_decode_step`` and
-``paged_verify_step``.
+qwen3 family); the training forward ``apply`` and ``loss`` (masked
+next-token NLL in f32); and the paged serving methods -
+``init_paged_cache``, chunked ``paged_prefill``, ``paged_decode_step``
+and ``paged_verify_step``, which run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+AUX_COEF = {"load_balance": 0.01, "router_z": 0.001}
 
 
 class LM(nn.Module):
@@ -98,6 +100,37 @@ class LM(nn.Module):
     def _finish(self, x: torch.Tensor) -> torch.Tensor:
         return self._head(L.rmsnorm_apply(self.final_norm, x,
                                           self.cfg.norm_eps))
+
+    # ------------------------------------------------------------ training
+    def apply(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Dense causal forward over ``batch["tokens"]`` (B, S): logits
+        (B, S, padded vocab) in the compute dtype and the aux losses
+        (zero for a dense stack)."""
+        x = self._embed_in(batch["tokens"])
+        x, _ = T.stack_apply(self.layers, x, self.cfg)
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return self._finish(x), {"load_balance": zero, "router_z": zero}
+
+    def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
+        """Masked next-token NLL in f32 (targets < 0 are masked) plus the
+        weighted aux losses; returns (total, metrics) with metrics
+        {"nll", "load_balance", "router_z", "loss"}."""
+        logits, aux = self.apply(batch)
+        tokens = batch["tokens"]
+        lg = logits[:, :-1].to(torch.float32)
+        tg = tokens[:, 1:].to(torch.int64)
+        lse = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, tg.clamp(min=0)[..., None])[..., 0]
+        mask = (tg >= 0).to(torch.float32)
+        nll = torch.sum((lse - gold) * mask) / torch.clamp(torch.sum(mask),
+                                                           min=1.0)
+        total = nll
+        metrics = {"nll": nll}
+        for key, val in aux.items():
+            total = total + AUX_COEF.get(key, 0.0) * val
+            metrics[key] = val
+        metrics["loss"] = total
+        return total, metrics
 
     # ------------------------------------------------ paged decode (serving)
     def init_paged_cache(self, num_pages: int, page_size: int,

@@ -7,11 +7,17 @@ Python loop.  The paged KV pools keep the reference's stacked layout,
 ``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups, P, page, Hkv,
 dh), so layer ``g * period + i`` reads pools ``["l{i}"][...][g]`` - a
 view, so the in-place page writes land in the stacked tensor.
+
+Without caches (training) each block runs under
+``torch.utils.checkpoint`` when ``cfg.remat == "full"``: its
+activations are recomputed in the backward, as ``jax.checkpoint`` does
+around the reference's scan body.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import page_codec
 from repro_torch.models import layers as L
@@ -28,8 +34,9 @@ class Block(nn.Module):
         self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
 
 
-def block_apply(blk: Block, x, cfg, *, positions, cache, page_state):
-    """Returns (x, this layer's pools)."""
+def block_apply(blk: Block, x, cfg, *, positions=None, cache=None,
+                page_state=None):
+    """Returns (x, this layer's pools); pools is None without a cache."""
     h = L.rmsnorm_apply(blk.norm1, x, cfg.norm_eps)
     y, new_cache = L.attention_apply(blk.mixer, h, cfg, positions=positions,
                                      cache=cache, page_state=page_state)
@@ -52,10 +59,23 @@ def period_pattern(cfg) -> tuple[list[str], list[str], int]:
     return kinds, ffns, n
 
 
-def stack_apply(layers: nn.ModuleList, x, cfg, *, positions, caches,
-                page_state):
-    """Run every layer; ``caches`` are the stacked pools, updated in
-    place.  ``page_state`` is shared by all layers of one step."""
+def _block_out(blk: Block, x, cfg):
+    return block_apply(blk, x, cfg)[0]
+
+
+def stack_apply(layers: nn.ModuleList, x, cfg, *, positions=None,
+                caches=None, page_state=None):
+    """Run every layer.  ``caches`` are the stacked paged pools, updated
+    in place, and ``page_state`` is shared by all layers of one step;
+    without caches the stack is the dense causal (training) forward,
+    each block checkpointed under ``cfg.remat == "full"``."""
+    if caches is None:
+        for blk in layers:
+            if cfg.remat == "none":
+                x = _block_out(blk, x, cfg)
+            else:
+                x = checkpoint(_block_out, blk, x, cfg, use_reentrant=False)
+        return x, None
     period = period_pattern(cfg)[2]
     for idx, blk in enumerate(layers):
         g, i = divmod(idx, period)

@@ -3,9 +3,11 @@
 * Every module of ``repro_torch`` - and ``chip_smoke.py`` - imports in a
   subprocess where ``jax`` and ``repro`` cannot be imported.
 * Without a card, the default device (``cuda``) raises instead of
-  falling back: building the LM or the engine, and loading the kernels.
+  falling back: building the LM, the engine or the trainer (``launch/
+  train.py``), and loading or launching the kernels.
 * What this slice does not port is refused with a clear error.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -16,7 +18,12 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import cuda_lib, page_codec
+from repro_torch.kernels import fa2 as tfa2
+from repro_torch.kernels import fa2_bwd as tfa2_bwd
+from repro_torch.kernels import hfa as thfa
 from repro_torch.kernels import paged_decode as tpd
+from repro_torch.launch import train as ttrain
+from repro_torch.optim import build_optimizer
 from repro_torch.models.model import LM
 from repro_torch.serving import Request, SamplingParams, ServingEngine
 
@@ -46,7 +53,7 @@ def test_every_module_imports_without_jax_or_repro():
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20      # the whole package
+    assert int(out.stdout.split()[-1]) >= 35      # the whole package
 
 
 def _no_card():
@@ -83,6 +90,26 @@ def test_kernel_route_raises_without_a_card():
                                  lens)
 
 
+def test_train_entry_point_defaults_to_the_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1"])
+
+
+def test_dense_kernel_routes_raise_without_a_card():
+    _no_card()
+    x = torch.zeros(1, 128, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_lib.launch_dense_fwd(x, x, x, causal=True, scale=0.125,
+                                  kv_len=128, q_offset=0, use_hfa=False)
+    m = x.to("meta")
+    for fn in (tfa2.fa2_forward, thfa.hfa_forward):
+        with pytest.raises(ValueError, match="no kernel"):
+            fn(m, m, m)
+    with pytest.raises(ValueError, match="no kernel"):
+        tfa2_bwd.fa2_backward(m, m, m, m, m, m[..., 0])
+
+
 def test_engine_refuses_what_is_not_ported():
     lm = _small_lm()
     for kw in ({"mesh": object()}, {"kv_codec": "int8"},
@@ -100,6 +127,10 @@ def test_engine_refuses_what_is_not_ported():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             eng.submit(Request(rid=0, prompt=[1, 2, 3], max_new_tokens=2,
                                **kw))
+    cfg = get_config("qwen3-1.7b").reduced()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build_optimizer(dataclasses.replace(cfg, optimizer="adafactor"),
+                        lambda step: 1e-3)
     # Greedy with top-k/top-p set is still plain argmax: accepted.
     eng.submit(Request(rid=1, prompt=[1, 2, 3], max_new_tokens=2,
                        sampling=SamplingParams(top_k=5, top_p=0.9)))
