@@ -19,17 +19,37 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the four dense kernels (FA-2 forward, dq, dk/dv, H-FA forward) at
    the training shape (B 4, H 16 after the GQA expand, L 2048, d 128,
    bf16, causal), each against its plain version on the same CUDA
-   tensors, timed beside SDPA's forward or autograd backward.
+   tensors, timed beside SDPA's forward or autograd backward.  Then the
+   dense decode kernel at the dense-serve decode shape (B 8 x Hkv 8, G
+   2, kv_len 576 of a 640-slot bf16 ring read in place, d 128) on both
+   rails, beside SDPA on the same decode, and the per-element LNS
+   datapath kernel at the dense-serve prefill shape (BH 128, L 512, d
+   128, causal): bit for bit on inputs whose scores are exact (a
+   dyadic grid), and on random inputs every row whose bf16 scores the
+   kernel and the plain version form alike (the share that differ is
+   printed).  The LNS device functions must equal the plain ones bit
+   for bit over every bf16 pattern and rail value.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
    the same logits through the kernels on the card as through the plain
-   versions on the CPU, and the same training loss and gradients.
+   versions on the CPU - paged prefill, decode and verify, and the dense
+   ring's prefill and decode steps on fa2, hfa_pallas, hfa and
+   hfa_datapath - and the same training loss and gradients.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
    must finish with its token count, every logit must be finite, the
    cache invariants must hold, and each kernel's launch counter must
    grow on every run whose path uses it.
-5. Train.  Full-width qwen3-1.7b (random bf16 weights from seed 0) on
+5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
+   0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
+   loop of ``serve --dense``: 8 prompts of 512 tokens from
+   ``DataPipeline`` (seed 0), 64 greedy decode steps, a 640-slot dense
+   ring, on impls fa2, hfa_pallas and hfa_datapath.  Each run must
+   launch the dense decode kernel on every step of every layer and its
+   prefill kernel on every layer, give finite logits and 8 x 64 tokens;
+   prefill ms, decode ms/token, tok/s, launches and the tokens that
+   agree with the fa2 run are printed.
+6. Train.  Full-width qwen3-1.7b (random bf16 weights from seed 0) on
    the fa2_pallas and hfa_pallas rails: 2 warm and 3 timed
    ``make_train_step`` steps at global batch 4 x seq 2048 from
    ``DataPipeline``; loss and grad norm must be finite and each dense
@@ -37,18 +57,19 @@ Phases, in order; any failure exits non-zero and prints no result line:
    are printed.  Then ``Trainer.run`` on the reduced config with an
    injected failure restarts from its step-4 checkpoint (under
    ``build/``).
-6. Print ``{"kernels": [...]}``, the card line again, and last
+7. Print ``{"kernels": [...]}``, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Opt-in phases, named on the command line (``python3 chip_smoke.py
 kernels profile_train`` runs just those): ``profile`` traces engine
-steps and ``profile_train`` one full-width training step per rail under
-torch.profiler.
+steps, ``profile_train`` one full-width training step per rail and
+``profile_dense`` full-width dense decode steps under torch.profiler.
 
 There is no CPU fallback: without a card the script stops at once.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import shutil
@@ -73,10 +94,13 @@ from repro_torch.kernels import bitmath  # noqa: E402
 from repro_torch.kernels import fa2 as fa2_k  # noqa: E402
 from repro_torch.kernels import fa2_bwd  # noqa: E402
 from repro_torch.kernels import hfa as hfa_k  # noqa: E402
+from repro_torch.kernels import hfa_datapath as dp_k  # noqa: E402
 from repro_torch.kernels import paged_decode as pd  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp  # noqa: E402
 from repro_torch.kernels import paged_verify as pv  # noqa: E402
+from repro_torch.core import lns  # noqa: E402
 from repro_torch.data import DataPipeline  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import build_optimizer  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
@@ -86,21 +110,28 @@ from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12          # H100 SXM f32 on the CUDA cores
 SRC = "src/repro_torch/csrc/paged_attention.cu"
 DENSE_SRC = "src/repro_torch/csrc/dense_attention.cu"
+DECODE_SRC = "src/repro_torch/csrc/dense_decode.cu"
+DATAPATH_SRC = "src/repro_torch/csrc/hfa_datapath.cu"
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:38",
             "paged_verify": "src/repro/kernels/paged_verify.py:47",
             "fa2_fwd": "src/repro/kernels/fa2.py:26",
             "fa2_bwd_dq": "src/repro/kernels/fa2_bwd.py:30",
             "fa2_bwd_dkv": "src/repro/kernels/fa2_bwd.py:73",
-            "hfa_fwd": "src/repro/kernels/hfa.py:38"}
+            "hfa_fwd": "src/repro/kernels/hfa.py:38",
+            "dense_decode": "src/repro/kernels/decode.py:33",
+            "hfa_datapath": "src/repro/kernels/hfa_datapath.py:31"}
 MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
 # Launch counter of each dense kernel: (module, attribute).
 DENSE_COUNTERS = {"fa2_fwd": (fa2_k, "launches"),
                   "fa2_bwd_dq": (fa2_bwd, "launches_dq"),
                   "fa2_bwd_dkv": (fa2_bwd, "launches_dkv"),
-                  "hfa_fwd": (hfa_k, "launches")}
+                  "hfa_fwd": (hfa_k, "launches"),
+                  "dense_decode": (decode_k, "launches"),
+                  "hfa_datapath": (dp_k, "launches")}
 RAIL_KERNELS = {"fa2_pallas": ("fa2_fwd", "fa2_bwd_dq", "fa2_bwd_dkv"),
                 "hfa_pallas": ("hfa_fwd",)}
 # Tolerances on the finalized attention output, kernel vs plain version
@@ -448,6 +479,228 @@ def check_dense_kernels() -> list[dict]:
     return rows
 
 
+def check_lns() -> None:
+    """The LNS device functions of the datapath source against the plain
+    torch LNS functions, bit for bit: lns_to_bf16 over every rail value
+    (both signs), blinn_log2 over every bf16 pattern, lns_add over signed
+    pairs on a rail grid, quant_scorediff over a sweep of differences."""
+    raw = torch.arange(-32768, 32768, dtype=torch.float32, device="cuda")
+    grid = torch.cat([torch.arange(-1500., 1500., 2., device="cuda"),
+                      torch.tensor([-32768., -32767., 32767., 0.],
+                                   device="cuda")])
+    ra, rb = (t.reshape(-1) for t in torch.meshgrid(grid, grid,
+                                                    indexing="ij"))
+    n = ra.numel()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sa, sb = (torch.randint(0, 2, (n,), generator=gen, device="cuda",
+                            dtype=torch.int32) for _ in range(2))
+    x = torch.linspace(-20.0, 1.0, n, device="cuda")
+    bits = torch.arange(n, device="cuda", dtype=torch.int32) & 0xFFFF
+    sc, rc, quant, bsign, braw, _ = cuda_lib.lns_eval(sa, ra, sb, rb, x,
+                                                      bits)
+    ws, wr = lns.lns_add(sa, ra, sb, rb)
+    pat = (torch.where(bits >= 0x8000, bits - 0x10000, bits)
+           .to(torch.int16).view(torch.bfloat16))
+    bs, br = lns.blinn_log2(pat)
+    bad = {"lns_add": int((sc != ws).sum() + (rc != wr).sum()),
+           "quant_scorediff": int((quant != lns.quant_scorediff(x)).sum()),
+           "blinn_log2": int((bsign != bs).sum() + (braw != br).sum())}
+    for sign in (0, 1):
+        sg = torch.full_like(raw, sign, dtype=torch.int32)
+        *_, packed = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)
+        bad[f"lns_to_bf16 sign {sign}"] = int(
+            (packed.view(torch.int16)
+             != lns.lns_to_bf16(sg, raw).view(torch.int16)).sum())
+    if any(bad.values()):
+        raise AssertionError(f"LNS device functions differ from the plain "
+                             f"versions: {bad}")
+    print(f"lns (datapath source): lns_add over {n} signed pairs, "
+          f"quant_scorediff over {n} differences, blinn_log2 over every bf16 "
+          f"pattern, lns_to_bf16 over all 65536 rail values x 2 signs: "
+          f"bit-equal to the plain torch LNS")
+
+
+# The dense-serve decode of qwen3-1.7b: batch 8 x 8 KV heads, 2 query
+# heads each, the 576th token of a 640-slot bf16 ring, d_head 128.
+DEC_B, DEC_HKV, DEC_G, DEC_S, DEC_KV, DEC_D = 8, 8, 2, 640, 576, 128
+# fa2: summation order only - the finalized output to 2e-5, o~ and l to
+# 2e-5 of their scale, m to 2e-6.  hfa: the kernel's and cuBLAS's dot
+# products round differently, and a score on the other side of a rail
+# step moves that key's p by 0.54%.  At this shape that moved the
+# finalized output by 1.5e-5 (H100); it is held to 1e-4, far below what
+# a lost rail quantization moves (the tiled rail is 0.38 from exact
+# softmax at the training shape), and m to 2e-6.
+ATOL_DEC = {"fa2": 2e-5, "hfa": 1e-4}
+
+
+def check_decode_kernel() -> dict:
+    """Kernel 4 at the dense-serve decode shape against its plain
+    version on the same CUDA tensors, both rails, beside one SDPA call
+    on the same decode."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    b, hkv, g, s_len, kvl, d = DEC_B, DEC_HKV, DEC_G, DEC_S, DEC_KV, DEC_D
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q = rnd(b, hkv, g, d)
+    ring_k, ring_v = rnd(b, s_len, hkv, d), rnd(b, s_len, hkv, d)
+    k, v = ring_k.transpose(1, 2), ring_v.transpose(1, 2)   # in place
+    row = {"name": "dense_decode", "route": "cuda", "source": DECODE_SRC,
+           "replaces": REPLACES["dense_decode"]}
+    for rail in ("fa2", "hfa"):
+        use_hfa = rail == "hfa"
+
+        def kernel():
+            return decode_k.decode_partial(q, k, v, kv_len=kvl,
+                                           use_hfa=use_hfa)
+
+        def plain():
+            return decode_k.decode_partial_plain(q, k, v, kv_len=kvl,
+                                                 use_hfa=use_hfa)
+        (ko, km, kl), (po, pm, pl_) = kernel(), plain()
+        torch.cuda.synchronize()
+        kout = decode_k.finalize_decode(ko, kl, use_hfa=use_hfa)
+        pout = decode_k.finalize_decode(po, pl_, use_hfa=use_hfa)
+        err = float((kout - pout).abs().max())
+        err_m = float((km - pm).abs().max())
+        errs = [float((a - w).abs().max()) / max(1.0, float(w.abs().max()))
+                for a, w in ((ko, po), (kl, pl_))]
+        ok = err <= ATOL_DEC[rail] and err_m <= 2e-6 and bool(
+            torch.isfinite(kout).all())
+        if rail == "fa2":
+            ok = ok and max(errs) <= 2e-5
+        if not ok:
+            raise AssertionError(
+                f"dense_decode[{rail}] disagrees with its plain version: "
+                f"out {err:.3g} (atol {ATOL_DEC[rail]}), m {err_m:.3g} "
+                f"(atol 2e-6), o~/l relative {max(errs):.3g}")
+        row[f"{rail}_ms"] = timed(kernel)
+        row[f"{rail}_plain_ms"] = timed(plain, reps=5, inner=2)
+        row[f"{rail}_max_abs_err"] = err
+        row[f"{rail}_triplet_rel_err"] = max(errs)
+        if rail == "fa2":
+            row.update(ms=row["fa2_ms"], plain_ms=row["fa2_plain_ms"])
+    row["max_abs_err"] = max(row["fa2_max_abs_err"], row["hfa_max_abs_err"])
+    # SDPA on the same decode: (B, H, 1, d) against the live keys, the
+    # KV heads repeated kv-major, built outside the timed region.
+    q4 = q.reshape(b, hkv * g, 1, d)
+    k4, v4 = (t[:, :, :kvl].repeat_interleave(g, dim=1).contiguous()
+              for t in (k, v))
+    row["library_ms"] = timed(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4))
+    kv_bytes = b * hkv * kvl * d * 2 * 2
+    io_bytes = q.numel() * 2 + b * hkv * g * (d + 2) * 4
+    t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * d * b * hkv * g * kvl / BF16_FLOPS_PER_S * 1e3
+    row["bound_ms"] = max(t_bytes, t_ops)
+    row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    print(f"kernel dense_decode (B {b}, Hkv {hkv}, G {g}, kv_len {kvl} of a "
+          f"{s_len}-slot bf16 ring, d {d}): kernel_ms fa2 "
+          f"{row['fa2_ms']:.4f} hfa {row['hfa_ms']:.4f} | plain_ms fa2 "
+          f"{row['fa2_plain_ms']:.4f} hfa {row['hfa_plain_ms']:.4f} | "
+          f"library_ms {row['library_ms']:.4f} (SDPA) | bound_ms "
+          f"{row['bound_ms']:.4f} ({row['bound_by']}, {kv_bytes / 1e6:.2f} MB "
+          f"of live K/V) | max |out| err fa2 {row['fa2_max_abs_err']:.3g} "
+          f"hfa {row['hfa_max_abs_err']:.3g} | o~/l rel err fa2 "
+          f"{row['fa2_triplet_rel_err']:.3g} hfa "
+          f"{row['hfa_triplet_rel_err']:.3g}")
+    return row
+
+
+# The dense-serve prefill of qwen3-1.7b: batch 8 x 16 heads (GQA
+# expanded), 512 tokens, d_head 128, bf16, causal.
+DP_BH, DP_L, DP_D = 128, 512, 128
+
+
+def _datapath_bound(bh: int, ell: int, d: int) -> tuple[float, str, dict]:
+    """Least time for the datapath's work: q, k, v read and the bf16
+    output written once over the memory rate, against its operations -
+    the QK products over the causal visible pairs at the bf16 tensor
+    peak plus one LNS update per (visible pair, column) at the f32
+    CUDA-core rate (they have no tensor-core form) - summed."""
+    pairs = bh * ell * (ell + 1) / 2
+    nbytes = 4 * bh * ell * d * 2
+    updates = pairs * (d + 1)
+    t_qk = 2 * d * pairs / BF16_FLOPS_PER_S * 1e3
+    t_lns = updates / F32_OPS_PER_S * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = t_qk + t_lns
+    parts = {"bytes_ms": t_bytes, "qk_ms": t_qk, "lns_ms": t_lns,
+             "lns_updates": updates}
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
+                                 "operations"), parts
+
+
+def check_datapath_kernel() -> dict:
+    """Kernel 9 at the dense-serve prefill shape against its plain
+    version (the core.hfa emulation) on the same CUDA tensors: (a) bit
+    for bit on a dyadic grid, where no summation order can change a
+    score; (b) on random normal inputs, every row whose bf16 scores the
+    kernel and the plain einsum form alike, with the share that differ
+    printed."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bh, ell, d = DP_BH, DP_L, DP_D
+
+    def dyadic():
+        x = torch.randint(-8, 9, (bh, ell, d), generator=gen, device="cuda")
+        return (x.to(torch.float32) / 4).to(torch.bfloat16)
+
+    def normal():
+        return torch.randn((bh, ell, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+    # (a) exact scores.
+    qa, ka, va = dyadic(), dyadic(), normal()
+    got = dp_k.hfa_datapath(qa, ka, va, causal=True)
+    want = dp_k.hfa_datapath_plain(qa, ka, va, causal=True)
+    torch.cuda.synchronize()
+    bad_a = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+    if bad_a:
+        raise AssertionError(f"hfa_datapath: {bad_a} of {got.numel()} output "
+                             "bits differ from the plain version on exact "
+                             "scores")
+    # (b) random normal inputs.
+    q, k, v = normal(), normal(), normal()
+
+    def kernel():
+        return dp_k.hfa_datapath(q, k, v, causal=True)
+
+    def plain():
+        return dp_k.hfa_datapath_plain(q, k, v, causal=True)
+    got, want = kernel(), plain()
+    s_kernel = dp_k.kernel_order_scores(q, k)
+    s_plain = (torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+               * d ** -0.5).to(torch.bfloat16).float()
+    vis = torch.ones(ell, ell, dtype=torch.bool, device="cuda").tril()
+    agree = ((s_kernel == s_plain) | ~vis).all(-1)
+    same = (got.view(torch.int16) == want.view(torch.int16)).all(-1)
+    differ_share = 1.0 - float(agree.float().mean())
+    bad_b = int((agree & ~same).sum())
+    err = float((got.float() - want.float()).abs().max())
+    del s_kernel, s_plain
+    if bad_b or not bool(torch.isfinite(got.float()).all()):
+        raise AssertionError(f"hfa_datapath: {bad_b} rows with equal scores "
+                             "differ from the plain version")
+    ms = timed(kernel, reps=10, inner=2)
+    plain_ms = timed(plain, reps=1, inner=1)
+    bound_ms, bound_by, parts = _datapath_bound(bh, ell, d)
+    row = {"name": "hfa_datapath", "route": "cuda", "source": DATAPATH_SRC,
+           "replaces": REPLACES["hfa_datapath"], "max_abs_err": err,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by, "library_ms": None,
+           "rows_scores_differ": differ_share}
+    print(f"kernel hfa_datapath (BH {bh}, L {ell}, d {d}, bf16, causal): "
+          f"kernel_ms {ms:.4f} | plain_ms {plain_ms:.4f} | library_ms none "
+          f"| bound_ms {bound_ms:.4f} ({bound_by}: QK {parts['qk_ms']:.4f} + "
+          f"{parts['lns_updates']:.3g} LNS updates at the f32 CUDA-core rate "
+          f"{parts['lns_ms']:.4f}; bytes {parts['bytes_ms']:.4f}) | (a) "
+          f"exact scores: all {got.numel()} output bits equal | (b) random: "
+          f"{differ_share:.4%} of rows have a bf16 score that differs, all "
+          f"{int(agree.sum())} rows whose scores agree are bit-equal, max "
+          f"|err| over all rows {err:.3g}")
+    return row
+
+
 # ------------------------------------------------------------- phase 3
 def check_small_reference() -> None:
     """Reduced qwen3-1.7b in f32: kernels on the card vs plain versions
@@ -488,6 +741,49 @@ def check_small_reference() -> None:
             print(f"reference: reduced qwen3-1.7b {meth} [{rail}] card "
                   f"kernels vs CPU plain: max |logit| diff {err:.3g}")
 
+
+
+# Dense ring on the reduced model, card vs CPU: fa2 is f32 on both sides;
+# the H-FA impls move a rail step where a score rounds the other way
+# (tiled rail in decode, bf16 scores in the datapath prefill).
+RING_TOLS = {"fa2": 1e-4, "hfa_pallas": 2e-2, "hfa": 2e-2,
+             "hfa_datapath": 2e-2}
+
+
+def check_ring_reference() -> None:
+    """Reduced qwen3-1.7b (f32): the dense ring's prefill and 8 decode
+    steps through the kernels on the card (prefill kernels 5, 8 or 9,
+    decode kernel 4) against the plain versions on the CPU, same
+    greedy tokens fed to both."""
+    toks = DataPipeline.for_config(get_config("qwen3-1.7b").reduced(), 40,
+                                   2).batch(0)["tokens"]
+    for impl, tol in RING_TOLS.items():
+        cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
+                                  attn_impl=impl)
+        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        gpu = LM(cfg, device="cuda")
+        gpu.load_state_dict(cpu.state_dict())
+        caches = {m: m.init_cache(2, 64) for m in (cpu, gpu)}
+        errs, tok = [], None
+        for step in range(9):
+            out = {}
+            for m in (cpu, gpu):
+                if step == 0:
+                    logits, caches[m] = m.prefill(
+                        caches[m], torch.tensor(toks, device=m.device))
+                else:
+                    logits, caches[m] = m.decode_step(
+                        caches[m], tok.to(m.device))
+                out[m.device.type] = logits.cpu()
+            errs.append(float((out["cuda"] - out["cpu"]).abs().max()))
+            tok = torch.argmax(out["cpu"][:, -1], dim=-1)[:, None]
+        if not max(errs) <= tol:
+            raise AssertionError(f"reduced model dense ring [{impl}]: card vs "
+                                 f"CPU logits differ by {max(errs):.3g} "
+                                 f"(atol {tol})")
+        print(f"reference: reduced qwen3-1.7b dense ring [{impl}] prefill + "
+              f"8 decode steps, card kernels vs CPU plain: max |logit| diff "
+              f"prefill {errs[0]:.3g}, decode {max(errs[1:]):.3g}")
 
 
 def _leaf_errors(got: dict, want: dict) -> tuple[float, float]:
@@ -640,6 +936,65 @@ def check_engine() -> dict:
 
 
 # ------------------------------------------------------------- phase 5
+SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_SEQ = 8, 512, 64, 640
+SERVE_IMPLS = {"fa2": "fa2_fwd", "hfa_pallas": "hfa_fwd",
+               "hfa_datapath": "hfa_datapath"}
+
+
+def check_dense_serve() -> dict:
+    """Full-width qwen3-1.7b through ``serve --dense``'s loop on each
+    impl: the prefill kernel must launch once per layer and the dense
+    decode kernel once per layer per step.  Returns the launches."""
+    cfg = get_config("qwen3-1.7b")
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    batch = DataPipeline.for_config(cfg, SERVE_PROMPT, SERVE_BATCH).batch(0)
+    args = argparse.Namespace(batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                              steps=SERVE_STEPS, max_seq=SERVE_MAX_SEQ)
+    torch.cuda.synchronize()
+    print(f"dense_serve: qwen3-1.7b full width, {cfg.n_layers} layers, init "
+          f"{time.perf_counter() - t0:.1f} s; ring {cfg.n_layers} x 2 x "
+          f"{SERVE_BATCH} x {SERVE_MAX_SEQ} x {cfg.n_kv_heads} x "
+          f"{cfg.d_head} bf16 = "
+          f"{cfg.n_layers * 2 * SERVE_BATCH * SERVE_MAX_SEQ * cfg.n_kv_heads * cfg.d_head * 2 / 1e9:.2f} GB")
+    # One short untimed pass first, so that no timed run pays the card's
+    # first-use costs (library handles, lazy module loads).
+    warm = model.init_cache(1, 32)
+    toks = torch.as_tensor(batch["tokens"][:1, :16], device="cuda")
+    _, warm = model.prefill(warm, toks)
+    model.decode_step(warm, toks[:, :1])
+    del warm
+    totals = {n: 0 for n in DENSE_COUNTERS}
+    runs = {}
+    for impl, prefill_kernel in SERVE_IMPLS.items():
+        model.cfg = dataclasses.replace(cfg, attn_impl=impl)
+        _reset_dense_counters()
+        res = serve_cli._serve_dense(model, model.cfg, batch, args)
+        counts = _dense_counts()
+        runs[impl] = res["tokens"]
+        need = {"dense_decode": cfg.n_layers * SERVE_STEPS,
+                prefill_kernel: cfg.n_layers}
+        if any(counts[n] != c for n, c in need.items()) or not res["finite"] \
+                or res["tokens"].shape != (SERVE_BATCH, SERVE_STEPS):
+            raise AssertionError(f"dense_serve [{impl}]: launches {counts} "
+                                 f"(need {need}), finite {res['finite']}, "
+                                 f"tokens {res['tokens'].shape}")
+        for n, c in counts.items():
+            totals[n] += c
+        agree = int((res["tokens"] == runs["fa2"]).sum())
+        print(f"dense_serve [{impl}]: prefill {res['prefill_ms']:.1f} ms "
+              f"({SERVE_BATCH}x{SERVE_PROMPT}), decode "
+              f"{res['decode_ms']:.2f} ms/token, {res['tok_s']:.1f} tok/s, "
+              f"launches { {n: c for n, c in counts.items() if c} }, "
+              f"tokens agreeing with the fa2 run {agree}/{res['tokens'].size}")
+    model.cfg = cfg
+    del model
+    torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------- phase 6
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
@@ -807,6 +1162,35 @@ def _report_profile(prof, wall: float, steps: int, label: str) -> None:
               f"{e.count:6d}x {e.key[:90]}")
 
 
+def profile_dense(steps: int = 8) -> None:
+    """Opt-in phase (``python3 chip_smoke.py profile_dense``):
+    torch.profiler over ``steps`` full-width dense decode steps (fa2,
+    B 8, after the 512-token prefill and 2 warm steps)."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config("qwen3-1.7b")
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    batch = DataPipeline.for_config(cfg, SERVE_PROMPT, SERVE_BATCH).batch(0)
+    cache = model.init_cache(SERVE_BATCH, SERVE_MAX_SEQ)
+    logits, cache = model.prefill(cache, torch.as_tensor(batch["tokens"],
+                                                         device="cuda"))
+    for _ in range(2):
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        logits, cache = model.decode_step(cache, tok)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+            logits, cache = model.decode_step(cache, tok)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _report_profile(prof, wall, steps, "dense decode fa2 B 8")
+    del model, cache
+    torch.cuda.empty_cache()
+
+
 def profile_train() -> None:
     """Opt-in phase (``python3 chip_smoke.py profile_train``):
     torch.profiler over one full-width training step of each rail (batch
@@ -832,7 +1216,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    phases = sys.argv[1:] or ["kernels", "reference", "engine", "train"]
+    phases = sys.argv[1:] or ["kernels", "reference", "engine",
+                              "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -847,19 +1232,29 @@ def main() -> int:
     rows = []
     if "kernels" in phases:
         check_rail()
-        rows = check_kernels() + check_dense_kernels()
+        check_lns()
+        rows = check_kernels() + check_dense_kernels() + [
+            check_decode_kernel(), check_datapath_kernel()]
+        print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     if "reference" in phases:
         check_small_reference()
+        check_ring_reference()
         check_train_reference()
+        print(f"phase reference done at {time.perf_counter() - t0:.1f} s")
     if "profile" in phases:
         profile_engine()
     if "profile_train" in phases:
         profile_train()
-    totals = {}
-    if "engine" in phases:
-        totals.update(check_engine())
-    if "train" in phases:
-        totals.update(check_train())
+    if "profile_dense" in phases:
+        profile_dense()
+    totals: dict = {}
+    for phase, run in (("engine", check_engine),
+                       ("dense_serve", check_dense_serve),
+                       ("train", check_train)):
+        if phase in phases:
+            for n, c in run().items():       # launches of the phase's path
+                totals[n] = totals.get(n, 0) + c
+            print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s")
     for r in rows:
         r["launches"] = totals.get(r["name"], 0)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,19 @@
-"""The parts of the FIX16 log-number-system datapath the H-FA rail uses.
+"""The FIX16 log-number-system datapath of the H-FA paper (Sec. IV-V).
+
+The reference's ``src/repro/core/lns.py`` in its default configuration
+(the ``LNSConfig`` ablations of the paper's Table III are not ported):
+
+* ``quant_scorediff`` - Eq. (14b/c): clamp a natural-domain score
+  difference to [-15, 0], times log2(e), quantized to the FIX16 rail.
+* ``blinn_log2``      - Eq. (18): BF16 -> (sign, rail log2 magnitude) by
+  reinterpreting the exponent/mantissa bits.
+* ``exp2_neg``        - Eq. (19), below.
+* ``lns_add``         - Eq. (10)+(17): signed LNS addition with
+  Mitchell's log2(1 +- 2^-D) ~= +-2^-D.
+* ``lns_to_bf16``     - Eq. (22): rail value back to BF16 (bit packing).
+
+LNS numbers are (sign, raw) pairs: ``sign`` int32 in {0, 1}, ``raw`` a
+float32 tensor holding log2|x| * 2^7; ``raw <= LOG_ZERO`` encodes 0.
 
 ``exp2_neg`` is Eq. (19): 2^{-D} = (2^{-f}) >> p through an 8-segment
 piecewise-linear LUT whose coefficients are fitted in numpy when this
@@ -15,7 +30,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.numerics import FRAC_BITS, FRAC_ONE
+from repro_torch.core.numerics import (BF16_BIAS, FIX_MAX, FIX_MIN,
+                                      FRAC_BITS, FRAC_ONE, LOG_ZERO,
+                                      bf16_bits)
 
 LOG2E = float(np.log2(np.e))
 # Natural-domain score differences below -15 contribute e^-15 ~ 3e-7 and are
@@ -93,3 +110,93 @@ def exp2_neg(raw_d: torch.Tensor) -> torch.Tensor:
     shifted = g * torch.exp2(-torch.clamp(p, max=60.0))
     # Hardware right shift truncates.
     return torch.floor(shifted)
+
+
+def clamp_rail(raw: torch.Tensor) -> torch.Tensor:
+    """Saturate a rail value to the FIX16 range."""
+    return torch.clamp(raw, FIX_MIN, FIX_MAX)
+
+
+def quant_scorediff(diff_nat: torch.Tensor) -> torch.Tensor:
+    """Eq. (14b/c): the rail value of a non-positive natural-domain score
+    difference times log2(e); -inf-like values hit the clamp."""
+    diff = torch.clamp(diff_nat.to(torch.float32), DIFF_CLAMP_NAT, 0.0)
+    return torch.round(diff * LOG2E * FRAC_ONE)
+
+
+def blinn_log2(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (18): BF16 -> (sign, rail log2 magnitude) by bit
+    reinterpretation: raw = (bits & 0x7FFF) - (bias << 7); v == 0 maps
+    to LOG_ZERO."""
+    bits = bf16_bits(v)
+    sign = (bits >> 15) & 1
+    mag = bits & 0x7FFF
+    raw = (mag - (BF16_BIAS << FRAC_BITS)).to(torch.float32)
+    raw = torch.where(mag == 0, torch.full_like(raw, float(LOG_ZERO)), raw)
+    return sign, clamp_rail(raw)
+
+
+def lns_from_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Float -> LNS: Blinn's trick is a Mitchell approximation (Eq. 18)."""
+    return blinn_log2(v)
+
+
+def lns_add(sign_a: torch.Tensor, raw_a: torch.Tensor, sign_b: torch.Tensor,
+            raw_b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Eq. (10) + (17): signed LNS addition c = a + b, with a =
+    (-1)^sign_a 2^(raw_a/128) and likewise b.  Returns (sign_c, raw_c)."""
+    zero = torch.full_like(raw_a, float(LOG_ZERO))
+    a_is_zero = raw_a <= LOG_ZERO
+    b_is_zero = raw_b <= LOG_ZERO
+    big = torch.maximum(raw_a, raw_b)
+    d = torch.abs(raw_a - raw_b)
+    same_sign = sign_a == sign_b
+    corr = exp2_neg(d)        # Mitchell: log2(1 +- 2^-D) ~= +- 2^-D
+    raw_c = torch.where(same_sign, big + corr, big - corr)
+    # Sign follows the larger magnitude; ties (B >= A) take B (14d).
+    sign_c = torch.where(raw_a > raw_b, sign_a, sign_b)
+    # Zero-operand bypasses.
+    raw_c = torch.where(a_is_zero, raw_b, raw_c)
+    sign_c = torch.where(a_is_zero, sign_b, sign_c)
+    raw_c = torch.where(b_is_zero, torch.where(a_is_zero, zero, raw_a), raw_c)
+    sign_c = torch.where(b_is_zero, torch.where(a_is_zero,
+                                                torch.zeros_like(sign_a),
+                                                sign_a), sign_c)
+    # Exact cancellation (same magnitude, opposite sign) -> zero.
+    cancel = ~same_sign & (d == 0) & ~a_is_zero & ~b_is_zero
+    raw_c = torch.where(cancel, zero, raw_c)
+    sign_c = torch.where(cancel, torch.zeros_like(sign_c), sign_c)
+    return sign_c.to(torch.int32), clamp_rail(raw_c)
+
+
+def lns_to_bf16(sign: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """Eq. (22): (sign, rail log2 magnitude) -> BFloat16, |x| = 2^I (1+F).
+    For integer rail values this is the hardware bit packing: underflow
+    flushes to zero, overflow saturates to the largest finite BF16.
+
+    The lowest binade (I = -126) also reads as zero, as in the
+    reference: there XLA's f32 ``exp2`` returns 2^-126 as a subnormal,
+    which the CPU flushes to zero.  The port keeps that rule so both
+    packages agree on every bit pattern."""
+    i_part = torch.floor(raw / FRAC_ONE)
+    f_part = raw / FRAC_ONE - i_part
+    is_zero = raw <= LOG_ZERO
+    underflow = (i_part + BF16_BIAS) <= 1
+    overflow = (i_part + BF16_BIAS) >= 255
+    i_safe = torch.clamp(i_part, 1 - BF16_BIAS, 254 - BF16_BIAS)
+    mag = torch.exp2(i_safe) * (1.0 + f_part)
+    mag = torch.where(underflow | is_zero, torch.zeros_like(mag), mag)
+    max_finite = 2.0 ** 127 * (1.0 + 127.0 / 128.0)
+    mag = torch.where(overflow & ~is_zero, torch.full_like(mag, max_finite),
+                      mag)
+    return torch.where(sign == 1, -mag, mag).to(torch.bfloat16)
+
+
+def lns_value_hw(sign: torch.Tensor, raw: torch.Tensor) -> torch.Tensor:
+    """Value under hardware semantics, 2^I (1+F) in float32 (Blinn's
+    forward conversion and this inverse cancel exactly)."""
+    i_part = torch.floor(raw / FRAC_ONE)
+    f_part = raw / FRAC_ONE - i_part
+    mag = torch.exp2(i_part) * (1.0 + f_part)
+    mag = torch.where(raw <= LOG_ZERO, torch.zeros_like(mag), mag)
+    return torch.where(sign == 1, -mag, mag)

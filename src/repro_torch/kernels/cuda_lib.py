@@ -1,7 +1,8 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``paged_attention.cu``,
-``dense_attention.cu``, and the header ``hfa_rail.cuh`` they share) is
+``dense_attention.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``, and
+the headers ``hfa_rail.cuh`` and ``lns_rail.cuh`` they share) is
 compiled by ``nvcc`` - one process per ``.cu`` file, all started
 together - and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
@@ -40,7 +41,10 @@ _lib = None
 _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
 build_log = ""    # nvcc's stderr (ptxas register / spill report)
 # rail entry point of each source, for the bit-equality checks
-RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval"}
+RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval",
+                "decode": "decode_rail_eval"}
+# Query heads per KV head the dense decode kernel takes.
+DECODE_MAX_G = 8
 
 
 def _nvcc() -> str:
@@ -118,9 +122,16 @@ def library() -> ctypes.CDLL:
             f32, i32, i32, ptr, ptr]
         lib.dense_attn_dq.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
         lib.dense_attn_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
+        i64 = ctypes.c_longlong
+        lib.dense_decode_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 3 + [
+            i32, f32, i32, i32, ptr, ptr]
+        lib.hfa_datapath_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [
+            f32, i32, ptr, ptr]
+        lib.lns_eval.argtypes = [ptr] * 12 + [i32, ptr, ptr]
         for name in ("paged_decode_fwd", "paged_prefill_fwd",
                      "paged_verify_fwd", "dense_attn_fwd", "dense_attn_dq",
-                     "dense_attn_dkv", *RAIL_ENTRIES.values()):
+                     "dense_attn_dkv", "dense_decode_fwd", "hfa_datapath_fwd",
+                     "lns_eval", *RAIL_ENTRIES.values()):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
     return _lib
@@ -280,3 +291,85 @@ def rail_eval(x: torch.Tensor, source: str = "paged"):
                                     _stream())
     check(err, entry)
     return tuple(outs)
+
+
+def launch_dense_decode(q, k, v, *, scale: float, kv_len: int,
+                        use_hfa: bool):
+    """Dense decode triplet on the current stream.  q (..., G, d)
+    contiguous; k, v (..., S, d) with the same one or two leading dims,
+    sharing strides, each key's d values contiguous (the ring is read
+    in place).  Returns o~ (..., G, d), m and l (..., G), f32."""
+    entry = "dense_decode_fwd"
+    _require(all(t.is_cuda and t.device == q.device for t in (k, v)),
+             f"{entry}: every tensor must be on the same CUDA device")
+    _require(q.dtype in (torch.bfloat16, torch.float32)
+             and k.dtype == q.dtype and v.dtype == q.dtype,
+             f"{entry}: q, k, v must share a dtype in (bf16, f32), got "
+             f"{q.dtype}/{k.dtype}/{v.dtype}")
+    _require(q.dim() in (3, 4) and k.dim() == q.dim()
+             and k.shape == v.shape and k.stride() == v.stride()
+             and k.shape[:-2] == q.shape[:-2] and k.shape[-1] == q.shape[-1]
+             and k.stride(-1) == 1,
+             f"{entry}: q {tuple(q.shape)} and k/v {tuple(k.shape)} are not "
+             f"(..., G, d) / (..., S, d) with shared strides and a "
+             f"contiguous last dim")
+    _require(q.shape[-1] in (64, 128),
+             f"{entry}: head dim {q.shape[-1]} not in (64, 128)")
+    _require(1 <= q.shape[-2] <= DECODE_MAX_G,
+             f"{entry}: {q.shape[-2]} query heads per KV head, the kernel "
+             f"takes 1..{DECODE_MAX_G}")
+    q = q.contiguous()
+    lead = q.shape[:-2]
+    n0, n1 = (1, lead[0]) if len(lead) == 1 else lead
+    s0, s1 = (0, k.stride(0)) if len(lead) == 1 else (k.stride(0),
+                                                      k.stride(1))
+    g, d, s_len = q.shape[-2], q.shape[-1], k.shape[-2]
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    l = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
+    if o.numel() == 0:
+        return o, m, l
+    err = library().dense_decode_fwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(m), _ptr(l), n0, n1, g,
+        s_len, d, s0, s1, k.stride(-2), int(kv_len), ctypes.c_float(scale),
+        int(use_hfa), int(q.dtype == torch.bfloat16),
+        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, entry)
+    return o, m, l
+
+
+def launch_hfa_datapath(q, k, v, *, causal: bool, scale: float,
+                        kv_len: int, q_offset: int) -> torch.Tensor:
+    """Per-element LNS H-FA on the current stream: (BH, Lq, d) bf16."""
+    _check_dense("hfa_datapath_fwd", q, k, v)
+    out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    err = library().hfa_datapath_fwd(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(out),
+        *_dims(q, k, kv_len, q_offset, causal), ctypes.c_float(scale),
+        int(q.dtype == torch.bfloat16), ctypes.cast(_LUT, ctypes.c_void_p),
+        _stream())
+    check(err, "hfa_datapath_fwd")
+    return out
+
+
+def lns_eval(sign_a, raw_a, sign_b, raw_b, x, bits):
+    """The LNS device functions over n elements (CUDA tensors: int32
+    signs and bf16 bit patterns, f32 rail values and score differences):
+    (lns_add sign, lns_add raw, quant_scorediff(x), blinn_log2 sign,
+    blinn_log2 raw, lns_to_bf16(sign_a, raw_a))."""
+    ins = (sign_a, raw_a, sign_b, raw_b, x, bits)
+    dts = (torch.int32, torch.float32, torch.int32, torch.float32,
+           torch.float32, torch.int32)
+    n = raw_a.numel()
+    _require(all(t.is_cuda and t.dtype == dt and t.is_contiguous()
+                 and t.numel() == n for t, dt in zip(ins, dts)),
+             "lns_eval: needs contiguous CUDA tensors of one length "
+             "(int32 signs and bits, f32 rails)")
+    outs = (torch.empty_like(sign_a), torch.empty_like(raw_a),
+            torch.empty_like(x), torch.empty_like(bits),
+            torch.empty_like(raw_a),
+            torch.empty(n, dtype=torch.int16, device=raw_a.device))
+    err = library().lns_eval(*map(_ptr, ins), *map(_ptr, outs), n,
+                             ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, "lns_eval")
+    return outs[:5] + (outs[5].view(torch.bfloat16),)

@@ -1,19 +1,108 @@
-"""Block-FAU triplet algebra: the Eq. (16) merge and the final normalize.
+"""Dense flash-decode and the block-FAU triplet algebra.
 
-Every paged attention kernel returns the unnormalized triplet (o~, m, l)
-per query row.  ``merge_partials`` combines triplets with the
-log-domain ACC rule, and ``finalize_decode`` divides by ``l`` - a float
-divide on the fa2 rail, LogDiv on the hfa rail.  Both stay plain torch,
-as the reference leaves them to XLA.
+``decode_partial`` replaces the Pallas kernel
+``src/repro/kernels/decode.py::_decode_kernel`` (wrapper
+``decode_partial_pallas``): the G query heads that share one KV head
+against a contiguous cache, streamed in 128-key tiles with the Alg. 2
+online update and a ``kv_len`` mask, returning the unnormalized triplet
+(o~, m, l).  On a CUDA tensor it launches ``dense_decode_fwd`` of
+``csrc/dense_decode.cu`` and counts the launch in :data:`launches`; on a
+CPU tensor it runs :func:`decode_partial_plain`.  One new token per
+(sequence, KV head) does 2 flops per K/V byte, so the kernel is bound by
+the bytes of the live K/V rows; it reads them in place from the
+serving ring, (B, S, Hkv, d) with its strides, and stops at the last
+tile that holds a key below ``kv_len``, where the reference pads and
+copies the ring per call.  On the hfa rail the result depends on where
+the online rescales fall (alpha and p are quantized per tile), so the
+kernel walks exactly the reference's 128-key tiles.
+
+Every paged attention kernel also returns the unnormalized triplet per
+query row.  ``merge_partials`` combines triplets with the log-domain
+ACC rule, and ``finalize_decode`` divides by ``l`` - a float divide on
+the fa2 rail, LogDiv on the hfa rail.  Both stay plain torch, as the
+reference leaves them to XLA.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bitmath
+from repro_torch.kernels import bitmath, cuda_lib
 
 # Finite, so (m_prev - m_new) stays finite on fully masked rows.
 NEG_INF = -1e30
+BLOCK_KV = 128        # the reference's tile, where the hfa rail rescales
+launches = 0
+
+
+def decode_partial_plain(q, k, v, *, scale=None, block_kv=BLOCK_KV,
+                         kv_len=None, use_hfa=False):
+    """The kernel's math in torch: q (..., G, d) against k, v (..., S,
+    d), walked in ``block_kv``-key tiles (S padded up to a multiple),
+    keys at or past ``kv_len`` masked as the kernel masks them.
+    Returns o~ (..., G, d), m and l (..., G), all f32; with nothing
+    visible, (0, NEG_INF, 0)."""
+    d, s_len = q.shape[-1], k.shape[-2]
+    scale_v = (1.0 / d ** 0.5) if scale is None else scale
+    kv_len = s_len if kv_len is None else int(kv_len)
+    qf = q.to(torch.float32)
+    m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, s_len, block_kv):
+        kb = k[..., k0:k0 + block_kv, :].to(torch.float32)
+        vb = v[..., k0:k0 + block_kv, :].to(torch.float32)
+        pad = block_kv - kb.shape[-2]
+        if pad:
+            kb = torch.nn.functional.pad(kb, (0, 0, 0, pad))
+            vb = torch.nn.functional.pad(vb, (0, 0, 0, pad))
+        s = torch.einsum("...gd,...kd->...gk", qf, kb) * scale_v
+        mask = (k0 + torch.arange(block_kv, device=q.device)) < min(kv_len,
+                                                                    s_len)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        dm = torch.minimum(m - m_new, torch.zeros_like(m))
+        if use_hfa:
+            alpha = bitmath.exp2_hfa_rail(bitmath.quant_rail(dm))
+            p = bitmath.exp2_hfa_rail(bitmath.quant_rail(s - m_new[..., None]))
+        else:
+            alpha = torch.exp(dm)
+            p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask & (m_new != NEG_INF)[..., None], p,
+                        torch.zeros_like(p))
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("...gk,...kd->...gd",
+                                                    p, vb)
+        m = m_new
+    return acc, m, l
+
+
+def decode_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float | None = None, block_kv: int = BLOCK_KV,
+                   kv_len: int | None = None, use_hfa: bool = False):
+    """Partial decode attention, one triplet per query row.
+
+    q (..., G, d) grouped queries (G query heads per KV head); k, v
+    (..., S, d) with the same one or two leading dims - any strided view
+    whose last dim is contiguous, e.g. the serving ring (B, S, Hkv, d)
+    seen as (B, Hkv, S, d).  ``kv_len`` (a host int, default S) masks
+    the unwritten slots.  Returns o~ (..., G, d), m and l (..., G), f32.
+    """
+    if q.device.type == "cpu":
+        return decode_partial_plain(q, k, v, scale=scale, block_kv=block_kv,
+                                    kv_len=kv_len, use_hfa=use_hfa)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_partial: no kernel for {q.device}")
+    if block_kv != BLOCK_KV:
+        raise ValueError(f"decode_partial: the kernel's rescale tile is "
+                         f"{BLOCK_KV} keys, got block_kv {block_kv}")
+    global launches
+    d, s_len = q.shape[-1], k.shape[-2]
+    out = cuda_lib.launch_dense_decode(
+        q, k, v, scale=(1.0 / d ** 0.5) if scale is None else scale,
+        kv_len=s_len if kv_len is None else int(kv_len), use_hfa=use_hfa)
+    launches += 1
+    return out
 
 
 def merge_partials(o_parts: torch.Tensor, m_parts: torch.Tensor,

@@ -14,8 +14,16 @@ off again.  Impl names keep the reference's meaning:
   fa2_pallas     the same kernels (the reference's Pallas FA-2)
   hfa_pallas     the H-FA forward kernel; backward = autograd through
                  the tile oracle under the STE
-  hfa            not ported (the per-element ``core/hfa.py`` emulation)
-  hfa_datapath   not ported (the per-element LNS validation kernel)
+  hfa            the per-element H-FA: the ``core/hfa.py`` emulation on
+                 the CPU, the datapath kernel on the card (bit-identical
+                 by the reference's own gate); forward only
+  hfa_datapath   the per-element LNS datapath kernel (its plain version,
+                 the same emulation, on the CPU); forward only
+
+``decode_attention`` is the dense ring's single-token decode: the
+grouped queries against the (B, S, Hkv, d) cache through the dense
+decode kernel (:func:`repro_torch.kernels.decode.decode_partial`), read
+in place, then the float divide or LogDiv.
 
 The paged half below serves the engine:
 
@@ -39,6 +47,7 @@ from repro_torch.kernels import decode as decode_k
 from repro_torch.kernels import fa2 as fa2_k
 from repro_torch.kernels import fa2_bwd
 from repro_torch.kernels import hfa as hfa_k
+from repro_torch.kernels import hfa_datapath as dp_k
 from repro_torch.kernels import ref as kref
 from repro_torch.kernels import paged_decode as paged_k
 from repro_torch.kernels import paged_prefill as paged_pf_k
@@ -48,13 +57,6 @@ from repro_torch.kernels import paged_verify as paged_v_k
 IMPLS = ("exact", "fa2", "hfa", "fa2_pallas", "hfa_pallas", "hfa_datapath")
 # impl -> rail of the dense kernels
 _KERNEL_RAIL = {"fa2": "fa2", "fa2_pallas": "fa2", "hfa_pallas": "hfa"}
-_NOT_PORTED = {
-    "hfa": "the per-element H-FA emulation (core/hfa.py) is not ported "
-           "yet (ROADMAP.md Queue 1 item 12); hfa_pallas is the tiled "
-           "H-FA kernel, whose numerics differ",
-    "hfa_datapath": "the per-element LNS datapath kernel is not ported "
-                    "yet (ROADMAP.md Queue 2 item 8)",
-}
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> tuple[torch.Tensor, int]:
@@ -132,8 +134,6 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv | H; returns (B, Lq, H, d) in q's dtype."""
     if impl not in IMPLS:
         raise ValueError(f"unknown attention impl {impl!r}; have {IMPLS}")
-    if impl in _NOT_PORTED:
-        raise NotImplementedError(f"impl {impl!r}: {_NOT_PORTED[impl]}")
     b, lq, h, d = q.shape
     lkv = k.shape[1]
     k = _gqa_expand(k, h)
@@ -142,6 +142,10 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if impl == "exact":
         out = reference.exact_attention(qh, kh, vh, causal=causal,
                                         scale=scale)
+    elif impl in ("hfa", "hfa_datapath"):
+        out = dp_k.hfa_datapath(
+            *(t.reshape(b * h, -1, d).contiguous() for t in (qh, kh, vh)),
+            causal=causal, scale=scale).reshape(b, h, lq, d)
     else:
         q3 = qh.reshape(b * h, lq, d)
         k3 = kh.reshape(b * h, lkv, d)
@@ -159,6 +163,30 @@ def multihead_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _use_hfa(impl: str) -> bool:
     return impl.startswith("hfa")
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, *, impl: str = "fa2",
+                     scale: float | None = None, kv_len: int | None = None,
+                     block_kv: int = 128) -> torch.Tensor:
+    """Single-token decode attention against a dense KV ring.
+
+    q (B, 1, H, d); k_cache, v_cache (B, S, Hkv, d); ``kv_len`` (a host
+    int, default S) masks the unwritten slots.  Every impl runs the
+    dense decode kernel on its rail ("hfa..." the H-FA rail, anything
+    else fa2) over the ring in place, then the float divide or LogDiv.
+    Returns (B, 1, H, d) in q's dtype.
+    """
+    b, one, h, d = q.shape
+    assert one == 1, q.shape
+    hkv = k_cache.shape[2]
+    use_hfa = _use_hfa(impl)
+    qg = q.reshape(b, hkv, h // hkv, d)
+    o, _, ell = decode_k.decode_partial(
+        qg, k_cache.transpose(1, 2), v_cache.transpose(1, 2), scale=scale,
+        block_kv=block_kv, kv_len=kv_len, use_hfa=use_hfa)
+    out = decode_k.finalize_decode(o, ell, use_hfa=use_hfa)
+    return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def paged_decode_partials(qg, k_pages, v_pages, page_table, kv_lens, *,

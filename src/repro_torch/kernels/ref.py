@@ -6,13 +6,19 @@
   kernel (``kernels/hfa.py``).  It is the kernel's plain version and,
   under autograd, its backward: the rail functions carry the
   straight-through estimator (``bitmath._ste``), as in the reference.
+* ``ref_decode_partial`` - the streamed decode triplet over one KV span
+  (the reference's oracle of ``decode_partial_pallas``; no ``kv_len``
+  mask).
+* ``ref_hfa_datapath`` - the bit-accurate ``core.hfa`` emulation.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import hfa as core_hfa
 from repro_torch.core import reference
 from repro_torch.kernels import bitmath
+from repro_torch.kernels.decode import decode_partial_plain
 
 NEG_INF = -1e30
 
@@ -75,3 +81,17 @@ def ref_hfa_mxu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     recip = bitmath.recip_logdiv(safe)
     recip = torch.where(dead, torch.zeros_like(recip), recip)
     return acc * recip[..., None]
+
+
+def ref_decode_partial(q, k, v, *, scale=None, use_hfa=False, block_kv=128):
+    """Oracle of the dense decode kernel: the streamed triplet (o~, m, l)
+    of q (..., G, d) over k, v (..., S, d) - the kernel's plain version
+    with no ``kv_len`` mask."""
+    return decode_partial_plain(q, k, v, scale=scale, block_kv=block_kv,
+                                use_hfa=use_hfa)
+
+
+def ref_hfa_datapath(q, k, v, *, causal=False, scale=None):
+    """Oracle of the per-element datapath kernel: the bit-accurate
+    ``core.hfa`` emulation, (..., Lq, d) bf16."""
+    return core_hfa.hfa_attention(q, k, v, causal=causal, scale=scale)

@@ -1,14 +1,24 @@
 """Serving entry point of the port: greedy continuous batching over paged
-KV on the card.
+KV on the card, or (``--dense``) the fixed-batch loop over a contiguous
+cache.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --reduced --device cpu --batch 2 --steps 4
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --reduced --device cpu --dense
 
-Weights are random, drawn from ``--seed`` (nothing is downloaded);
-prompts are random token ids from the same seed, one new arrival per
-engine step.  ``--attn-impl`` picks the attention rail: ``fa2`` (exp and
-a float divide) or ``hfa`` (the FIX16 H-FA rail and LogDiv).
+Weights are random (nothing is downloaded): the reference's
+``LM.init(PRNGKey(seed))`` weights, drawn with JAX's generator written in
+torch (``LM.init_reference``).  Prompts are the reference's too,
+``DataPipeline.for_config(cfg, prompt_len, batch)``; the paged path takes
+one new arrival per engine step.  So on the CPU both packages print the
+same ``sample:`` token ids for the same flags.
+``--attn-impl`` takes the reference's impls: on the paged path any
+"hfa..." impl runs the FIX16 H-FA rail and LogDiv, anything else fa2
+(exp and a float divide); the dense path prefills through
+``multihead_attention`` with the impl and decodes through the dense
+decode kernel on its rail.
 """
 from __future__ import annotations
 
@@ -17,6 +27,10 @@ import dataclasses
 import time
 
 import numpy as np
+
+# The reference's impl names (repro_torch.kernels.ops.IMPLS), spelled out
+# so that --help needs no torch import.
+IMPLS = ("exact", "fa2", "hfa", "fa2_pallas", "hfa_pallas", "hfa_datapath")
 
 
 def parse_prefill_budget(value: str | None) -> int | None:
@@ -37,8 +51,8 @@ def main(argv=None):
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the default) or cpu for the plain versions")
-    ap.add_argument("--attn-impl", choices=("fa2", "hfa"), default=None,
-                    help="attention rail (default: the config's)")
+    ap.add_argument("--attn-impl", choices=IMPLS, default=None,
+                    help="attention impl (default: the config's)")
     ap.add_argument("--batch", type=int, default=4,
                     help="concurrent decode slots")
     ap.add_argument("--prompt-len", type=int, default=32)
@@ -58,12 +72,16 @@ def main(argv=None):
                     help="max prompt-lookup draft tokens verified per "
                          "decode step (0 = no speculation)")
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights and prompts")
+                    help="seed of the random weights (the reference's "
+                         "PRNGKey(seed))")
+    ap.add_argument("--dense", action="store_true",
+                    help="fixed-batch greedy loop over a contiguous cache")
     args = ap.parse_args(argv)
 
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.data import DataPipeline
     from repro_torch.models.model import build_model
     from repro_torch.serving import Request, ServingEngine
 
@@ -72,12 +90,16 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    model = build_model(cfg, device=args.device)
-    model.init(torch.Generator(device=model.device).manual_seed(args.seed))
+    model = build_model(cfg, device=args.device).init_reference(args.seed)
+    pipe = DataPipeline.for_config(cfg, args.prompt_len, args.batch)
+    if args.dense:
+        _serve_dense(model, cfg, pipe.batch(0), args)
+        return
 
     n_req = args.requests or 2 * args.batch
-    rng = np.random.default_rng(args.seed)
-    prompts = rng.integers(1, cfg.vocab_size, (n_req, args.prompt_len))
+    prompts = np.concatenate(
+        [pipe.batch(s)["tokens"] for s in range((n_req + args.batch - 1)
+                                                // args.batch)])[:n_req]
     engine = ServingEngine(model, max_batch=args.batch,
                            page_size=args.page_size, max_seq=args.max_seq,
                            prefill_budget=args.prefill_budget,
@@ -111,6 +133,46 @@ def main(argv=None):
         print(f"speculation: {st['draft_accepted']}/{st['draft_tokens']} "
               f"drafts accepted ({rate:.0%}), {st['rollbacks']} rollbacks")
     print("sample:", finished[0].tokens[:12])
+
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _serve_dense(model, cfg, batch, args) -> dict:
+    """Fixed-batch greedy loop over a dense contiguous cache: prefill
+    ``batch["tokens"]``, then ``args.steps`` decode steps.  Prints the
+    reference's lines and returns {"tokens" (B, steps) int64, "prefill_ms",
+    "decode_ms" (per token), "tok_s", "finite"}."""
+    import torch
+    dev = model.device
+    prompts = torch.as_tensor(batch["tokens"], device=dev)
+    cache = model.init_cache(args.batch, args.max_seq)
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(cache, prompts)
+    _sync(dev)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+    print(f"prefill: {prefill_ms:.1f} ms ({args.batch}x{args.prompt_len})")
+    finite = torch.isfinite(logits).all()
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    toks = []
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        toks.append(tok)
+        logits, cache = model.decode_step(cache, tok)
+        finite = finite & torch.isfinite(logits).all()
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    _sync(dev)
+    dt = (time.perf_counter() - t0) / args.steps
+    print(f"decode: {dt * 1e3:.2f} ms/token; "
+          f"throughput {args.batch / dt:.1f} tok/s")
+    out = torch.cat(toks, dim=1).cpu().numpy()
+    print("sample:", out[0][:12])
+    return {"tokens": out, "prefill_ms": prefill_ms, "decode_ms": dt * 1e3,
+            "tok_s": args.batch / dt, "finite": bool(finite)}
 
 
 if __name__ == "__main__":

@@ -7,11 +7,12 @@ dh), ``wo`` is (H, dh, d_model), ``wg``/``wu`` are (d_model, d_ff)) so
 softmax-adjacent math and RoPE run in f32 and cast back, as in the
 reference.
 
-Attention has two branches: the paged one the serving engine takes
-(a paged cache and a ``page_state``), and the dense causal one of
-training (no cache), which runs :func:`repro_torch.kernels.ops.
-multihead_attention`.  Parameters are trainable; the serving methods
-run under ``torch.no_grad()``.
+Attention has three branches: the paged one the serving engine takes
+(a paged cache and a ``page_state``), the dense ring of the fixed-batch
+serving loop (a cache {"k", "v"} and ``cache_pos``), and the dense
+causal one of training (no cache), which runs :func:`repro_torch.
+kernels.ops.multihead_attention`.  Parameters are trainable; the
+serving methods run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -125,18 +126,22 @@ def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
 def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor | None = None,
                     cache: dict | None = None,
+                    cache_pos: int | None = None,
                     page_state: dict | None = None):
-    """Causal self-attention.  Returns (out (B, S, d_model), pools).
+    """Causal self-attention.  Returns (out (B, S, d_model), cache).
 
     Without a cache (training): dense causal attention over the
-    sequence, positions 0..S-1 unless given; pools is None.  With a
-    paged block pool {"k_pages", "v_pages"} of this layer, ``page_state``
-    holds the engine's tables: {"page_table" (B, J), "seq_lens" (B,)}
-    for decode, plus "chunk_lens" and "verify" for a speculative verify
+    sequence, positions 0..S-1 unless given; the cache is None.  With a
+    dense ring {"k", "v"} (B, max_seq, Hkv, dh) of this layer, the
+    tokens sit at ``cache_pos`` (a host int): see :func:`_ring_attention`.
+    With a paged block pool {"k_pages", "v_pages"}, ``page_state`` holds
+    the engine's tables: {"page_table" (B, J), "seq_lens" (B,)} for
+    decode, plus "chunk_lens" and "verify" for a speculative verify
     step, or "prefill", "start_pos" and "chunk_lens" for a chunked
     prefill.  ``cfg.attn_impl`` names the impl: on the paged path
-    "hfa..." runs the H-FA rail and anything else fa2; the dense path
-    dispatches it through ``multihead_attention``.
+    "hfa..." runs the H-FA rail and anything else fa2; the dense paths
+    dispatch it through ``multihead_attention`` (and decode through
+    ``decode_attention`` with :func:`_decode_impl`).
     """
     wdt = x.dtype
     q = torch.einsum("bsd,dhk->bshk", x, p.wq.to(wdt))
@@ -152,19 +157,56 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
     if cfg.pos_emb != "rope":
         raise NotImplementedError("only rope positions are ported")
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
+        base = 0 if cache_pos is None else cache_pos
+        positions = base + torch.arange(x.shape[1], device=x.device)
     q = rope_apply(q, positions, cfg.rope_theta)
     k = rope_apply(k, positions, cfg.rope_theta)
     if cache is None:
         out = kops.multihead_attention(q, k, v, impl=cfg.attn_impl,
                                        causal=True, block_q=cfg.attn_block,
                                        block_kv=cfg.attn_block)
-        new_pools = None
+    elif "k" in cache:
+        out = _ring_attention(q, k, v, cache, cache_pos or 0, cfg)
     else:
-        out, new_pools = _paged_attention(q, k, v, cache, page_state,
-                                          impl=cfg.attn_impl)
+        out, cache = _paged_attention(q, k, v, cache, page_state,
+                                      impl=cfg.attn_impl)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(wdt))
-    return out, new_pools
+    return out, cache
+
+
+def _ring_attention(q, k, v, cache, pos: int, cfg):
+    """Attention over a dense ring {"k", "v"} (B, max_seq, Hkv, dh),
+    written in place at ``pos``.
+
+    Decode (S == 1): an index write of the token at ``pos`` (the
+    reference's select over the ring gives the same cache), then
+    ``decode_attention`` over the first ``pos + 1`` slots.  Prefill (S >
+    1, fresh, at position 0): the chunk's K/V land at ``pos``.. and it
+    attends causally within itself; the ring is storage only.  The
+    reference's tensor-parallel ``shardmap_merge`` decode is not ported
+    (ROADMAP.md Queue 1 item 11).
+    """
+    s, max_seq = q.shape[1], cache["k"].shape[1]
+    if pos + s > max_seq:
+        raise ValueError(f"dense cache full: {s} tokens at position {pos} "
+                         f"of a {max_seq}-slot ring")
+    cache["k"][:, pos:pos + s] = k.to(cache["k"].dtype)
+    cache["v"][:, pos:pos + s] = v.to(cache["v"].dtype)
+    if s == 1:
+        return kops.decode_attention(q, cache["k"], cache["v"],
+                                     impl=_decode_impl(cfg.attn_impl),
+                                     kv_len=pos + 1)
+    return kops.multihead_attention(q, k, v, impl=cfg.attn_impl, causal=True,
+                                    block_q=cfg.attn_block,
+                                    block_kv=cfg.attn_block)
+
+
+def _decode_impl(impl: str) -> str:
+    """The decode impl paired with a prefill impl (the reference's
+    mapping: the H-FA impls decode on the tiled H-FA rail)."""
+    return {"fa2": "fa2", "exact": "fa2", "hfa": "hfa_pallas",
+            "fa2_pallas": "fa2_pallas", "hfa_pallas": "hfa_pallas",
+            "hfa_datapath": "hfa_pallas"}.get(impl, "fa2")
 
 
 def _paged_attention(q, k, v, cache, page_state, *, impl):

@@ -5,14 +5,18 @@ reference passes a params pytree to pure functions; here the module is
 the params).  It builds on ``cuda`` unless the caller passes
 ``device="cpu"``.  :meth:`LM.init` draws random weights of the
 reference's shapes and distributions from an explicit
-``torch.Generator``; :mod:`repro_torch.models.convert` loads the
-reference's own weights instead.
+``torch.Generator``; :meth:`LM.init_reference` draws the reference's
+own ``LM.init(PRNGKey(seed))`` weights with JAX's generator written in
+torch, and :mod:`repro_torch.models.convert` loads any reference
+parameters.
 
 Ported so far: dense GQA stacks with RoPE, RMSNorm and SwiGLU (the
 qwen3 family); the training forward ``apply`` and ``loss`` (masked
-next-token NLL in f32); and the paged serving methods -
-``init_paged_cache``, chunked ``paged_prefill``, ``paged_decode_step``
-and ``paged_verify_step``, which run under ``torch.no_grad()``.
+next-token NLL in f32); the dense fixed-batch decode methods -
+``init_cache``, ``prefill`` and ``decode_step`` over a contiguous ring;
+and the paged serving methods - ``init_paged_cache``, chunked
+``paged_prefill``, ``paged_decode_step`` and ``paged_verify_step``.  The
+serving methods run under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -22,6 +26,7 @@ import torch
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import jax_random as jr
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -62,30 +67,66 @@ class LM(nn.Module):
     def init(self, generator: torch.Generator) -> "LM":
         """Random weights with the reference's shapes and distributions
         (``LM._init``): embeddings and head N(0, 0.02^2), projections
-        N(0, 1/fan_in), norm scales 1.  Returns self."""
+        N(0, 1/fan_in), norm scales 1, drawn from ``generator``.  Returns
+        self."""
+        return self._fill(
+            lambda name, w, scale: L.init_dense_(w, generator, scale))
+
+    @torch.no_grad()
+    def init_reference(self, seed: int = 0) -> "LM":
+        """The reference's weights for ``LM.init(jax.random.PRNGKey(seed))``:
+        the same threefry key tree and normal draws
+        (:mod:`repro_torch.core.jax_random`), drawn on this model's
+        device.  Returns self."""
+        keys = self._reference_keys(seed)
+        pdt = DTYPES[self.cfg.param_dtype]
+        return self._fill(lambda name, w, scale: w.copy_(jr.normal(
+            keys[name], tuple(w.shape), pdt, self.device, scale)))
+
+    def _fill(self, draw) -> "LM":
+        """Every weight through ``draw(name, w, scale)`` - the embedding,
+        each layer's projections, the head, in that order - with biases
+        0 and norm scales 1."""
         cfg = self.cfg
         d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
-        L.init_dense_(self.embed.emb, generator, 0.02)
-        for blk in self.layers:
+        draw("embed", self.embed.emb, 0.02)
+        for idx, blk in enumerate(self.layers):
             at = blk.mixer
-            for w in (at.wq, at.wk, at.wv):
-                L.init_dense_(w, generator, 1.0 / math.sqrt(d))
-            L.init_dense_(at.wo, generator, 1.0 / math.sqrt(h * dh))
+            for name in ("wq", "wk", "wv"):
+                draw((idx, name), getattr(at, name), 1.0 / math.sqrt(d))
+            draw((idx, "wo"), at.wo, 1.0 / math.sqrt(h * dh))
             for name in ("bq", "bk", "bv"):
                 if hasattr(at, name):
                     getattr(at, name).zero_()
             for name in ("q_norm", "k_norm"):
                 if hasattr(at, name):
                     getattr(at, name).fill_(1.0)
-            L.init_dense_(blk.ffn.wg, generator, 1.0 / math.sqrt(d))
-            L.init_dense_(blk.ffn.wu, generator, 1.0 / math.sqrt(d))
-            L.init_dense_(blk.ffn.wd, generator, 1.0 / math.sqrt(cfg.d_ff))
+            draw((idx, "wg"), blk.ffn.wg, 1.0 / math.sqrt(d))
+            draw((idx, "wu"), blk.ffn.wu, 1.0 / math.sqrt(d))
+            draw((idx, "wd"), blk.ffn.wd, 1.0 / math.sqrt(cfg.d_ff))
             blk.norm1.scale.fill_(1.0)
             blk.norm2.scale.fill_(1.0)
         self.final_norm.scale.fill_(1.0)
         if not cfg.tie_embeddings:
-            L.init_dense_(self.lm_head, generator, 0.02)
+            draw("lm_head", self.lm_head, 0.02)
         return self
+
+    def _reference_keys(self, seed: int) -> dict:
+        """The reference's key of every weight (``LM._init`` ->
+        ``stack_init`` -> ``block_init`` -> ``attention_init`` /
+        ``swiglu_init``), named as :meth:`_fill` names them."""
+        ks = jr.split(jr.prng_key(seed), 8)
+        keys = {"embed": ks[0], "lm_head": ks[2]}
+        period = T.period_pattern(self.cfg)[2]
+        groups = jr.split(ks[1], self.cfg.n_layers // period)
+        for idx in range(self.cfg.n_layers):
+            g, i = divmod(idx, period)
+            kb = jr.split(jr.split(groups[g], period)[i], 4)
+            for name, key in zip(("wq", "wk", "wv", "wo"), jr.split(kb[0], 4)):
+                keys[(idx, name)] = key
+            for name, key in zip(("wg", "wu", "wd"), jr.split(kb[2], 3)):
+                keys[(idx, name)] = key
+        return keys
 
     # ------------------------------------------------------------ pieces
     def _embed_in(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -131,6 +172,38 @@ class LM(nn.Module):
             metrics[key] = val
         metrics["loss"] = total
         return total, metrics
+
+    # ------------------------------------------------------------- decode
+    def init_cache(self, batch: int, max_seq: int) -> dict:
+        """Dense ring caches for ``batch`` sequences of up to ``max_seq``
+        tokens, on this model's device; ``pos`` (a host int) is the next
+        write position, shared by the batch."""
+        layers = T.stack_init_cache(self.cfg, batch, max_seq,
+                                    self.compute_dtype, self.device)
+        return {"layers": layers, "pos": 0}
+
+    @torch.no_grad()
+    def prefill(self, cache: dict, tokens: torch.Tensor):
+        """Write a prompt (B, L) into a fresh cache (``pos`` 0); returns
+        (logits (B, 1, V) of its last position, cache).  The ring is
+        updated in place; the returned cache has ``pos`` advanced."""
+        if cache["pos"] != 0:
+            raise ValueError("prefill must start at cache position 0")
+        x = self._embed_in(tokens)
+        x, layers = T.stack_apply(self.layers, x, self.cfg,
+                                  caches=cache["layers"], cache_pos=0)
+        out = dict(cache, layers=layers, pos=tokens.shape[1])
+        return self._finish(x[:, -1:]), out
+
+    @torch.no_grad()
+    def decode_step(self, cache: dict, tokens: torch.Tensor):
+        """One token per sequence: tokens (B, 1) at ``cache["pos"]`` ->
+        (logits (B, 1, V), cache with ``pos`` + 1)."""
+        pos = cache["pos"]
+        x = self._embed_in(tokens)
+        x, layers = T.stack_apply(self.layers, x, self.cfg,
+                                  caches=cache["layers"], cache_pos=pos)
+        return self._finish(x), dict(cache, layers=layers, pos=pos + 1)
 
     # ------------------------------------------------ paged decode (serving)
     def init_paged_cache(self, num_pages: int, page_size: int,

@@ -1,12 +1,14 @@
-"""Dense pre-norm transformer blocks and the paged cache layout.
+"""Dense pre-norm transformer blocks and the cache layouts.
 
 A block is attention + SwiGLU FFN, each behind an RMSNorm with a
 residual.  The reference scans over a leading ``groups`` axis
 (``lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
-Python loop.  The paged KV pools keep the reference's stacked layout,
-``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups, P, page, Hkv,
-dh), so layer ``g * period + i`` reads pools ``["l{i}"][...][g]`` - a
-view, so the in-place page writes land in the stacked tensor.
+Python loop.  Both caches keep the reference's stacked layout: the
+paged KV pools ``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups,
+P, page, Hkv, dh), and the dense rings ``{"l{i}": {"k", "v"}}`` with
+leaves (groups, B, max_seq, Hkv, dh).  Layer ``g * period + i`` reads
+``["l{i}"][...][g]`` - a view, so the in-place writes land in the
+stacked tensor.
 
 Without caches (training) each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"``: its
@@ -35,11 +37,12 @@ class Block(nn.Module):
 
 
 def block_apply(blk: Block, x, cfg, *, positions=None, cache=None,
-                page_state=None):
-    """Returns (x, this layer's pools); pools is None without a cache."""
+                cache_pos=None, page_state=None):
+    """Returns (x, this layer's cache); None without a cache."""
     h = L.rmsnorm_apply(blk.norm1, x, cfg.norm_eps)
     y, new_cache = L.attention_apply(blk.mixer, h, cfg, positions=positions,
-                                     cache=cache, page_state=page_state)
+                                     cache=cache, cache_pos=cache_pos,
+                                     page_state=page_state)
     x = x + y
     h = L.rmsnorm_apply(blk.norm2, x, cfg.norm_eps)
     return x + L.swiglu_apply(blk.ffn, h), new_cache
@@ -64,11 +67,12 @@ def _block_out(blk: Block, x, cfg):
 
 
 def stack_apply(layers: nn.ModuleList, x, cfg, *, positions=None,
-                caches=None, page_state=None):
-    """Run every layer.  ``caches`` are the stacked paged pools, updated
-    in place, and ``page_state`` is shared by all layers of one step;
-    without caches the stack is the dense causal (training) forward,
-    each block checkpointed under ``cfg.remat == "full"``."""
+                caches=None, cache_pos=None, page_state=None):
+    """Run every layer.  ``caches`` are the stacked paged pools (with
+    ``page_state``, shared by all layers of one step) or dense rings
+    (with ``cache_pos``, a host int), updated in place; without caches
+    the stack is the dense causal (training) forward, each block
+    checkpointed under ``cfg.remat == "full"``."""
     if caches is None:
         for blk in layers:
             if cfg.remat == "none":
@@ -81,8 +85,23 @@ def stack_apply(layers: nn.ModuleList, x, cfg, *, positions=None,
         g, i = divmod(idx, period)
         cache = {key: pool[g] for key, pool in caches[f"l{i}"].items()}
         x, _ = block_apply(blk, x, cfg, positions=positions, cache=cache,
-                           page_state=page_state)
+                           cache_pos=cache_pos, page_state=page_state)
     return x, caches
+
+
+def stack_init_cache(cfg, batch: int, max_seq: int, dtype, device):
+    """Dense ring caches for fixed-batch decode, stacked (groups, B,
+    max_seq, Hkv, dh), zero-filled.  Self-attention stacks only (no
+    Mamba state, no encoder cross caches)."""
+    kinds, _, period = period_pattern(cfg)
+    if not all(k == "attn" for k in kinds):
+        raise NotImplementedError(
+            f"dense KV cache supports attention-only stacks, got {kinds}")
+    shape = (cfg.n_layers // period, batch, max_seq, cfg.n_kv_heads,
+             cfg.d_head)
+    return {f"l{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
+                      "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for i in range(period)}
 
 
 def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,

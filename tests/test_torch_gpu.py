@@ -4,10 +4,11 @@ one).  Run them on the machine with the card:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each paged kernel, on both rails, and each dense kernel (FA-2 forward,
-dq, dk/dv, H-FA forward) at small shapes against its plain version on
+dq, dk/dv, H-FA forward, the dense decode on both rails, the
+per-element LNS datapath) at small shapes against its plain version on
 the same CUDA tensors (tolerances as in chip_smoke.py), and the rail
-device functions of both sources bit for bit against the plain torch
-rail.
+and LNS device functions of every source bit for bit against the plain
+torch versions.
 """
 import numpy as np
 import pytest
@@ -18,6 +19,7 @@ from repro_torch.kernels import decode as decode_k
 from repro_torch.kernels import fa2 as tfa2
 from repro_torch.kernels import fa2_bwd as tfa2_bwd
 from repro_torch.kernels import hfa as thfa
+from repro_torch.kernels import hfa_datapath as dp_k
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import paged_prefill as pp
@@ -33,7 +35,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("source", ["paged", "dense"])
+@pytest.mark.parametrize("source", ["paged", "dense", "decode"])
 def test_rail_device_functions_bit_exact(cuda, source):
     x = torch.linspace(-20.0, 5.0, 100_003, device=cuda)
     rail, pexp, recip = cuda_lib.rail_eval(x, source)
@@ -187,3 +189,149 @@ def test_multihead_attention_grads_card_vs_cpu(cuda, impl):
     for a, b in zip(outs["cuda"], outs["cpu"]):
         scale = max(1.0, b.abs().max().item())
         assert (a - b).abs().max().item() <= tol * scale
+
+
+# ------------------------------------------------ dense decode, datapath
+def _ring(cuda, dtype, d, b=3, s_len=300, hkv=2, g=2, seed=4):
+    """q (B, Hkv, G, d) and a ring (B, S, Hkv, d) seen as (B, Hkv, S, d),
+    as ``ops.decode_attention`` hands them to the kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    ring_k, ring_v = rnd(b, s_len, hkv, d), rnd(b, s_len, hkv, d)
+    return rnd(b, hkv, g, d), ring_k.transpose(1, 2), ring_v.transpose(1, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("kv_len", [0, 1, 130, 300])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_dense_decode_matches_plain(cuda, use_hfa, kv_len, d, dtype):
+    """The kernel reads the ring in place (strided, S = 300 not a tile
+    multiple) against the plain version.  fa2: summation order only - the
+    finalized output within 2e-5, o~ and l within 2e-5 of their scale
+    (l sums up to ~50 here, where 2e-5 absolute is a few f32 ulps of a
+    sum taken in another order), m within 2e-6.  hfa: the plain
+    version's cuBLAS dot products round differently, and a score that
+    lands on the other side of a rail step moves that key's p by 0.54%,
+    so the finalized output is held to 1e-2 and m to 2e-6."""
+    q, k, v = _ring(cuda, dtype, d)
+    before = decode_k.launches
+    ko, km, kl = decode_k.decode_partial(q, k, v, kv_len=kv_len,
+                                         use_hfa=use_hfa)
+    po, pm, pl_ = decode_k.decode_partial_plain(q, k, v, kv_len=kv_len,
+                                                use_hfa=use_hfa)
+    torch.cuda.synchronize()
+    assert decode_k.launches == before + 1
+    assert (km - pm).abs().max().item() <= 2e-6
+    kout = decode_k.finalize_decode(ko, kl, use_hfa=use_hfa)
+    pout = decode_k.finalize_decode(po, pl_, use_hfa=use_hfa)
+    assert (kout - pout).abs().max().item() <= (1e-2 if use_hfa else 2e-5)
+    if not use_hfa:
+        for got, want in ((ko, po), (kl, pl_)):
+            scale = max(1.0, want.abs().max().item())
+            assert (got - want).abs().max().item() <= 2e-5 * scale
+    if kv_len == 0:
+        assert torch.all(kl == 0) and torch.all(ko == 0)
+
+
+def test_decode_attention_on_the_ring(cuda):
+    """ops.decode_attention on the card equals the same call on the CPU
+    (bf16 ring, both rails, the kernel against its plain version)."""
+    q, k, v = _ring(cuda, torch.bfloat16, 128, seed=5)
+    qd = q.reshape(3, 1, 4, 128)
+    kr, vr = k.transpose(1, 2), v.transpose(1, 2)
+    for impl, tol in (("fa2", 1e-2), ("hfa_pallas", 2e-2)):
+        got = ops.decode_attention(qd, kr, vr, impl=impl, kv_len=200)
+        want = ops.decode_attention(qd.cpu(), kr.cpu(), vr.cpu(), impl=impl,
+                                    kv_len=200)
+        # bf16 outputs: one bf16 rounding apart at most (~2^-8 relative).
+        assert (got.cpu().float() - want.float()).abs().max().item() <= tol
+
+
+def _dyadic(cuda, shape, seed):
+    """bf16 values on a coarse dyadic grid (multiples of 1/4 in [-2, 2]):
+    every f32 dot product over d <= 128 of them is exact in any order."""
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randint(-8, 9, shape, generator=gen, device=cuda)
+    return (x.to(torch.float32) / 4).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("shape", [(3, 40, 40), (2, 24, 70)],
+                         ids=["square", "suffix"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_hfa_datapath_bit_exact_on_exact_scores(cuda, causal, shape, d):
+    """Case (a): on a dyadic grid the scores cannot depend on the
+    summation order, so every output bit must equal the plain version
+    (the core.hfa emulation) on the same CUDA tensors."""
+    bh, lq, lkv = shape
+    q = _dyadic(cuda, (bh, lq, d), 6)
+    k = _dyadic(cuda, (bh, lkv, d), 7)
+    v = torch.randn((bh, lkv, d), generator=torch.Generator(device=cuda)
+                    .manual_seed(8), device=cuda).to(torch.bfloat16)
+    before = dp_k.launches
+    got = dp_k.hfa_datapath(q, k, v, causal=causal)
+    want = dp_k.hfa_datapath_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert dp_k.launches == before + 1
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_hfa_datapath_random_rows_with_equal_scores_agree(cuda, causal):
+    """Case (b): on random normal inputs every row whose bf16 scores the
+    kernel and the plain version form alike (``kernel_order_scores``
+    against the plain f32 einsum) has identical output bits."""
+    q, k, v = _dense_inputs(cuda, torch.bfloat16, 128, bh=4, lq=48, lkv=96,
+                            seed=9)
+    got = dp_k.hfa_datapath(q, k, v, causal=causal)
+    want = dp_k.hfa_datapath_plain(q, k, v, causal=causal)
+    s_kernel = dp_k.kernel_order_scores(q, k)
+    s_plain = (torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+               * 128 ** -0.5).to(torch.bfloat16).float()
+    vis = torch.ones_like(s_plain, dtype=torch.bool)
+    if causal:
+        vis = torch.ones(48, 96, dtype=torch.bool, device=cuda).tril(48)
+    agree = ((s_kernel == s_plain) | ~vis).all(-1)            # (BH, Lq)
+    same = (got.view(torch.int16) == want.view(torch.int16)).all(-1)
+    assert torch.all(same[agree])
+    assert agree.float().mean().item() > 0.5
+
+
+def test_lns_device_functions_bit_exact(cuda):
+    """lns_add, quant_scorediff, blinn_log2 and lns_to_bf16 as compiled
+    into the datapath source against the plain torch LNS functions:
+    every bf16 bit pattern, every rail value, signed pairs on a grid."""
+    from repro_torch.core import lns
+    raw = torch.arange(-32768, 32768, dtype=torch.float32, device=cuda)
+    grid = torch.cat([torch.arange(-700., 700., 3., device=cuda),
+                      torch.tensor([-32768., -32767., 32767., 0.],
+                                   device=cuda)])
+    ra, rb = (t.reshape(-1) for t in torch.meshgrid(grid, grid,
+                                                    indexing="ij"))
+    n = ra.numel()
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    sa, sb = (torch.randint(0, 2, (n,), generator=gen, device=cuda,
+                            dtype=torch.int32) for _ in range(2))
+    x = torch.linspace(-20.0, 1.0, n, device=cuda)
+    bits = torch.arange(n, device=cuda, dtype=torch.int32) & 0xFFFF
+    sc, rc, quant, bsign, braw, packed = cuda_lib.lns_eval(sa, ra, sb, rb,
+                                                           x, bits)
+    want_s, want_r = lns.lns_add(sa, ra, sb, rb)
+    assert torch.equal(sc, want_s) and torch.equal(rc, want_r)
+    assert torch.equal(quant, lns.quant_scorediff(x))
+    pat = (torch.where(bits >= 0x8000, bits - 0x10000, bits)
+           .to(torch.int16).view(torch.bfloat16))
+    ws, wr = lns.blinn_log2(pat)
+    assert torch.equal(bsign, ws) and torch.equal(braw, wr)
+    assert torch.equal(packed.view(torch.int16),
+                       lns.lns_to_bf16(sa, ra).view(torch.int16))
+    # Every rail value through lns_to_bf16, both signs.
+    for s in (0, 1):
+        sg = torch.full_like(raw, s, dtype=torch.int32)
+        *_, got = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)
+        assert torch.equal(got.view(torch.int16),
+                           lns.lns_to_bf16(sg, raw).view(torch.int16))

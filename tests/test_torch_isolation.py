@@ -5,7 +5,8 @@
 * Without a card, the default device (``cuda``) raises instead of
   falling back: building the LM, the engine or the trainer (``launch/
   train.py``), and loading or launching the kernels.
-* What this slice does not port is refused with a clear error.
+* What the port does not cover yet is refused with a clear error, and
+  every attention impl of the reference runs.
 """
 import dataclasses
 import os
@@ -18,10 +19,14 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.kernels import cuda_lib, page_codec
+from repro_torch.kernels import decode as tdec
 from repro_torch.kernels import fa2 as tfa2
 from repro_torch.kernels import fa2_bwd as tfa2_bwd
 from repro_torch.kernels import hfa as thfa
+from repro_torch.kernels import hfa_datapath as tdp
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode as tpd
+from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import build_optimizer
 from repro_torch.models.model import LM
@@ -108,6 +113,41 @@ def test_dense_kernel_routes_raise_without_a_card():
             fn(m, m, m)
     with pytest.raises(ValueError, match="no kernel"):
         tfa2_bwd.fa2_backward(m, m, m, m, m, m[..., 0])
+
+
+def test_dense_decode_and_datapath_routes_raise_without_a_card():
+    _no_card()
+    q, kv = torch.zeros(2, 2, 64), torch.zeros(2, 128, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_lib.launch_dense_decode(q, kv, kv, scale=0.125, kv_len=128,
+                                     use_hfa=False)
+    x = torch.zeros(1, 128, 64)
+    with pytest.raises(ValueError, match="CUDA device"):
+        cuda_lib.launch_hfa_datapath(x, x, x, causal=True, scale=0.125,
+                                     kv_len=128, q_offset=0)
+    with pytest.raises(ValueError, match="no kernel"):
+        tdec.decode_partial(q.to("meta"), kv.to("meta"), kv.to("meta"))
+    with pytest.raises(ValueError, match="no kernel"):
+        tdp.hfa_datapath(*(x.to("meta"),) * 3)
+
+
+def test_dense_serve_entry_point_defaults_to_the_card():
+    _no_card()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tserve.main(["--arch", "qwen3-1.7b", "--reduced", "--dense",
+                     "--steps", "1"])
+
+
+def test_multihead_attention_takes_every_reference_impl():
+    """Every impl of the reference's IMPLS runs (none is refused as not
+    ported); an unknown name raises."""
+    q = torch.zeros(1, 4, 2, 64)
+    for impl in tops.IMPLS:
+        out = tops.multihead_attention(q, q, q, impl=impl)
+        assert out.shape == q.shape and torch.isfinite(out.float()).all()
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tops.multihead_attention(q, q, q, impl="hfa_mxu")
+    assert tuple(tserve.IMPLS) == tuple(tops.IMPLS)
 
 
 def test_engine_refuses_what_is_not_ported():
