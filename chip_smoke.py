@@ -16,10 +16,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    tensors.  One line per kernel: its time, the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
    (fa2 rail; a yardstick the port never calls) and the bound.  Then
-   the four dense kernels (FA-2 forward, dq, dk/dv, H-FA forward) at
-   the training shape (B 4, H 16 after the GQA expand, L 2048, d 128,
-   bf16, causal), each against its plain version on the same CUDA
-   tensors, timed beside SDPA's forward or autograd backward.  Then the
+   the bf16 dense forward on the tensor cores, both rails, at the
+   training shape (B 4, H 16 after the GQA expand, L 2048, d 128,
+   causal) and at the dense-serve prefill shape (BH 128, L 512): (1)
+   fa2: O and LSE within 1e-5 of the plain version; (2) hfa on a dyadic
+   grid, where no summation order can move a score: O within 1e-5; (3)
+   hfa on random inputs through the scores-out variant: every score the
+   kernel formed within one bf16 ulp of the plain f32 score (the share
+   that round apart is printed) and O within 1e-5 of the plain walk fed
+   those scores; both rails timed beside SDPA and the bound (products at
+   the bf16 peak, and on hfa the rail on the CUDA cores, overlapped).
+   Then dq and dk/dv at the training shape against their plain
+   versions, timed beside SDPA's autograd backward.  Then the
    dense decode kernel at the dense-serve decode shape (B 8 x Hkv 8, G
    2, kv_len 576 of a 640-slot bf16 ring read in place, d 128) on both
    rails, beside SDPA on the same decode, and the per-element LNS
@@ -33,7 +41,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the same logits through the kernels on the card as through the plain
    versions on the CPU - paged prefill, decode and verify, and the dense
    ring's prefill and decode steps on fa2, hfa_pallas, hfa and
-   hfa_datapath - and the same training loss and gradients.
+   hfa_datapath - and the same training loss and gradients; those f32
+   runs must reach the dense forward through the CUDA-core kernel only.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
@@ -46,14 +55,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``DataPipeline`` (seed 0), 64 greedy decode steps, a 640-slot dense
    ring, on impls fa2, hfa_pallas and hfa_datapath.  Each run must
    launch the dense decode kernel on every step of every layer and its
-   prefill kernel on every layer, give finite logits and 8 x 64 tokens;
-   prefill ms, decode ms/token, tok/s, launches and the tokens that
+   prefill kernel on every layer (fa2 and hfa_pallas: the tensor-core
+   forward, 28 launches, none on the CUDA-core one), give finite logits
+   and 8 x 64 tokens; prefill ms, decode ms/token, tok/s, launches and the tokens that
    agree with the fa2 run are printed.
 6. Train.  Full-width qwen3-1.7b (random bf16 weights from seed 0) on
    the fa2_pallas and hfa_pallas rails: 2 warm and 3 timed
    ``make_train_step`` steps at global batch 4 x seq 2048 from
-   ``DataPipeline``; loss and grad norm must be finite and each dense
-   kernel of the rail must launch.  Step time, tokens/s and peak memory
+   ``DataPipeline``; loss and grad norm must be finite, each dense
+   kernel of the rail must launch, and the forward 56 times a step
+   (forward and remat of 28 layers), every time on the tensor-core
+   kernel.  Step time, tokens/s and peak memory
    are printed.  Then ``Trainer.run`` on the reduced config with an
    injected failure restarts from its step-4 checkpoint (under
    ``build/``).
@@ -62,7 +74,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
 
 Opt-in phases, named on the command line (``python3 chip_smoke.py
 kernels profile_train`` runs just those): ``profile`` traces engine
-steps, ``profile_train`` one full-width training step per rail and
+steps, ``profile_train`` one full-width training step per rail (with
+the dense attention kernels' share of the step) and
 ``profile_dense`` full-width dense decode steps under torch.profiler.
 
 There is no CPU fallback: without a card the script stops at once.
@@ -171,11 +184,34 @@ def timed(fn, reps: int = 20, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, key: str = "", calls: int = 20) -> float:
+    """Device time per call of the kernels whose name holds ``key`` (all
+    that ``fn`` launches by default), from torch.profiler over ``calls``
+    calls after a warm-up: the kernels' own time, where :func:`timed`
+    also counts the gaps a host-bound caller leaves between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and key in e.key)
+    return us / 1e3 / calls
+
+
 # ------------------------------------------------------------- phase 2
 def check_rail() -> None:
     bits = torch.arange(1 << 16, dtype=torch.int32) << 16
     x = bits.view(torch.float32)
-    x = x[torch.isfinite(x)].cuda()
+    # Every finite bf16 value, and a sweep that reaches every rail value.
+    x = torch.cat([x[torch.isfinite(x)],
+                   torch.linspace(-20.0, 5.0, 1_000_003)]).cuda()
     want_rail = bitmath.quant_rail(x)
     want = (want_rail, bitmath.exp2_hfa_rail(want_rail),
             bitmath.recip_logdiv(x))
@@ -190,7 +226,7 @@ def check_rail() -> None:
                                      "plain version")
         print(f"rail ({source} source): quant_rail, exp2_hfa_rail, "
               f"recip_logdiv bit-equal to the plain torch rail over "
-              f"{x.numel()} finite bf16 values")
+              f"{x.numel()} values (every finite bf16, every rail value)")
 
 
 def kernel_cases(gen: torch.Generator):
@@ -342,33 +378,65 @@ def check_kernels() -> list[dict]:
 # The training shape of qwen3-1.7b at global batch 4 x seq 2048: 16 query
 # heads (8 KV heads repeated), d_head 128, bf16, causal.
 DENSE_B, DENSE_H, DENSE_L, DENSE_D = 4, 16, 2048, 128
-# Tolerances, kernel vs plain version on the same CUDA tensors.  Both
-# forwards walk the same 128-key tiles as their plain versions and form
-# each score from the same f32 dot product, so they differ by summation
-# order only (O and LSE within 1e-6 on an H100).  1e-5 sits far below
-# what a lost bf16 score rounding or rail quantization moves: one rail
-# step is 0.54% of a key's weight, and the H-FA output's distance to
-# exact softmax is printed beside its error.  dq/dk/dv: the kernels
-# round their f32 sums to bf16, so each is held to one bf16 ulp at the
-# top of its range: 2^-7 of its max magnitude.
+# The dense-serve prefill of qwen3-1.7b: batch 8 x 16 heads (GQA
+# expanded), 512 tokens, d_head 128, bf16, causal.
+DP_BH, DP_L, DP_D = 128, 512, 128
+# Tolerances, kernel vs plain version on the same CUDA tensors.  The bf16
+# forwards run on the tensor cores (dense_attention_tc.cu): each score is
+# the same bf16 x bf16 products as the plain version's f32 einsum, summed
+# in another order.  (1) FA-2 rail: O and LSE within 1e-5 (P V on p split
+# into bf16 hi + lo, within 2^-16 of p).  (2) H-FA rail on a dyadic grid
+# (bound 0.5), where every product and partial sum is exact, so no
+# summation order can move a score, and every tile's sum of p is exact,
+# so none can move l across a LogDiv rounding boundary: O within 1e-5 on
+# every row.  (3) H-FA rail on random
+# inputs, through the scores-out variant: each score the kernel formed is
+# within one bf16 ulp of the plain f32 score - plus the f32 dot product's
+# own summation bound, d 2^-24 sum|q_i k_i| scale, which matters only for
+# scores near 0 (their count is printed) - and O within 1e-5 of the plain
+# walk fed those scores.  A score near a bf16 tie can round to the other
+# neighbour (the share is printed): that moves the key's weight by a rail
+# step (0.54%), so O cannot be held to 1e-5 against the plain version's
+# own scores.  dq/dk/dv: the kernels round their f32 sums to bf16, so each
+# is held to one bf16 ulp at the top of its range: 2^-7 of its max
+# magnitude.
 ATOL_FA2_FWD = 1e-5
 REL_BWD = 2.0 ** -7
 ATOL_HFA_FWD = 1e-5
+DENSE_TC_SRC = "src/repro_torch/csrc/dense_attention_tc.cu"
+# Non-tensor instructions per second: one f32 or int32 instruction per
+# lane per clock on 128 lanes x 132 SMs at 1.98 GHz (the 67 TFLOP/s f32
+# rate counts an FMA as two operations; int32 runs at half this rate, so
+# the figure is optimistic and the bound stays a lower bound).
+CORE_OPS_PER_S = F32_OPS_PER_S / 2
+# Instructions the H-FA rail takes per computed score in the integer form
+# the tensor-core kernel runs (csrc/hfa_rail.cuh): s - m and
+# quant_rail_int (clamp x2, two multiplies, the rounding add, the bias
+# subtract) = 7; exp2_hfa_rail_tab (negate, mask, shift and address of
+# the word, the table load, the byte selector (mask, shift, or), the
+# byte permute, the exponent (shift, subtract, shift), the final add) =
+# 13.  The select-chain form (quant_rail, exp2_hfa_rail) takes 59.
+RAIL_OPS_PER_SCORE = 20
 
 
-def _dense_bound(kind: str, q) -> tuple[float, str]:
+def _dense_bound(kind: str, q) -> tuple[float, str, dict]:
     """Least time for the same work: the bytes each input is read once
     and each output written once, over the memory rate, against the
-    products over the causal visible (query, key) pairs at the bf16
-    peak (QK and PV forward; 3 products for dq, 4 for dk/dv)."""
+    operations - the products over the causal visible (query, key) pairs
+    at the bf16 peak (QK and PV forward; 3 products for dq, 4 for dk/dv)
+    and, on the H-FA forward, the rail per visible score on the CUDA
+    cores beside them (overlapped: the larger of the two)."""
     bh, ell, d = q.shape
     pairs = bh * ell * (ell + 1) / 2
     bf16 = q.numel() * 2                      # one (BH, L, d) bf16 tensor
     f32 = q.numel() * 4
     row = bh * ell * 4                        # one (BH, L) f32 vector
+    t_rail = 0.0
     if kind in ("fa2_fwd", "hfa_fwd"):
         nbytes = 3 * bf16 + f32 + (row if kind == "fa2_fwd" else 0)
         flops = 4 * d * pairs
+        if kind == "hfa_fwd":
+            t_rail = pairs * RAIL_OPS_PER_SCORE / CORE_OPS_PER_S * 1e3
     elif kind == "fa2_bwd_dq":
         nbytes = 3 * bf16 + f32 + 2 * row + bf16
         flops = 6 * d * pairs
@@ -376,19 +444,146 @@ def _dense_bound(kind: str, q) -> tuple[float, str]:
         nbytes = 3 * bf16 + f32 + 2 * row + 2 * bf16
         flops = 8 * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = max(flops / BF16_FLOPS_PER_S * 1e3, t_rail)
+    parts = {"bytes_ms": t_bytes, "products_ms": flops / BF16_FLOPS_PER_S * 1e3,
+             "rail_ms": t_rail}
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
-                                 "operations")
+                                 "operations"), parts
+
+
+def _check_forward_rails(bh: int, ell: int, d: int, gen, label: str) -> dict:
+    """Checks (1)-(3) of the bf16 dense forward at (BH, L, d), causal, and
+    the times of both rails beside SDPA and the bound.  Returns
+    {rail: {ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err,
+    ...}}."""
+    def normal():
+        return torch.randn((bh, ell, d), generator=gen, device="cuda").to(
+            torch.bfloat16)
+    q, k, v = normal(), normal(), normal()
+    out = {}
+    # (1) FA-2 rail, random inputs.
+    ko, klse = fa2_k.fa2_forward(q, k, v, causal=True, return_lse=True)
+    po, plse = fa2_k.fa2_forward_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err_o, err_lse = (float((a - b).abs().max()) for a, b in
+                      ((ko, po), (klse, plse)))
+    if not (err_o <= ATOL_FA2_FWD and err_lse <= ATOL_FA2_FWD
+            and bool(torch.isfinite(ko).all())):
+        raise AssertionError(f"fa2_fwd {label}: O {err_o:.3g}, LSE "
+                             f"{err_lse:.3g} (atol {ATOL_FA2_FWD})")
+    del po, plse
+    # (2) H-FA rail, dyadic-grid q and k: exact scores and sums of p.
+    qa, ka = (hfa_k.dyadic_bf16((bh, ell, d), gen, "cuda", bound=0.5)
+              for _ in range(2))
+    err_dy = float((hfa_k.hfa_forward(qa, ka, v, causal=True) -
+                    hfa_k.hfa_forward_plain(qa, ka, v, causal=True))
+                   .abs().max())
+    del qa, ka
+    if not err_dy <= ATOL_HFA_FWD:
+        raise AssertionError(f"hfa_fwd {label}: dyadic-grid O differs from "
+                             f"the plain version by {err_dy:.3g} (atol "
+                             f"{ATOL_HFA_FWD})")
+    # (3) H-FA rail, random inputs, the kernel's own scores.
+    so, s_k = hfa_k.hfa_forward_scores(q, k, v, causal=True)
+    ho = hfa_k.hfa_forward(q, k, v, causal=True)
+    walk = hfa_k.hfa_forward_plain_from_scores(s_k, v, causal=True)
+    err_walk = float((ho - walk).abs().max())
+    same_o = torch.equal(so, ho)
+    gap = float((ho - ko).abs().max())      # the rail's distance to softmax
+    del walk, so, ko
+    n_vis, n_differ, n_beyond, n_sum_term, worst = hfa_k.score_errors(
+        q, k, s_k, causal=True)
+    del s_k
+    if n_beyond:
+        raise AssertionError(f"hfa_fwd {label}: {n_beyond} scores beyond one "
+                             "bf16 ulp (+ the f32 summation bound) of the "
+                             "plain f32 score")
+    if not (err_walk <= ATOL_HFA_FWD and same_o
+            and bool(torch.isfinite(ho).all())):
+        raise AssertionError(f"hfa_fwd {label}: O vs the plain walk fed the "
+                             f"kernel's scores {err_walk:.3g} (atol "
+                             f"{ATOL_HFA_FWD}), scores-out O equal {same_o}")
+    share = n_differ / n_vis
+    # Times: both rails beside one SDPA call on (B, H, L, d) views.
+    q4, k4, v4 = (t.view(1, bh, ell, d) for t in (q, k, v))
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    lib_ms = timed(sdpa)
+    lib_dev = device_ms(sdpa)
+    kernels = {"fa2_fwd": (lambda: fa2_k.fa2_forward(q, k, v, causal=True,
+                                                     return_lse=True),
+                           lambda: fa2_k.fa2_forward_plain(q, k, v,
+                                                           causal=True)),
+               "hfa_fwd": (lambda: hfa_k.hfa_forward(q, k, v, causal=True),
+                           lambda: hfa_k.hfa_forward_plain(q, k, v,
+                                                           causal=True))}
+    for name, (kernel, plain) in kernels.items():
+        ms = timed(kernel)
+        dev_ms = device_ms(kernel, "dense_fwd_tc_kernel")
+        plain_ms = timed(plain, reps=3, inner=1)
+        bound_ms, bound_by, parts = _dense_bound(name, q)
+        err = max(err_o, err_lse) if name == "fa2_fwd" else max(err_dy,
+                                                                err_walk)
+        out[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "library_ms": lib_ms, "library_device_ms": lib_dev,
+                     "bound_ms": bound_ms,
+                     "bound_by": bound_by, "max_abs_err": err,
+                     "bound_parts": parts}
+        print(f"kernel {name} ({label}, bf16, causal, tensor cores): "
+              f"kernel_ms {ms:.4f} (device {dev_ms:.4f}) | plain_ms "
+              f"{plain_ms:.4f} | library_ms {lib_ms:.4f} (SDPA; device "
+              f"{lib_dev:.4f}) | bound_ms {bound_ms:.4f} ({bound_by}: "
+              f"products {parts['products_ms']:.4f}, rail "
+              f"{parts['rail_ms']:.4f} overlapped, bytes "
+              f"{parts['bytes_ms']:.4f}) | kernel/SDPA {ms / lib_ms:.2f} "
+              f"(device {dev_ms / lib_dev:.2f})")
+    # Twice the products at the same shape: how the time scales with the
+    # work, against the causal run's shorter and unequal blocks.
+    def full():
+        return fa2_k.fa2_forward(q, k, v, causal=False, return_lse=True)
+    full_ms = timed(full)
+    full_dev = device_ms(full, "dense_fwd_tc_kernel")
+    print(f"kernel fa2_fwd ({label}, bf16, not causal: twice the products): "
+          f"kernel_ms {full_ms:.4f} (device {full_dev:.4f})")
+    out["fa2_fwd"].update(o_err=err_o, lse_err=err_lse,
+                          noncausal_ms=full_ms, noncausal_device_ms=full_dev)
+    out["hfa_fwd"].update(dyadic_o_err=err_dy, walk_o_err=err_walk,
+                          scores_differ_share=share)
+    print(f"check fa2_fwd ({label}): (1) random inputs: max |O err| "
+          f"{err_o:.3g}, max |LSE err| {err_lse:.3g} (atol {ATOL_FA2_FWD})")
+    print(f"check hfa_fwd ({label}): (2) dyadic grid: max |O err| "
+          f"{err_dy:.3g} (atol {ATOL_HFA_FWD}) | (3) random inputs: "
+          f"{n_vis} visible scores, {share:.4%} differ from bf16(plain f32 "
+          f"score), all within one bf16 ulp ({n_sum_term} needed the f32 "
+          f"summation term; worst |diff| {worst:.3g} ulp), max |O - plain "
+          f"walk on the kernel's scores| {err_walk:.3g} (atol "
+          f"{ATOL_HFA_FWD}) | max |O hfa - O fa2| {gap:.3g}")
+    return out
 
 
 def check_dense_kernels() -> list[dict]:
-    """Each dense kernel's wrapper at the training shape against its
-    plain version on the same CUDA tensors, timed beside its SDPA
-    yardstick.  dq and dk/dv share one wrapper, ``fa2_backward`` (delta,
-    the f32 cotangent and both launches), which is checked and timed as
-    a whole; each row also times its own launch."""
+    """The bf16 dense forward on both rails (checks (1)-(3)) at the
+    training shape and at the dense-serve prefill shape, and the
+    backward kernels at the training shape, each against its plain
+    version on the same CUDA tensors, timed beside its SDPA yardstick.
+    dq and dk/dv share one wrapper, ``fa2_backward`` (delta, the f32
+    cotangent and both launches), which is checked and timed as a whole;
+    each row also times its own launch."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, ell, d = DENSE_B, DENSE_H, DENSE_L, DENSE_D
+    fwd = _check_forward_rails(b * h, ell, d, gen,
+                               f"B {b}, H {h}, L {ell}, d {d}")
+    prefill = _check_forward_rails(DP_BH, DP_L, DP_D, gen,
+                                   f"dense-serve prefill BH {DP_BH}, L "
+                                   f"{DP_L}, d {DP_D}")
+    rows = []
+    for name in ("fa2_fwd", "hfa_fwd"):
+        row = {"name": name, "route": "cuda", "source": DENSE_TC_SRC,
+               "replaces": REPLACES[name]}
+        row.update({k: v for k, v in fwd[name].items() if k != "bound_parts"})
+        row["prefill"] = {k: v for k, v in prefill[name].items()
+                          if k != "bound_parts"}
+        rows.append(row)
 
     def rnd(dtype=torch.bfloat16):
         return torch.randn((b * h, ell, d), generator=gen,
@@ -399,13 +594,10 @@ def check_dense_kernels() -> list[dict]:
     kw = dict(causal=True, kv_len=ell, q_offset=0, scale=d ** -0.5)
     o, lse = fa2_k.fa2_forward(q, k, v, return_lse=True, causal=True)
     delta = torch.sum(do * o, dim=-1)
-    # SDPA yardsticks on (B, H, L, d) views of the same tensors.
     q4, k4, v4 = (t.view(b, h, ell, d) for t in (q, k, v))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
     do4 = do.view(b, h, ell, d).to(torch.bfloat16)
-    lib_fwd = timed(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
     lib_bwd = timed(lambda: torch.autograd.grad(
         sdpa_out, (qg, kg, vg), do4, retain_graph=True))
 
@@ -418,39 +610,18 @@ def check_dense_kernels() -> list[dict]:
     bwd, bwd_plain = backward(), plain_backward()
     bwd_ms = timed(backward)
     bwd_plain_ms = timed(plain_backward, reps=3, inner=1)
-    fwd = {"fa2_fwd": (lambda: fa2_k.fa2_forward(q, k, v, causal=True,
-                                                 return_lse=True),
-                       lambda: fa2_k.fa2_forward_plain(q, k, v, causal=True)),
-           "hfa_fwd": (lambda: (hfa_k.hfa_forward(q, k, v, causal=True),),
-                       lambda: (hfa_k.hfa_forward_plain(q, k, v,
-                                                        causal=True),))}
-    # name: ((wrapper output, plain output) pairs, absolute tolerance or
-    # None for 2^-7 of the plain output's scale, timed launch, plain ms,
-    # wrapper ms, library ms)
-    cases = {}
-    for name, (kernel, plain) in fwd.items():
-        atol = ATOL_FA2_FWD if name == "fa2_fwd" else ATOL_HFA_FWD
-        cases[name] = (list(zip(kernel(), plain())), atol, kernel,
-                       timed(plain, reps=3, inner=1), None, lib_fwd)
-    rail_gap = float((cases["hfa_fwd"][0][0][0] -
-                      cases["fa2_fwd"][0][0][1]).abs().max())
-    cases["fa2_bwd_dq"] = ([(bwd[0], bwd_plain[0])], None,
-                           lambda: cuda_lib.launch_dense_dq(
-                               q, k, v, do, lse, delta, **kw),
-                           bwd_plain_ms, bwd_ms, lib_bwd)
-    cases["fa2_bwd_dkv"] = (list(zip(bwd[1:], bwd_plain[1:])), None,
-                            lambda: cuda_lib.launch_dense_dkv(
-                                q, k, v, do, lse, delta, **kw),
-                            bwd_plain_ms, bwd_ms, lib_bwd)
+    cases = {"fa2_bwd_dq": ([(bwd[0], bwd_plain[0])],
+                            lambda: cuda_lib.launch_dense_dq(
+                                q, k, v, do, lse, delta, **kw)),
+             "fa2_bwd_dkv": (list(zip(bwd[1:], bwd_plain[1:])),
+                             lambda: cuda_lib.launch_dense_dkv(
+                                 q, k, v, do, lse, delta, **kw))}
     torch.cuda.synchronize()
-    rows = []
-    for name, (pairs, atol, launch, plain_ms, wrapper_ms,
-               lib_ms) in cases.items():
+    for name, (pairs, launch) in cases.items():
         err, ok, finite, parts = 0.0, True, True, []
         for got, want in pairs:
             e = float((got.float() - want).abs().max())
-            bound = atol if atol is not None else \
-                REL_BWD * float(want.abs().max())
+            bound = REL_BWD * float(want.abs().max())
             err, ok = max(err, e), ok and e <= bound
             finite = finite and bool(torch.isfinite(got.float()).all())
             parts.append(f"{e:.3g} (bound {bound:.3g})")
@@ -459,23 +630,17 @@ def check_dense_kernels() -> list[dict]:
             raise AssertionError(f"{name} disagrees with its plain version: "
                                  f"{what}, finite {finite}")
         ms = timed(launch)
-        bound_ms, bound_by = _dense_bound(name, q)
-        row = {"name": name, "route": "cuda", "source": DENSE_SRC,
-               "replaces": REPLACES[name], "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-               "bound_by": bound_by, "library_ms": lib_ms}
-        extra = ""
-        if name == "hfa_fwd":
-            what += f"; max |O - exact softmax O| {rail_gap:.3g}"
-        if wrapper_ms is not None:
-            row["wrapper_ms"] = wrapper_ms
-            extra = f" | fa2_backward (dq + dk/dv) {wrapper_ms:.4f}"
-        rows.append(row)
+        bound_ms, bound_by, _ = _dense_bound(name, q)
+        rows.append({"name": name, "route": "cuda", "source": DENSE_SRC,
+                     "replaces": REPLACES[name], "max_abs_err": err,
+                     "ms": ms, "plain_ms": bwd_plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_bwd, "wrapper_ms": bwd_ms})
         print(f"kernel {name} (B {b}, H {h}, L {ell}, d {d}, bf16, causal): "
-              f"kernel_ms {ms:.4f}{extra} | plain_ms {plain_ms:.4f} | "
-              f"library_ms {lib_ms:.4f} "
-              f"({'SDPA backward' if 'bwd' in name else 'SDPA'}) | bound_ms "
-              f"{bound_ms:.4f} ({bound_by}) | {what}")
+              f"kernel_ms {ms:.4f} | fa2_backward (dq + dk/dv) {bwd_ms:.4f} "
+              f"| plain_ms {bwd_plain_ms:.4f} | library_ms {lib_bwd:.4f} "
+              f"(SDPA backward) | bound_ms {bound_ms:.4f} ({bound_by}) | "
+              f"{what}")
     return rows
 
 
@@ -608,11 +773,6 @@ def check_decode_kernel() -> dict:
     return row
 
 
-# The dense-serve prefill of qwen3-1.7b: batch 8 x 16 heads (GQA
-# expanded), 512 tokens, d_head 128, bf16, causal.
-DP_BH, DP_L, DP_D = 128, 512, 128
-
-
 def _datapath_bound(bh: int, ell: int, d: int) -> tuple[float, str, dict]:
     """Least time for the datapath's work: q, k, v read and the bf16
     output written once over the memory rate, against its operations -
@@ -643,8 +803,7 @@ def check_datapath_kernel() -> dict:
     bh, ell, d = DP_BH, DP_L, DP_D
 
     def dyadic():
-        x = torch.randint(-8, 9, (bh, ell, d), generator=gen, device="cuda")
-        return (x.to(torch.float32) / 4).to(torch.bfloat16)
+        return hfa_k.dyadic_bf16((bh, ell, d), gen, "cuda")
 
     def normal():
         return torch.randn((bh, ell, d), generator=gen, device="cuda").to(
@@ -972,14 +1131,22 @@ def check_dense_serve() -> dict:
         _reset_dense_counters()
         res = serve_cli._serve_dense(model, model.cfg, batch, args)
         counts = _dense_counts()
+        variants = dict(cuda_lib.dense_fwd_launches)
         runs[impl] = res["tokens"]
         need = {"dense_decode": cfg.n_layers * SERVE_STEPS,
                 prefill_kernel: cfg.n_layers}
+        # Every bf16 prefill forward on the tensor-core kernel, none on
+        # the CUDA-core one.
+        need_variants = {"tc": cfg.n_layers if prefill_kernel in
+                         ("fa2_fwd", "hfa_fwd") else 0, "simt": 0}
         if any(counts[n] != c for n, c in need.items()) or not res["finite"] \
+                or any(variants[n] != c for n, c in need_variants.items()) \
                 or res["tokens"].shape != (SERVE_BATCH, SERVE_STEPS):
             raise AssertionError(f"dense_serve [{impl}]: launches {counts} "
-                                 f"(need {need}), finite {res['finite']}, "
-                                 f"tokens {res['tokens'].shape}")
+                                 f"(need {need}), forward by kernel "
+                                 f"{variants} (need {need_variants}), finite "
+                                 f"{res['finite']}, tokens "
+                                 f"{res['tokens'].shape}")
         for n, c in counts.items():
             totals[n] += c
         agree = int((res["tokens"] == runs["fa2"]).sum())
@@ -987,6 +1154,7 @@ def check_dense_serve() -> dict:
               f"({SERVE_BATCH}x{SERVE_PROMPT}), decode "
               f"{res['decode_ms']:.2f} ms/token, {res['tok_s']:.1f} tok/s, "
               f"launches { {n: c for n, c in counts.items() if c} }, "
+              f"forward by kernel {variants}, "
               f"tokens agreeing with the fa2 run {agree}/{res['tokens'].size}")
     model.cfg = cfg
     del model
@@ -1001,6 +1169,8 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 def _reset_dense_counters() -> None:
     for mod, attr in DENSE_COUNTERS.values():
         setattr(mod, attr, 0)
+    for variant in cuda_lib.dense_fwd_launches:
+        cuda_lib.dense_fwd_launches[variant] = 0
 
 
 def _dense_counts() -> dict:
@@ -1051,11 +1221,17 @@ def run_train(rail: str, warm: int = 2, timed_steps: int = 3) -> dict:
         if i >= warm:
             times.append(dt)
     counts = _dense_counts()
+    variants = dict(cuda_lib.dense_fwd_launches)
     peak = torch.cuda.max_memory_allocated()
     need = RAIL_KERNELS[rail]
-    if any(counts[n] <= 0 for n in need):
-        raise AssertionError(f"train [{rail}]: a kernel of the path never "
-                             f"launched: {counts}")
+    # The forward runs twice per layer and step (forward and remat), every
+    # time on the tensor-core kernel.
+    fwd_need = 2 * cfg.n_layers * timed_steps
+    if any(counts[n] <= 0 for n in need) or counts[need[0]] != fwd_need \
+            or variants["tc"] != fwd_need or variants["simt"] != 0:
+        raise AssertionError(f"train [{rail}]: launches {counts}, forward by "
+                             f"kernel {variants} (need {fwd_need} "
+                             f"{need[0]}, all tensor-core)")
     step_s = statistics.median(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"train [{rail}]: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, step "
@@ -1064,7 +1240,7 @@ def run_train(rail: str, warm: int = 2, timed_steps: int = 3) -> dict:
           f"{peak / 2**30:.2f} GiB, losses {['%.4f' % x for x in losses]}, "
           f"grad norm {gnorm:.4f}, launches over {timed_steps} steps "
           f"{counts} ({ {n: counts[n] / timed_steps for n in need} } "
-          "per step)")
+          f"per step), forward by kernel {variants}")
     del carry, step_fn, batches
     torch.cuda.empty_cache()
     return counts
@@ -1134,10 +1310,17 @@ def profile_engine(steps: int = 10, warm: int = 30) -> None:
     _report_profile(prof, wall, steps, "engine fa2 spec_k=0")
 
 
+# Kernel-name substrings of the port's dense attention kernels in a trace.
+ATTENTION_KERNELS = {"forward (tensor cores)": "dense_fwd_tc_kernel",
+                     "forward (CUDA cores)": "dense_fwd_kernel",
+                     "dq": "dense_dq_kernel", "dk/dv": "dense_dkv_kernel"}
+
+
 def _report_profile(prof, wall: float, steps: int, label: str) -> None:
     """From a torch.profiler window: the device's busy share of the wall
-    window (the sum of kernel times), the top kernels, the top ops by
-    the device time of the kernels they launched, and the host calls."""
+    window (the sum of kernel times), the dense attention kernels' share,
+    the top kernels, the top ops by the device time of the kernels they
+    launched, and the host calls."""
     from torch.autograd import DeviceType
     ev = prof.key_averages()
 
@@ -1152,6 +1335,18 @@ def _report_profile(prof, wall: float, steps: int, label: str) -> None:
           f"({wall / steps * 1e3:.2f} ms/step), device busy {busy * 1e3:.1f} "
           f"ms = {busy / wall:.1%} of wall ({len(kernels)} kernel names, "
           f"{sum(e.count for e in kernels)} launches)")
+    attn = {}
+    for part, key in ATTENTION_KERNELS.items():
+        us = sum(dev_us(e) for e in kernels if key in e.key)
+        n = sum(e.count for e in kernels if key in e.key)
+        if n:
+            attn[part] = (us / 1e3, n)
+    if attn:
+        total = sum(ms for ms, _ in attn.values()) / 1e3
+        print(f"profile [{label}]: attention kernels {total * 1e3:.1f} ms = "
+              f"{total / busy:.1%} of device time, {total / wall:.1%} of wall: "
+              + ", ".join(f"{part} {ms:.1f} ms / {n} launches"
+                          for part, (ms, n) in attn.items()))
     for kind, events in (("kernel", kernels), ("op", ops)):
         for e in sorted(events, key=dev_us, reverse=True)[:12]:
             print(f"profile device {kind}: {dev_us(e) / 1e3:9.3f} ms "
@@ -1238,8 +1433,16 @@ def main() -> int:
         print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     if "reference" in phases:
         check_small_reference()
+        _reset_dense_counters()
         check_ring_reference()
         check_train_reference()
+        variants = dict(cuda_lib.dense_fwd_launches)
+        if variants["simt"] <= 0 or variants["tc"] != 0:
+            raise AssertionError(f"reference: the reduced f32 model's dense "
+                                 f"forwards went to {variants}, not the "
+                                 "CUDA-core kernel alone")
+        print(f"reference: dense forward launches of the reduced f32 model "
+              f"by kernel {variants}")
         print(f"phase reference done at {time.perf_counter() - t0:.1f} s")
     if "profile" in phases:
         profile_engine()

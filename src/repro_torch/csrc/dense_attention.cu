@@ -1,11 +1,14 @@
-// Dense attention for Hopper (sm_90a): the FA-2 forward, its dq and dk/dv
-// backward, and the H-FA forward, over (BH, L, D) slabs.
+// Dense attention for Hopper (sm_90a) on the CUDA cores: the FA-2
+// forward for f32 inputs, its dq and dk/dv backward, and the H-FA
+// forward for f32 inputs, over (BH, L, D) slabs.  The forward on bf16
+// inputs - every full-width path - is dense_attention_tc.cu's
+// tensor-core kernel; this forward serves the reduced f32 model.
 //
 // Replaces four Pallas TPU kernels of the reference package:
-//   src/repro/kernels/fa2.py      _fa2_kernel   -> dense_attn_fwd (fa2 rail)
+//   src/repro/kernels/fa2.py      _fa2_kernel   -> dense_attn_fwd (fa2 rail, f32)
 //   src/repro/kernels/fa2_bwd.py  _dq_kernel    -> dense_attn_dq
 //   src/repro/kernels/fa2_bwd.py  _dkv_kernel   -> dense_attn_dkv
-//   src/repro/kernels/hfa.py      _hfa_kernel   -> dense_attn_fwd (H-FA rail)
+//   src/repro/kernels/hfa.py      _hfa_kernel   -> dense_attn_fwd (H-FA rail, f32)
 // Masks, as in the reference: key j is visible to query row i when
 // j < kv_len (the padding ops.py adds) and, if causal, j <= i + q_offset.
 //
@@ -15,10 +18,10 @@
 // results are deterministic).  One block of 256 threads owns 64 query
 // rows (forward, dq) or 64 key rows (dk/dv) of one (batch, head) and
 // loops over tiles of the other side staged in shared memory as f32.
-// Every product is an f32 FMA on the CUDA cores from bf16 or f32 inputs,
-// as the Pallas kernels compute in f32; thread (ty, tx) owns output rows
-// ty + 16 i (i < 4) and columns tx + 16 j, so a row's 16 owners are one
-// half-warp and row max / sum are half-warp shuffles.
+// Every product is an f32 FMA on the CUDA cores, as the Pallas kernels
+// compute in f32; thread (ty, tx) owns output rows ty + 16 i (i < 4) and
+// columns tx + 16 j, so a row's 16 owners are one half-warp and row max
+// / sum are half-warp shuffles.
 //
 // Forward: 128-key tiles (the reference's block_kv).  The H-FA rail must
 // take each row max over exactly the reference's tiles before it
@@ -33,10 +36,10 @@
 //
 // What bounds these kernels: arithmetic.  At the training shape (BH 64,
 // L 2048, D 128, causal) the forward does 4 BH L^2 D / 2 = 6.9e10 flops
-// on 100 MB of inputs, far right of the card's ridge.  This first
-// version runs them on the CUDA cores in f32 (about 67 TFLOP/s peak, not
-// the tensor cores' 989 in bf16) with plain loads; wgmma and TMA come in
-// later PRs.
+// on 100 MB of inputs, far right of the card's ridge.  They run on the
+// CUDA cores in f32 (about 67 TFLOP/s peak, not the tensor cores' 989 in
+// bf16) with plain loads; the backward on bf16 inputs is the next to
+// move to wgmma and TMA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -417,13 +420,15 @@ DenseParams make_params(const void* q, const void* k, const void* v, int Lq, int
 }  // namespace
 
 // Each entry point returns the first CUDA error of its launch (0 = ok).
-// Inputs q (BH, Lq, D), k and v (BH, Lkv, D) are bf16 (bf16 = 1) or f32.
+// Inputs q (BH, Lq, D), k and v (BH, Lkv, D) are f32, or bf16 (bf16 = 1)
+// for the backward.
 
-// O (BH, Lq, D) f32; lse (BH, Lq) f32 on the fa2 rail (may be null on hfa).
+// O (BH, Lq, D) f32 from f32 inputs (bf16 inputs go to dense_attn_fwd_tc);
+// lse (BH, Lq) f32 on the fa2 rail (may be null on hfa).
 extern "C" int dense_attn_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                               int BH, int Lq, int Lkv, int D, int kv_len, int q_offset,
-                              int causal, float scale, int use_hfa, int bf16,
-                              const void* lut_host, void* stream) {
+                              int causal, float scale, int use_hfa, const void* lut_host,
+                              void* stream) {
   if (bad_shape(BH, Lq, Lkv, D) || (!use_hfa && lse == nullptr))
     return (int)cudaErrorInvalidValue;
   Lut lut;
@@ -432,8 +437,6 @@ extern "C" int dense_attn_fwd(const void* q, const void* k, const void* v, void*
   p.o = static_cast<float*>(o);
   p.lse_out = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return D == 64 ? fwd_t<__nv_bfloat16, 64>(p, lut, BH, use_hfa, s)
-                           : fwd_t<__nv_bfloat16, 128>(p, lut, BH, use_hfa, s);
   return D == 64 ? fwd_t<float, 64>(p, lut, BH, use_hfa, s) : fwd_t<float, 128>(p, lut, BH, use_hfa, s);
 }
 

@@ -65,6 +65,44 @@ __device__ __forceinline__ float recip_logdiv(float x) {
   return __fmul_rn(exp2_int(ip), __fadd_rn(1.0f, fp));
 }
 
+// The same rail in integer arithmetic, for the inner loop of the
+// tensor-core forward (dense_attention_tc.cu).  quant_rail_int(x) equals
+// quant_rail(x) as an int, and for every rail value r in [-2770, 0] (all
+// that quant_rail returns) exp2_hfa_rail_tab(r, tab) equals
+// exp2_hfa_rail(r, lut).  The PWL output g7 depends on the 7 fraction
+// bits f7 alone, so tab holds it for all 128 of them, as bytes
+// 2 (g7 - 64) in [0, 128], four to a word (pwl_table_word): one load per
+// value, from 32 words that sit in 32 banks of shared memory, so no
+// index pattern conflicts.  The result is packed from the bits:
+// g7/128 2^-p has exponent field 126 - p and mantissa (g7 - 64) 2^17
+// (g7 = 128 carries into the exponent: 2^-p).  Every step is exact:
+// rounding to an integer by adding 1.5 * 2^23 (|y| < 2^22), the PWL's
+// floors as arithmetic shifts of exact integer products.
+__device__ __forceinline__ int quant_rail_int(float x) {
+  const float d = fminf(fmaxf(x, kClampNat), 0.0f);
+  const float y = __fmul_rn(__fmul_rn(d, kLog2e), 128.0f);
+  return __float_as_int(__fadd_rn(y, 12582912.0f)) - 0x4B400000;
+}
+
+// Word j of the table: g7 for f7 = 4 j .. 4 j + 3, from the Lut.
+__device__ __forceinline__ unsigned pwl_table_word(int j, const Lut& lut) {
+  unsigned w = 0;
+  for (int u = 0; u < 4; ++u) {
+    const int f7 = 4 * j + u;
+    const float seg = (float)(f7 >> 4);
+    const int a = (int)lut8(seg, lut.a), b = (int)lut8(seg, lut.b);
+    const int g7 = ((((a * f7) >> 7) + b) + 128) >> 8;   // [64, 128]
+    w |= (unsigned)(2 * (g7 - 64)) << (8 * u);
+  }
+  return w;
+}
+
+__device__ __forceinline__ float exp2_hfa_rail_tab(int rail, const unsigned* tab) {
+  const int d = -rail;                  // [0, 2770]: p = d >> 7, f7 = d & 127
+  const unsigned m = __byte_perm(tab[(d & 127) >> 2], 0, 0x4044 | ((d & 3) << 8));
+  return __int_as_float(((126 - (d >> 7)) << 23) + (int)m);
+}
+
 namespace {  // one copy per source, so each source's rail can be checked
 
 __global__ void rail_eval_kernel(const float* x, float* rail, float* pexp, float* recip,

@@ -1,11 +1,15 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``paged_attention.cu``,
-``dense_attention.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``, and
-the headers ``hfa_rail.cuh`` and ``lns_rail.cuh`` they share) is
+``dense_attention.cu``, ``dense_attention_tc.cu``, ``dense_decode.cu``,
+``hfa_datapath.cu``, and the headers ``hfa_rail.cuh`` and
+``lns_rail.cuh`` they share) is
 compiled by ``nvcc`` - one process per ``.cu`` file, all started
 together - and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
+The tensor-core source encodes its TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which it looks up at run time
+(``cudaGetDriverEntryPoint``): the library links no ``-lcuda``.
 The build runs at first use, writes into ``build/repro_torch/`` under
 the repository root, and is keyed by a hash of every source and the
 flags.  Nothing here runs when the module is imported: the package
@@ -42,9 +46,16 @@ _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
 build_log = ""    # nvcc's stderr (ptxas register / spill report)
 # rail entry point of each source, for the bit-equality checks
 RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval",
-                "decode": "decode_rail_eval"}
+                "dense_tc": "dense_tc_rail_eval", "decode": "decode_rail_eval"}
 # Query heads per KV head the dense decode kernel takes.
 DECODE_MAX_G = 8
+# Query rows per block of the tensor-core forward; its grid takes at
+# most 65535 such tiles.
+DENSE_TC_ROWS = 128
+# Launches of the dense forward by kernel: "tc" the tensor-core kernel
+# (bf16 inputs), "simt" the CUDA-core kernel (f32 inputs).  A run reads
+# which kernel each path took from here.
+dense_fwd_launches = {"tc": 0, "simt": 0}
 
 
 def _nvcc() -> str:
@@ -119,7 +130,9 @@ def library() -> ctypes.CDLL:
         for name in RAIL_ENTRIES.values():
             getattr(lib, name).argtypes = [ptr] * 4 + [i32, ptr, ptr]
         lib.dense_attn_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [
-            f32, i32, i32, ptr, ptr]
+            f32, i32, ptr, ptr]
+        lib.dense_attn_fwd_tc.argtypes = [ptr] * 6 + [i32] * 7 + [
+            f32, i32, ptr, ptr]
         lib.dense_attn_dq.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
         lib.dense_attn_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
         i64 = ctypes.c_longlong
@@ -129,7 +142,8 @@ def library() -> ctypes.CDLL:
             f32, i32, ptr, ptr]
         lib.lns_eval.argtypes = [ptr] * 12 + [i32, ptr, ptr]
         for name in ("paged_decode_fwd", "paged_prefill_fwd",
-                     "paged_verify_fwd", "dense_attn_fwd", "dense_attn_dq",
+                     "paged_verify_fwd", "dense_attn_fwd",
+                     "dense_attn_fwd_tc", "dense_attn_dq",
                      "dense_attn_dkv", "dense_decode_fwd", "hfa_datapath_fwd",
                      "lns_eval", *RAIL_ENTRIES.values()):
             getattr(lib, name).restype = ctypes.c_int
@@ -229,19 +243,59 @@ def _dims(q, k, kv_len, q_offset, causal):
 def launch_dense_fwd(q, k, v, *, causal: bool, scale: float, kv_len: int,
                      q_offset: int, use_hfa: bool):
     """Dense attention forward on the current stream: O (BH, Lq, d) f32
-    and, on the fa2 rail, LSE (BH, Lq) f32 (None on the H-FA rail)."""
+    and, on the fa2 rail, LSE (BH, Lq) f32 (None on the H-FA rail).
+
+    The dtype picks the kernel, with no fallback between them: bf16
+    inputs go to the tensor-core kernel (``dense_attn_fwd_tc``), which
+    raises on what it cannot take; f32 inputs to the CUDA-core kernel
+    (``dense_attn_fwd``).  :data:`dense_fwd_launches` counts each."""
     _check_dense("dense_attn_fwd", q, k, v)
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     lse = None if use_hfa else torch.empty(q.shape[:2], dtype=torch.float32,
                                            device=q.device)
-    err = library().dense_attn_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o),
-        None if lse is None else _ptr(lse), *_dims(q, k, kv_len, q_offset,
-                                                   causal),
-        ctypes.c_float(scale), int(use_hfa), int(q.dtype == torch.bfloat16),
-        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
-    check(err, "dense_attn_fwd")
+    args = (*_dims(q, k, kv_len, q_offset, causal), ctypes.c_float(scale),
+            int(use_hfa), ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    lse_ptr = None if lse is None else _ptr(lse)
+    if q.dtype == torch.bfloat16:
+        _check_tc(q, k, v)
+        err = library().dense_attn_fwd_tc(_ptr(q), _ptr(k), _ptr(v), _ptr(o),
+                                          lse_ptr, None, *args)
+        check(err, "dense_attn_fwd_tc")
+        dense_fwd_launches["tc"] += 1
+    else:
+        err = library().dense_attn_fwd(_ptr(q), _ptr(k), _ptr(v), _ptr(o),
+                                       lse_ptr, *args)
+        check(err, "dense_attn_fwd")
+        dense_fwd_launches["simt"] += 1
     return o, lse
+
+
+def launch_dense_fwd_scores(q, k, v, *, causal: bool, scale: float,
+                            kv_len: int, q_offset: int):
+    """The tensor-core H-FA forward's scores-out instantiation, for the
+    checks (not counted in :data:`dense_fwd_launches`): O (BH, Lq, d)
+    f32 and the bf16 scores (BH, Lq, Lkv) it formed (after the scale and
+    the bf16 rounding; zero where it formed none: tiles it skipped)."""
+    _check_dense("dense_attn_fwd_tc", q, k, v)
+    _require(q.dtype == torch.bfloat16,
+             "dense_attn_fwd_tc: the scores-out variant takes bf16 inputs")
+    _check_tc(q, k, v)
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    scores = torch.zeros((q.shape[0], q.shape[1], k.shape[1]),
+                         dtype=torch.bfloat16, device=q.device)
+    err = library().dense_attn_fwd_tc(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), None, _ptr(scores),
+        *_dims(q, k, kv_len, q_offset, causal), ctypes.c_float(scale), 1,
+        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, "dense_attn_fwd_tc (scores out)")
+    return o, scores
+
+
+def _check_tc(q, k, v) -> None:
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             "dense_attn_fwd_tc: q, k, v must be 16-byte aligned (TMA)")
+    _require(-(-q.shape[1] // DENSE_TC_ROWS) <= 65535,
+             f"dense_attn_fwd_tc: {q.shape[1]} query rows exceed the grid")
 
 
 def _bwd_inputs(entry, q, k, v, do, lse, delta):
@@ -279,9 +333,10 @@ def launch_dense_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
 
 
 def rail_eval(x: torch.Tensor, source: str = "paged"):
-    """The rail device functions of one source (``paged`` or ``dense``)
-    over an f32 CUDA tensor: (quant_rail(x), exp2_hfa_rail(quant_rail(x)),
-    recip_logdiv(x))."""
+    """The rail device functions of one source (a key of
+    :data:`RAIL_ENTRIES`; ``dense_tc`` is the tensor-core forward's
+    integer form) over an f32 CUDA tensor: (quant_rail(x),
+    exp2_hfa_rail(quant_rail(x)), recip_logdiv(x))."""
     _require(x.is_cuda and x.dtype == torch.float32 and x.is_contiguous(),
              "rail_eval: needs a contiguous f32 CUDA tensor")
     outs = [torch.empty_like(x) for _ in range(3)]

@@ -2,14 +2,18 @@
 
 ``fa2_forward`` replaces the Pallas kernel
 ``src/repro/kernels/fa2.py::_fa2_kernel`` (wrapper ``fa2_pallas``).  On
-a CUDA tensor it launches the hand-written kernel in
-``csrc/dense_attention.cu`` (entry ``dense_attn_fwd``, fa2 rail) and
+a CUDA tensor it launches a hand-written kernel on the fa2 rail and
 counts the launch in :data:`launches`; on a CPU tensor it runs
-:func:`fa2_forward_plain`.  The causal forward does 4·BH·L²·d/2 flops
-on (BH, L, d) inputs, so at training lengths the card's arithmetic
-bounds it, not its memory; the kernel computes in f32 on the CUDA cores
-(one block per (bh, 64 query rows), 128-key tiles staged in shared
-memory, tiles above the diagonal and past ``kv_len`` skipped).
+:func:`fa2_forward_plain`.  The dtype picks the kernel
+(``cuda_lib.launch_dense_fwd``): bf16 inputs - every full-width path -
+go to the tensor-core kernel of ``csrc/dense_attention_tc.cu``, f32
+inputs to the CUDA-core kernel of ``csrc/dense_attention.cu``.  The
+causal forward does 4·BH·L²·d/2 flops on (BH, L, d) inputs, so at
+training lengths the card's arithmetic bounds it, not its memory.  The
+tensor-core kernel forms S = QKᵀ with wgmma from TMA-loaded bf16 tiles
+(products exact in f32) and P·V as two wgmmas, on p split into bf16
+hi + lo (within 2^-16 of p); tiles above the diagonal and past
+``kv_len`` are skipped.
 """
 from __future__ import annotations
 

@@ -6,6 +6,8 @@
   kernel (``kernels/hfa.py``).  It is the kernel's plain version and,
   under autograd, its backward: the rail functions carry the
   straight-through estimator (``bitmath._ste``), as in the reference.
+* ``ref_hfa_walk`` - the same walk fed precomputed bf16 scores (the
+  checks feed it the scores the tensor-core kernel formed).
 * ``ref_decode_partial`` - the streamed decode triplet over one KV span
   (the reference's oracle of ``decode_partial_pallas``; no ``kv_len``
   mask).
@@ -40,28 +42,57 @@ def ref_hfa_mxu(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     d = q.shape[-1]
     scale_v = (1.0 / d ** 0.5) if scale is None else scale
-    lq, lkv = q.shape[-2], k.shape[-2]
+    lkv = k.shape[-2]
     pad = (-lkv) % block_kv
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, pad))
+    qf = q.to(torch.float32)
+
+    def scores(k0):
+        kb = k[..., k0:k0 + block_kv, :].to(torch.float32)
+        s = torch.einsum("...qd,...kd->...qk", qf, kb) * scale_v
+        return s.to(torch.bfloat16).to(torch.float32)  # BF16 score datapath
+    return _hfa_walk(scores, v, q.shape[-2], causal=causal,
+                     block_kv=block_kv, q_offset=q_offset)
+
+
+def ref_hfa_walk(s: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
+                 block_kv: int = 128, q_offset: int | None = None):
+    """The walk of :func:`ref_hfa_mxu` fed precomputed bf16 scores s
+    (..., Lq, Lkv) - already scaled and rounded, such as the ones the
+    tensor-core kernel writes out - in place of its QK^T einsum; the
+    same masks, tiles, rail and finalize.  Fed ``ref_hfa_mxu``'s own
+    scores it returns ``ref_hfa_mxu``'s output bit for bit."""
+    pad = (-s.shape[-1]) % block_kv
+    if pad:
+        s = torch.nn.functional.pad(s, (0, pad))
+    return _hfa_walk(lambda k0: s[..., k0:k0 + block_kv].to(torch.float32),
+                     v, s.shape[-2], causal=causal, block_kv=block_kv,
+                     q_offset=q_offset)
+
+
+def _hfa_walk(scores, v, lq, *, causal, block_kv, q_offset):
+    """The H-FA tile walk over v (..., Lkv, d): ``scores(k0)`` gives the
+    bf16-valued f32 score tile of keys k0 .. k0 + block_kv (zero-padded
+    past Lkv, where the mask hides it)."""
+    lkv, d = v.shape[-2], v.shape[-1]
+    pad = (-lkv) % block_kv
+    if pad:
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     if q_offset is None:
         q_offset = lkv - lq
-    qf = q.to(torch.float32)
-    batch = q.shape[:-2]
+    batch = v.shape[:-2]
     m = torch.full(batch + (lq,), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros(batch + (lq,), dtype=torch.float32, device=q.device)
-    acc = torch.zeros(batch + (lq, d), dtype=torch.float32, device=q.device)
-    q_ids = q_offset + torch.arange(lq, device=q.device)[:, None]
+                   device=v.device)
+    l = torch.zeros(batch + (lq,), dtype=torch.float32, device=v.device)
+    acc = torch.zeros(batch + (lq, d), dtype=torch.float32, device=v.device)
+    q_ids = q_offset + torch.arange(lq, device=v.device)[:, None]
     for k0 in range(0, lkv + pad, block_kv):
         if causal and k0 > q_offset + lq - 1:
             break          # the kernel skips blocks above the diagonal
-        kb = k[..., k0:k0 + block_kv, :].to(torch.float32)
         vb = v[..., k0:k0 + block_kv, :].to(torch.float32)
-        s = torch.einsum("...qd,...kd->...qk", qf, kb) * scale_v
-        s = s.to(torch.bfloat16).to(torch.float32)     # BF16 score datapath
-        kv_ids = k0 + torch.arange(block_kv, device=q.device)[None, :]
+        s = scores(k0)
+        kv_ids = k0 + torch.arange(block_kv, device=v.device)[None, :]
         mask = (kv_ids < lkv).expand(lq, block_kv)
         if causal:
             mask = mask & (kv_ids <= q_ids)

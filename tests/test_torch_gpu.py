@@ -4,11 +4,12 @@ one).  Run them on the machine with the card:
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Each paged kernel, on both rails, and each dense kernel (FA-2 forward,
-dq, dk/dv, H-FA forward, the dense decode on both rails, the
-per-element LNS datapath) at small shapes against its plain version on
-the same CUDA tensors (tolerances as in chip_smoke.py), and the rail
-and LNS device functions of every source bit for bit against the plain
-torch versions.
+dq, dk/dv, H-FA forward - on f32 inputs the CUDA-core forward, on bf16
+the tensor-core one - the dense decode on both rails, the per-element
+LNS datapath) at small shapes against its plain version on the same
+CUDA tensors (tolerances as in chip_smoke.py), and the rail and LNS
+device functions of every source (the tensor-core forward's integer
+form too) bit for bit against the plain torch versions.
 """
 import numpy as np
 import pytest
@@ -35,7 +36,7 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("source", ["paged", "dense", "decode"])
+@pytest.mark.parametrize("source", ["paged", "dense", "dense_tc", "decode"])
 def test_rail_device_functions_bit_exact(cuda, source):
     x = torch.linspace(-20.0, 5.0, 100_003, device=cuda)
     rail, pexp, recip = cuda_lib.rail_eval(x, source)
@@ -113,32 +114,93 @@ def _dense_inputs(cuda, dtype, d, bh=3, lq=200, lkv=320, seed=0):
 # kv_len < Lkv masks padding; q_offset 100 makes the queries a suffix.
 DENSE_MASKS = dict(kv_len=300, q_offset=100)
 DENSE_FWD_ATOL = 1e-5
+# (bh, lq, lkv, masks) of the forward cases: the masks above; the
+# dense-serve prefill geometry (Lq = Lkv = 512); dead rows (q_offset -5
+# puts rows 0..4 before key 0, kv_len 100 masks the rest of the keys).
+FWD_GEOMETRY = {"masks": (3, 200, 320, DENSE_MASKS),
+                "prefill": (2, 512, 512, {}),
+                "dead": (2, 128, 128, dict(kv_len=100, q_offset=-5))}
 
 
+@pytest.mark.parametrize("geometry", list(FWD_GEOMETRY))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("rail", ["fa2", "hfa"])
-def test_dense_forward_matches_plain(cuda, rail, causal, d, dtype):
-    q, k, v = _dense_inputs(cuda, dtype, d)
+def test_dense_forward_matches_plain(cuda, rail, causal, d, dtype, geometry):
+    """f32 inputs (the CUDA-core kernel) and fa2 on bf16 inputs (the
+    tensor-core kernel): O and LSE within 1e-5 of the plain version -
+    the same f32 scores summed in another order, and on the tensor cores
+    P V on p split into bf16 hi + lo.  hfa on bf16 inputs: a score near
+    a bf16 tie can round to the other neighbour under another summation
+    order, which moves that key's weight by a rail step (0.54%), so the
+    kernel is held (2) on a dyadic grid, where no summation order can
+    move a score, and (3) on random inputs through the scores-out
+    variant: its scores within one bf16 ulp of the plain f32 scores, O
+    within 1e-5 of the plain walk fed those scores.  (A sum l of p near a
+    LogDiv rounding boundary can also land on the other side under
+    another order; on the dyadic grid at bound 0.5 every tile's sum is
+    exact.)"""
+    bh, lq, lkv, masks = FWD_GEOMETRY[geometry]
+    q, k, v = _dense_inputs(cuda, dtype, d, bh=bh, lq=lq, lkv=lkv)
     mod = tfa2 if rail == "fa2" else thfa
     before = mod.launches
+    variants = dict(cuda_lib.dense_fwd_launches)
+    kw = dict(causal=causal, **masks)
     if rail == "fa2":
-        ko, klse = tfa2.fa2_forward(q, k, v, causal=causal, return_lse=True,
-                                    **DENSE_MASKS)
-        po, plse = tfa2.fa2_forward_plain(q, k, v, causal=causal,
-                                          **DENSE_MASKS)
+        ko, klse = tfa2.fa2_forward(q, k, v, return_lse=True, **kw)
+        po, plse = tfa2.fa2_forward_plain(q, k, v, **kw)
+    elif dtype == torch.float32:
+        ko = thfa.hfa_forward(q, k, v, **kw)
+        po = thfa.hfa_forward_plain(q, k, v, **kw)
     else:
-        ko = thfa.hfa_forward(q, k, v, causal=causal, **DENSE_MASKS)
-        po = thfa.hfa_forward_plain(q, k, v, causal=causal, **DENSE_MASKS)
+        gen = torch.Generator(device=cuda).manual_seed(d)
+        qa = thfa.dyadic_bf16(q.shape, gen, cuda, bound=0.5)
+        ka = thfa.dyadic_bf16(k.shape, gen, cuda, bound=0.5)
+        ko = thfa.hfa_forward(qa, ka, v, **kw)
+        po = thfa.hfa_forward_plain(qa, ka, v, **kw)
     torch.cuda.synchronize()
     assert mod.launches == before + 1
+    kernel = "tc" if dtype == torch.bfloat16 else "simt"
+    assert cuda_lib.dense_fwd_launches[kernel] == variants[kernel] + 1
     assert torch.isfinite(ko).all()
-    # Same tiles and the same f32 score on both sides: summation order
+    # Same tiles, and scores that are the same products: summation order
     # only.  One rail step moves a key's weight by 0.54%, far above this.
     assert (ko - po).abs().max().item() <= DENSE_FWD_ATOL
     if rail == "fa2":
         assert (klse - plse).abs().max().item() <= DENSE_FWD_ATOL
+    if rail == "hfa" and dtype == torch.bfloat16:
+        so, s = thfa.hfa_forward_scores(q, k, v, **kw)
+        ho = thfa.hfa_forward(q, k, v, **kw)
+        walk = thfa.hfa_forward_plain_from_scores(s, v, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(so, ho)
+        assert (ho - walk).abs().max().item() <= DENSE_FWD_ATOL
+        n_vis, _, n_beyond, _, _ = thfa.score_errors(q, k, s, **kw)
+        assert n_vis > 0 and n_beyond == 0
+    if geometry == "dead" and causal:
+        assert torch.all(ko[:, :5] == 0)
+        if rail == "fa2":
+            assert torch.all(klse[:, :5] == -1e30)
+
+
+def test_dense_forward_tc_refuses_what_it_cannot_take(cuda):
+    """bf16 inputs go to the tensor-core kernel and nowhere else: what it
+    cannot take raises, with no launch on either kernel."""
+    before = dict(cuda_lib.dense_fwd_launches)
+    q, k, v = _dense_inputs(cuda, torch.bfloat16, 64, bh=1, lq=128,
+                            lkv=128)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    odd = flat[1:].view(q.shape)                       # 2-byte aligned
+    odd.copy_(q)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa2.fa2_forward(odd, k, v, causal=True)
+    d32 = [t[..., :32].contiguous() for t in (q, k, v)]
+    with pytest.raises(ValueError, match="head dim"):
+        thfa.hfa_forward(*d32, causal=True)
+    with pytest.raises(ValueError, match="bf16 CUDA"):
+        thfa.hfa_forward_scores(*(t.float() for t in (q, k, v)))
+    assert cuda_lib.dense_fwd_launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -253,9 +315,8 @@ def test_decode_attention_on_the_ring(cuda):
 def _dyadic(cuda, shape, seed):
     """bf16 values on a coarse dyadic grid (multiples of 1/4 in [-2, 2]):
     every f32 dot product over d <= 128 of them is exact in any order."""
-    gen = torch.Generator(device=cuda).manual_seed(seed)
-    x = torch.randint(-8, 9, shape, generator=gen, device=cuda)
-    return (x.to(torch.float32) / 4).to(torch.bfloat16)
+    return thfa.dyadic_bf16(shape, torch.Generator(device=cuda)
+                            .manual_seed(seed), cuda)
 
 
 @pytest.mark.parametrize("d", [64, 128])
