@@ -27,7 +27,10 @@ Phases, in order; any failure exits non-zero and prints no result line:
    those scores; both rails timed beside SDPA and the bound (products at
    the bf16 peak, and on hfa the rail on the CUDA cores, overlapped).
    Then dq and dk/dv at the training shape against their plain
-   versions, timed beside SDPA's autograd backward.  Then the
+   versions, both routes of ``fa2_backward``: bf16 ``do`` on the tensor
+   cores (dense_attention_bwd_tc.cu, the training path) and f32 ``do``
+   on the CUDA cores, each launch and each route's whole backward timed
+   beside SDPA's autograd backward.  Then the
    dense decode kernel at the dense-serve decode shape (B 8 x Hkv 8, G
    2, kv_len 576 of a 640-slot bf16 ring read in place, d 128) on both
    rails, beside SDPA on the same decode, and the per-element LNS
@@ -42,7 +45,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    versions on the CPU - paged prefill, decode and verify, and the dense
    ring's prefill and decode steps on fa2, hfa_pallas, hfa and
    hfa_datapath - and the same training loss and gradients; those f32
-   runs must reach the dense forward through the CUDA-core kernel only.
+   runs must reach the dense forward and backward through the CUDA-core
+   kernels only.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
@@ -65,10 +69,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``DataPipeline``; loss and grad norm must be finite, each dense
    kernel of the rail must launch, and the forward 56 times a step
    (forward and remat of 28 layers), every time on the tensor-core
-   kernel.  Step time, tokens/s and peak memory
-   are printed.  Then ``Trainer.run`` on the reduced config with an
-   injected failure restarts from its step-4 checkpoint (under
-   ``build/``).
+   kernel; on fa2_pallas dq and dk/dv 28 times a step each, every time
+   on the tensor-core kernels.  Step time, tokens/s and peak memory
+   are printed.  Then ``Trainer.run`` on the reduced (f32) config with
+   an injected failure restarts from its step-4 checkpoint (under
+   ``build/``); its backward runs on the CUDA-core kernels.
 7. Print ``{"kernels": [...]}``, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -126,6 +131,7 @@ BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM f32 on the CUDA cores
 SRC = "src/repro_torch/csrc/paged_attention.cu"
 DENSE_SRC = "src/repro_torch/csrc/dense_attention.cu"
+DENSE_BWD_TC_SRC = "src/repro_torch/csrc/dense_attention_bwd_tc.cu"
 DECODE_SRC = "src/repro_torch/csrc/dense_decode.cu"
 DATAPATH_SRC = "src/repro_torch/csrc/hfa_datapath.cu"
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
@@ -134,14 +140,20 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "fa2_fwd": "src/repro/kernels/fa2.py:26",
             "fa2_bwd_dq": "src/repro/kernels/fa2_bwd.py:30",
             "fa2_bwd_dkv": "src/repro/kernels/fa2_bwd.py:73",
+            "fa2_bwd_dq_simt": "src/repro/kernels/fa2_bwd.py:30",
+            "fa2_bwd_dkv_simt": "src/repro/kernels/fa2_bwd.py:73",
             "hfa_fwd": "src/repro/kernels/hfa.py:38",
             "dense_decode": "src/repro/kernels/decode.py:33",
             "hfa_datapath": "src/repro/kernels/hfa_datapath.py:31"}
 MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
-# Launch counter of each dense kernel: (module, attribute).
+# Launch counter of each dense kernel: (module, attribute) or (dict,
+# key).  The backward counts by route: "fa2_bwd_dq" and "fa2_bwd_dkv" are
+# the tensor-core kernels, "..._simt" the CUDA-core ones.
 DENSE_COUNTERS = {"fa2_fwd": (fa2_k, "launches"),
-                  "fa2_bwd_dq": (fa2_bwd, "launches_dq"),
-                  "fa2_bwd_dkv": (fa2_bwd, "launches_dkv"),
+                  "fa2_bwd_dq": (cuda_lib.dense_dq_launches, "tc"),
+                  "fa2_bwd_dkv": (cuda_lib.dense_dkv_launches, "tc"),
+                  "fa2_bwd_dq_simt": (cuda_lib.dense_dq_launches, "simt"),
+                  "fa2_bwd_dkv_simt": (cuda_lib.dense_dkv_launches, "simt"),
                   "hfa_fwd": (hfa_k, "launches"),
                   "dense_decode": (decode_k, "launches"),
                   "hfa_datapath": (dp_k, "launches")}
@@ -399,7 +411,9 @@ DP_BH, DP_L, DP_D = 128, 512, 128
 # step (0.54%), so O cannot be held to 1e-5 against the plain version's
 # own scores.  dq/dk/dv: the kernels round their f32 sums to bf16, so each
 # is held to one bf16 ulp at the top of its range: 2^-7 of its max
-# magnitude.
+# magnitude.  On the tensor cores P and dS also enter their products as
+# bf16 (each within 2^-8 of its f32 value), which moves the sums by less
+# than 2^-8 of their max (tests/test_torch_dense_backward_tc.py).
 ATOL_FA2_FWD = 1e-5
 REL_BWD = 2.0 ** -7
 ATOL_HFA_FWD = 1e-5
@@ -419,13 +433,15 @@ CORE_OPS_PER_S = F32_OPS_PER_S / 2
 RAIL_OPS_PER_SCORE = 20
 
 
-def _dense_bound(kind: str, q) -> tuple[float, str, dict]:
+def _dense_bound(kind: str, q, do_size: int = 4) -> tuple[float, str, dict]:
     """Least time for the same work: the bytes each input is read once
     and each output written once, over the memory rate, against the
     operations - the products over the causal visible (query, key) pairs
     at the bf16 peak (QK and PV forward; 3 products for dq, 4 for dk/dv)
     and, on the H-FA forward, the rail per visible score on the CUDA
-    cores beside them (overlapped: the larger of the two)."""
+    cores beside them (overlapped: the larger of the two).  ``do_size``
+    is the bytes of one element of the backward's cotangent (2 on the
+    tensor-core route, 4 on the CUDA-core one)."""
     bh, ell, d = q.shape
     pairs = bh * ell * (ell + 1) / 2
     bf16 = q.numel() * 2                      # one (BH, L, d) bf16 tensor
@@ -437,11 +453,11 @@ def _dense_bound(kind: str, q) -> tuple[float, str, dict]:
         flops = 4 * d * pairs
         if kind == "hfa_fwd":
             t_rail = pairs * RAIL_OPS_PER_SCORE / CORE_OPS_PER_S * 1e3
-    elif kind == "fa2_bwd_dq":
-        nbytes = 3 * bf16 + f32 + 2 * row + bf16
+    elif kind.startswith("fa2_bwd_dq"):
+        nbytes = 3 * bf16 + q.numel() * do_size + 2 * row + bf16
         flops = 6 * d * pairs
     else:
-        nbytes = 3 * bf16 + f32 + 2 * row + 2 * bf16
+        nbytes = 3 * bf16 + q.numel() * do_size + 2 * row + 2 * bf16
         flops = 8 * d * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = max(flops / BF16_FLOPS_PER_S * 1e3, t_rail)
@@ -566,9 +582,11 @@ def check_dense_kernels() -> list[dict]:
     training shape and at the dense-serve prefill shape, and the
     backward kernels at the training shape, each against its plain
     version on the same CUDA tensors, timed beside its SDPA yardstick.
-    dq and dk/dv share one wrapper, ``fa2_backward`` (delta, the f32
-    cotangent and both launches), which is checked and timed as a whole;
-    each row also times its own launch."""
+    dq and dk/dv share one wrapper, ``fa2_backward`` (delta and both
+    launches), which is checked and timed as a whole on each route: a
+    bf16 cotangent on the tensor cores (rows ``fa2_bwd_dq``,
+    ``fa2_bwd_dkv``), the same values in f32 on the CUDA cores (rows
+    ``..._simt``); each row also times its own launch."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     b, h, ell, d = DENSE_B, DENSE_H, DENSE_L, DENSE_D
     fwd = _check_forward_rails(b * h, ell, d, gen,
@@ -589,58 +607,86 @@ def check_dense_kernels() -> list[dict]:
         return torch.randn((b * h, ell, d), generator=gen,
                            device="cuda").to(dtype)
 
-    q, k, v = rnd(), rnd(), rnd()
-    do = rnd(torch.float32)
+    q, k, v, do = rnd(), rnd(), rnd(), rnd()
     kw = dict(causal=True, kv_len=ell, q_offset=0, scale=d ** -0.5)
     o, lse = fa2_k.fa2_forward(q, k, v, return_lse=True, causal=True)
-    delta = torch.sum(do * o, dim=-1)
     q4, k4, v4 = (t.view(b, h, ell, d) for t in (q, k, v))
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q4, k4, v4))
     sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-    do4 = do.view(b, h, ell, d).to(torch.bfloat16)
-    lib_bwd = timed(lambda: torch.autograd.grad(
-        sdpa_out, (qg, kg, vg), do4, retain_graph=True))
+    do4 = do.view(b, h, ell, d)
 
-    def backward():
-        return fa2_bwd.fa2_backward(q, k, v, o, do, lse, causal=True)
+    def sdpa_backward():
+        return torch.autograd.grad(sdpa_out, (qg, kg, vg), do4,
+                                   retain_graph=True)
+
+    lib_bwd = timed(sdpa_backward)
+    lib_dev = device_ms(sdpa_backward)
+    # Both routes of fa2_backward on the same inputs: the bf16 cotangent
+    # (the training path) on the tensor cores, the same values as f32 on
+    # the CUDA cores.  The plain version is the same for both.  route ->
+    # (cotangent, source, row-name suffix, dq launch, dk/dv launch, end of
+    # the kernels' names in a trace, bytes of one cotangent element).
+    routes = {"tc": (do, DENSE_BWD_TC_SRC, "", cuda_lib.launch_dense_dq_tc,
+                     cuda_lib.launch_dense_dkv_tc, "_tc_kernel", 2),
+              "simt": (do.float(), DENSE_SRC, "_simt",
+                       cuda_lib.launch_dense_dq, cuda_lib.launch_dense_dkv,
+                       "_kernel", 4)}
+    delta = torch.sum(do.float() * o, dim=-1)
 
     def plain_backward():
         return fa2_bwd.fa2_backward_plain(q, k, v, do, lse, delta, **kw)
 
-    bwd, bwd_plain = backward(), plain_backward()
-    bwd_ms = timed(backward)
+    bwd_plain = plain_backward()
     bwd_plain_ms = timed(plain_backward, reps=3, inner=1)
-    cases = {"fa2_bwd_dq": ([(bwd[0], bwd_plain[0])],
-                            lambda: cuda_lib.launch_dense_dq(
-                                q, k, v, do, lse, delta, **kw)),
-             "fa2_bwd_dkv": (list(zip(bwd[1:], bwd_plain[1:])),
-                             lambda: cuda_lib.launch_dense_dkv(
-                                 q, k, v, do, lse, delta, **kw))}
-    torch.cuda.synchronize()
-    for name, (pairs, launch) in cases.items():
-        err, ok, finite, parts = 0.0, True, True, []
-        for got, want in pairs:
-            e = float((got.float() - want).abs().max())
-            bound = REL_BWD * float(want.abs().max())
-            err, ok = max(err, e), ok and e <= bound
-            finite = finite and bool(torch.isfinite(got.float()).all())
-            parts.append(f"{e:.3g} (bound {bound:.3g})")
-        what = "max |err| " + ", ".join(parts)
-        if not (ok and finite):
-            raise AssertionError(f"{name} disagrees with its plain version: "
-                                 f"{what}, finite {finite}")
-        ms = timed(launch)
-        bound_ms, bound_by, _ = _dense_bound(name, q)
-        rows.append({"name": name, "route": "cuda", "source": DENSE_SRC,
-                     "replaces": REPLACES[name], "max_abs_err": err,
-                     "ms": ms, "plain_ms": bwd_plain_ms,
-                     "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_bwd, "wrapper_ms": bwd_ms})
-        print(f"kernel {name} (B {b}, H {h}, L {ell}, d {d}, bf16, causal): "
-              f"kernel_ms {ms:.4f} | fa2_backward (dq + dk/dv) {bwd_ms:.4f} "
-              f"| plain_ms {bwd_plain_ms:.4f} | library_ms {lib_bwd:.4f} "
-              f"(SDPA backward) | bound_ms {bound_ms:.4f} ({bound_by}) | "
-              f"{what}")
+    for route, (do_r, src, suffix, dq_launch, dkv_launch, kname,
+                do_size) in routes.items():
+        def backward(do_r=do_r):
+            return fa2_bwd.fa2_backward(q, k, v, o, do_r, lse, causal=True)
+
+        before = (dict(cuda_lib.dense_dq_launches),
+                  dict(cuda_lib.dense_dkv_launches))
+        bwd = backward()
+        torch.cuda.synchronize()
+        took = (cuda_lib.dense_dq_launches[route] - before[0][route],
+                cuda_lib.dense_dkv_launches[route] - before[1][route])
+        if took != (1, 1):
+            raise AssertionError(f"fa2_backward ({route} route) launched "
+                                 f"{took} dq, dk/dv kernels of that route")
+        bwd_ms = timed(backward)
+        cases = {"fa2_bwd_dq": ([(bwd[0], bwd_plain[0])],
+                                lambda: dq_launch(q, k, v, do_r, lse, delta,
+                                                  **kw), "dense_dq"),
+                 "fa2_bwd_dkv": (list(zip(bwd[1:], bwd_plain[1:])),
+                                 lambda: dkv_launch(q, k, v, do_r, lse, delta,
+                                                    **kw), "dense_dkv")}
+        for name, (pairs, launch, kernel) in cases.items():
+            err, ok, finite, parts = 0.0, True, True, []
+            for got, want in pairs:
+                e = float((got.float() - want).abs().max())
+                bound = REL_BWD * float(want.abs().max())
+                err, ok = max(err, e), ok and e <= bound
+                finite = finite and bool(torch.isfinite(got.float()).all())
+                parts.append(f"{e:.3g} (bound {bound:.3g})")
+            what = "max |err| " + ", ".join(parts)
+            if not (ok and finite):
+                raise AssertionError(f"{name}{suffix} disagrees with its plain "
+                                     f"version: {what}, finite {finite}")
+            ms = timed(launch)
+            dev_ms = device_ms(launch, kernel + kname)
+            bound_ms, bound_by, _ = _dense_bound(name, q, do_size)
+            rows.append({"name": name + suffix, "route": "cuda",
+                         "source": src, "replaces": REPLACES[name],
+                         "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                         "plain_ms": bwd_plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "library_ms": lib_bwd,
+                         "library_device_ms": lib_dev, "wrapper_ms": bwd_ms})
+            print(f"kernel {name}{suffix} (B {b}, H {h}, L {ell}, d {d}, bf16, "
+                  f"causal, {do_r.dtype} do, {route}): kernel_ms {ms:.4f} "
+                  f"(device {dev_ms:.4f}) | fa2_backward (dq + dk/dv + delta) "
+                  f"{bwd_ms:.4f} | plain_ms {bwd_plain_ms:.4f} | library_ms "
+                  f"{lib_bwd:.4f} (SDPA backward; device {lib_dev:.4f}) | "
+                  f"bound_ms {bound_ms:.4f} ({bound_by}) | kernel/bound "
+                  f"{ms / bound_ms:.2f} | {what}")
     return rows
 
 
@@ -1167,14 +1213,18 @@ TRAIN_BATCH, TRAIN_SEQ = 4, 2048
 
 
 def _reset_dense_counters() -> None:
-    for mod, attr in DENSE_COUNTERS.values():
-        setattr(mod, attr, 0)
+    for obj, key in DENSE_COUNTERS.values():
+        if isinstance(obj, dict):
+            obj[key] = 0
+        else:
+            setattr(obj, key, 0)
     for variant in cuda_lib.dense_fwd_launches:
         cuda_lib.dense_fwd_launches[variant] = 0
 
 
 def _dense_counts() -> dict:
-    return {n: getattr(mod, attr) for n, (mod, attr) in DENSE_COUNTERS.items()}
+    return {n: obj[key] if isinstance(obj, dict) else getattr(obj, key)
+            for n, (obj, key) in DENSE_COUNTERS.items()}
 
 
 def _train_setup(rail: str, n_batches: int):
@@ -1225,13 +1275,20 @@ def run_train(rail: str, warm: int = 2, timed_steps: int = 3) -> dict:
     peak = torch.cuda.max_memory_allocated()
     need = RAIL_KERNELS[rail]
     # The forward runs twice per layer and step (forward and remat), every
-    # time on the tensor-core kernel.
+    # time on the tensor-core kernel; on fa2 the backward once per layer
+    # and step, on the tensor-core dq and dk/dv, none on the CUDA cores.
     fwd_need = 2 * cfg.n_layers * timed_steps
+    bwd_need = cfg.n_layers * timed_steps if "fa2_bwd_dq" in need else 0
+    bwd = {n: counts[n] for n in ("fa2_bwd_dq", "fa2_bwd_dkv",
+                                  "fa2_bwd_dq_simt", "fa2_bwd_dkv_simt")}
     if any(counts[n] <= 0 for n in need) or counts[need[0]] != fwd_need \
-            or variants["tc"] != fwd_need or variants["simt"] != 0:
+            or variants["tc"] != fwd_need or variants["simt"] != 0 \
+            or bwd != {"fa2_bwd_dq": bwd_need, "fa2_bwd_dkv": bwd_need,
+                       "fa2_bwd_dq_simt": 0, "fa2_bwd_dkv_simt": 0}:
         raise AssertionError(f"train [{rail}]: launches {counts}, forward by "
                              f"kernel {variants} (need {fwd_need} "
-                             f"{need[0]}, all tensor-core)")
+                             f"{need[0]}, all tensor-core; {bwd_need} dq "
+                             f"and dk/dv, all tensor-core)")
     step_s = statistics.median(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     print(f"train [{rail}]: batch {TRAIN_BATCH} x seq {TRAIN_SEQ}, step "
@@ -1240,7 +1297,9 @@ def run_train(rail: str, warm: int = 2, timed_steps: int = 3) -> dict:
           f"{peak / 2**30:.2f} GiB, losses {['%.4f' % x for x in losses]}, "
           f"grad norm {gnorm:.4f}, launches over {timed_steps} steps "
           f"{counts} ({ {n: counts[n] / timed_steps for n in need} } "
-          f"per step), forward by kernel {variants}")
+          f"per step), forward by kernel {variants}, backward by kernel "
+          f"dq {dict(cuda_lib.dense_dq_launches)} dk/dv "
+          f"{dict(cuda_lib.dense_dkv_launches)}")
     del carry, step_fn, batches
     torch.cuda.empty_cache()
     return counts
@@ -1279,7 +1338,21 @@ def check_train() -> dict:
     for rail in RAIL_KERNELS:
         for n, c in run_train(rail).items():
             totals[n] += c
+    # The reduced f32 model's backward: on the CUDA-core kernels only.
+    _reset_dense_counters()
     check_trainer_restart()
+    restart = _dense_counts()
+    simt = ("fa2_bwd_dq_simt", "fa2_bwd_dkv_simt")
+    if any(restart[n] <= 0 for n in simt) or restart["fa2_bwd_dq"] \
+            or restart["fa2_bwd_dkv"]:
+        raise AssertionError(f"trainer: the reduced f32 model's launches "
+                             f"{restart}: its backward must run on the "
+                             "CUDA-core kernels alone")
+    print(f"trainer: backward launches of the reduced f32 model "
+          f"{ {n: restart[n] for n in simt} } (CUDA cores), 0 on the "
+          "tensor cores")
+    for n in simt:
+        totals[n] += restart[n]
     return totals
 
 
@@ -1313,7 +1386,10 @@ def profile_engine(steps: int = 10, warm: int = 30) -> None:
 # Kernel-name substrings of the port's dense attention kernels in a trace.
 ATTENTION_KERNELS = {"forward (tensor cores)": "dense_fwd_tc_kernel",
                      "forward (CUDA cores)": "dense_fwd_kernel",
-                     "dq": "dense_dq_kernel", "dk/dv": "dense_dkv_kernel"}
+                     "dq (tensor cores)": "dense_dq_tc_kernel",
+                     "dk/dv (tensor cores)": "dense_dkv_tc_kernel",
+                     "dq (CUDA cores)": "dense_dq_kernel",
+                     "dk/dv (CUDA cores)": "dense_dkv_kernel"}
 
 
 def _report_profile(prof, wall: float, steps: int, label: str) -> None:
@@ -1437,12 +1513,15 @@ def main() -> int:
         check_ring_reference()
         check_train_reference()
         variants = dict(cuda_lib.dense_fwd_launches)
-        if variants["simt"] <= 0 or variants["tc"] != 0:
+        bwd = {"dq": dict(cuda_lib.dense_dq_launches),
+               "dk/dv": dict(cuda_lib.dense_dkv_launches)}
+        if variants["simt"] <= 0 or variants["tc"] != 0 or any(
+                c["simt"] <= 0 or c["tc"] != 0 for c in bwd.values()):
             raise AssertionError(f"reference: the reduced f32 model's dense "
-                                 f"forwards went to {variants}, not the "
-                                 "CUDA-core kernel alone")
-        print(f"reference: dense forward launches of the reduced f32 model "
-              f"by kernel {variants}")
+                                 f"forwards went to {variants}, its backward "
+                                 f"to {bwd}, not the CUDA-core kernels alone")
+        print(f"reference: dense launches of the reduced f32 model by kernel:"
+              f" forward {variants}, backward {bwd}")
         print(f"phase reference done at {time.perf_counter() - t0:.1f} s")
     if "profile" in phases:
         profile_engine()

@@ -1,13 +1,15 @@
 // Dense attention for Hopper (sm_90a) on the CUDA cores: the FA-2
-// forward for f32 inputs, its dq and dk/dv backward, and the H-FA
-// forward for f32 inputs, over (BH, L, D) slabs.  The forward on bf16
-// inputs - every full-width path - is dense_attention_tc.cu's
-// tensor-core kernel; this forward serves the reduced f32 model.
+// forward for f32 inputs, its dq and dk/dv backward for an f32 output
+// cotangent, and the H-FA forward for f32 inputs, over (BH, L, D) slabs.
+// On bf16 - every full-width path - the forward is dense_attention_tc.cu's
+// tensor-core kernel and the backward (bf16 inputs and cotangent)
+// dense_attention_bwd_tc.cu's; these kernels serve the reduced f32 model
+// and bf16 inputs with an f32 cotangent.
 //
 // Replaces four Pallas TPU kernels of the reference package:
 //   src/repro/kernels/fa2.py      _fa2_kernel   -> dense_attn_fwd (fa2 rail, f32)
-//   src/repro/kernels/fa2_bwd.py  _dq_kernel    -> dense_attn_dq
-//   src/repro/kernels/fa2_bwd.py  _dkv_kernel   -> dense_attn_dkv
+//   src/repro/kernels/fa2_bwd.py  _dq_kernel    -> dense_attn_dq (f32 cotangent)
+//   src/repro/kernels/fa2_bwd.py  _dkv_kernel   -> dense_attn_dkv (f32 cotangent)
 //   src/repro/kernels/hfa.py      _hfa_kernel   -> dense_attn_fwd (H-FA rail, f32)
 // Masks, as in the reference: key j is visible to query row i when
 // j < kv_len (the padding ops.py adds) and, if causal, j <= i + q_offset.
@@ -38,8 +40,11 @@
 // L 2048, D 128, causal) the forward does 4 BH L^2 D / 2 = 6.9e10 flops
 // on 100 MB of inputs, far right of the card's ridge.  They run on the
 // CUDA cores in f32 (about 67 TFLOP/s peak, not the tensor cores' 989 in
-// bf16) with plain loads; the backward on bf16 inputs is the next to
-// move to wgmma and TMA.
+// bf16) with plain loads, as the f32 numerics they serve ask.  The
+// running sum l = l alpha + sum p is rounded twice (__fmul_rn,
+// __fadd_rn), as the plain version and the tensor-core kernel round it:
+// on the H-FA rail an FMA's last-bit difference in l can cross a LogDiv
+// rounding boundary and move a row by a rail step.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -203,7 +208,7 @@ __global__ void __launch_bounds__(kThreads) dense_fwd_kernel(const DenseParams p
         ps += pv;
         p_s[(ty + 16 * i) * LP + tx + 16 * j] = pv;
       }
-      l[i] = l[i] * alpha + half_sum(ps);
+      l[i] = __fadd_rn(__fmul_rn(l[i], alpha), half_sum(ps));   // two roundings, no FMA
 #pragma unroll
       for (int c = 0; c < NO; ++c) o[i][c] *= alpha;
       m[i] = m_new;

@@ -1,14 +1,15 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``paged_attention.cu``,
-``dense_attention.cu``, ``dense_attention_tc.cu``, ``dense_decode.cu``,
-``hfa_datapath.cu``, and the headers ``hfa_rail.cuh`` and
-``lns_rail.cuh`` they share) is
+``dense_attention.cu``, ``dense_attention_tc.cu``,
+``dense_attention_bwd_tc.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``,
+and the headers ``hfa_rail.cuh``, ``lns_rail.cuh`` and ``tc_common.cuh``
+they share) is
 compiled by ``nvcc`` - one process per ``.cu`` file, all started
 together - and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
-The tensor-core source encodes its TMA tensor maps with the driver's
-``cuTensorMapEncodeTiled``, which it looks up at run time
+The tensor-core sources encode their TMA tensor maps with the driver's
+``cuTensorMapEncodeTiled``, which they look up at run time
 (``cudaGetDriverEntryPoint``): the library links no ``-lcuda``.
 The build runs at first use, writes into ``build/repro_torch/`` under
 the repository root, and is keyed by a hash of every source and the
@@ -56,6 +57,14 @@ DENSE_TC_ROWS = 128
 # (bf16 inputs), "simt" the CUDA-core kernel (f32 inputs).  A run reads
 # which kernel each path took from here.
 dense_fwd_launches = {"tc": 0, "simt": 0}
+# Rows a block of the tensor-core backward owns (dq: query rows, dk/dv:
+# key rows); its grid takes at most 65535 such blocks.
+DENSE_BWD_TC_ROWS = 128
+# Launches of the FA-2 backward by kernel: "tc" the tensor-core kernels
+# (bf16 inputs and cotangent), "simt" the CUDA-core ones (an f32
+# cotangent).
+dense_dq_launches = {"tc": 0, "simt": 0}
+dense_dkv_launches = {"tc": 0, "simt": 0}
 
 
 def _nvcc() -> str:
@@ -135,6 +144,8 @@ def library() -> ctypes.CDLL:
             f32, i32, ptr, ptr]
         lib.dense_attn_dq.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
         lib.dense_attn_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
+        lib.dense_attn_dq_tc.argtypes = [ptr] * 7 + [i32] * 7 + [f32, ptr]
+        lib.dense_attn_dkv_tc.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
         i64 = ctypes.c_longlong
         lib.dense_decode_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 3 + [
             i32, f32, i32, i32, ptr, ptr]
@@ -144,7 +155,8 @@ def library() -> ctypes.CDLL:
         for name in ("paged_decode_fwd", "paged_prefill_fwd",
                      "paged_verify_fwd", "dense_attn_fwd",
                      "dense_attn_fwd_tc", "dense_attn_dq",
-                     "dense_attn_dkv", "dense_decode_fwd", "hfa_datapath_fwd",
+                     "dense_attn_dkv", "dense_attn_dq_tc", "dense_attn_dkv_tc",
+                     "dense_decode_fwd", "hfa_datapath_fwd",
                      "lns_eval", *RAIL_ENTRIES.values()):
             getattr(lib, name).restype = ctypes.c_int
         _lib = lib
@@ -298,37 +310,88 @@ def _check_tc(q, k, v) -> None:
              f"dense_attn_fwd_tc: {q.shape[1]} query rows exceed the grid")
 
 
-def _bwd_inputs(entry, q, k, v, do, lse, delta):
+def _bwd_inputs(entry, q, k, v, do, lse, delta, do_dtype=torch.float32):
     _check_dense(entry, q, k, v, do, lse, delta)
-    _require(do.dtype == torch.float32 and do.shape == q.shape
+    _require(do.dtype == do_dtype and do.shape == q.shape
              and lse.dtype == torch.float32 and delta.dtype == torch.float32
              and lse.shape == q.shape[:2] and delta.shape == q.shape[:2],
-             f"{entry}: do must be f32 like q, lse and delta f32 (BH, Lq)")
+             f"{entry}: do must be {do_dtype} like q, lse and delta f32 "
+             f"(BH, Lq)")
     return [_ptr(t) for t in (q, k, v, do, lse, delta)]
 
 
 def launch_dense_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                     kv_len: int, q_offset: int) -> torch.Tensor:
-    """FA-2 backward dq (BH, Lq, d) in q's dtype on the current stream."""
+    """FA-2 backward dq (BH, Lq, d) in q's dtype on the current stream,
+    on the CUDA cores (f32 ``do``)."""
     ptrs = _bwd_inputs("dense_attn_dq", q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     err = library().dense_attn_dq(
         *ptrs, _ptr(dq), *_dims(q, k, kv_len, q_offset, causal),
         ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream())
     check(err, "dense_attn_dq")
+    dense_dq_launches["simt"] += 1
     return dq
 
 
 def launch_dense_dkv(q, k, v, do, lse, delta, *, causal: bool, scale: float,
                      kv_len: int, q_offset: int):
     """FA-2 backward (dk, dv) (BH, Lkv, d) in k's dtype on the current
-    stream."""
+    stream, on the CUDA cores (f32 ``do``)."""
     ptrs = _bwd_inputs("dense_attn_dkv", q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = library().dense_attn_dkv(
         *ptrs, _ptr(dk), _ptr(dv), *_dims(q, k, kv_len, q_offset, causal),
         ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream())
     check(err, "dense_attn_dkv")
+    dense_dkv_launches["simt"] += 1
+    return dk, dv
+
+
+def _tc_bwd_inputs(entry, q, k, v, do, lse, delta):
+    """What the tensor-core backward takes, checked before any launch:
+    bf16 q, k, v and do, f32 lse and delta, every one 16-byte aligned
+    (TMA), and a grid within range."""
+    ptrs = _bwd_inputs(entry, q, k, v, do, lse, delta, torch.bfloat16)
+    _require(q.dtype == torch.bfloat16,
+             f"{entry}: q, k, v must be bf16 (f32 goes to the CUDA cores)")
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, do, lse, delta)),
+             f"{entry}: q, k, v, do, lse and delta must be 16-byte aligned "
+             f"(TMA)")
+    bh, lq, _ = q.shape
+    blocks = max(-(-n // DENSE_BWD_TC_ROWS) for n in (lq, k.shape[1]))
+    _require(blocks <= 65535 and bh * lq < 2 ** 31,
+             f"{entry}: BH {bh} x Lq {lq} / Lkv {k.shape[1]} exceed the grid")
+    return ptrs
+
+
+def launch_dense_dq_tc(q, k, v, do, lse, delta, *, causal: bool,
+                       scale: float, kv_len: int,
+                       q_offset: int) -> torch.Tensor:
+    """FA-2 backward dq (BH, Lq, d) bf16 on the tensor cores, on the
+    current stream; raises a ValueError on what the kernel cannot take."""
+    ptrs = _tc_bwd_inputs("dense_attn_dq_tc", q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    err = library().dense_attn_dq_tc(
+        *ptrs, _ptr(dq), *_dims(q, k, kv_len, q_offset, causal),
+        ctypes.c_float(scale), _stream())
+    check(err, "dense_attn_dq_tc")
+    dense_dq_launches["tc"] += 1
+    return dq
+
+
+def launch_dense_dkv_tc(q, k, v, do, lse, delta, *, causal: bool,
+                        scale: float, kv_len: int, q_offset: int):
+    """FA-2 backward (dk, dv) (BH, Lkv, d) bf16 on the tensor cores, on
+    the current stream; raises a ValueError on what the kernel cannot
+    take."""
+    ptrs = _tc_bwd_inputs("dense_attn_dkv_tc", q, k, v, do, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = library().dense_attn_dkv_tc(
+        *ptrs, _ptr(dk), _ptr(dv), *_dims(q, k, kv_len, q_offset, causal),
+        ctypes.c_float(scale), _stream())
+    check(err, "dense_attn_dkv_tc")
+    dense_dkv_launches["tc"] += 1
     return dk, dv
 
 

@@ -6,14 +6,25 @@ versions.
 and ``_dkv_kernel`` (dv = Σ_q pᵀ·do, dk = Σ_q dsᵀ·q·scale), with
 p = exp(s - LSE) recomputed from the forward's LSE and
 ds = p·(do·vᵀ - δ).  δ = rowsum(do·o) is computed here in torch, as the
-reference computes it outside its kernels.  On CUDA tensors the two
-kernels of ``csrc/dense_attention.cu`` run (entries ``dense_attn_dq``
-and ``dense_attn_dkv``; counts in :data:`launches_dq` and
-:data:`launches_dkv`); on CPU tensors :func:`fa2_backward_plain`.
-Like the forward they are bound by arithmetic at training lengths (dq
-does three products per score tile, dk/dv four); each block owns 64
-query rows (dq) or 64 key rows (dk/dv) and loops over 64-row tiles of
-the other side, so no sum crosses blocks and nothing needs atomics.
+reference computes it outside its kernels.  On CPU tensors
+:func:`fa2_backward_plain` runs.  On CUDA tensors the cotangent's dtype
+picks the kernels, with no fallback between them:
+
+* bf16 q, k, v and a bf16 ``do`` (the model's path: the cotangent of a
+  bf16 attention output) go to the tensor-core kernels of
+  ``csrc/dense_attention_bwd_tc.cu`` (``dense_attn_dq_tc``,
+  ``dense_attn_dkv_tc``: wgmma with TMA-fed tiles, P and dS into their
+  products as bf16), which raise on what they cannot take;
+* an f32 ``do`` (the reduced f32 model, or bf16 inputs with an f32
+  cotangent) goes to the CUDA-core kernels of ``csrc/dense_attention.cu``
+  (``dense_attn_dq``, ``dense_attn_dkv``, f32 throughout); a bf16 ``do``
+  with f32 inputs is widened to f32, exactly.
+
+:data:`launches_dq` and :data:`launches_dkv` count both routes;
+``cuda_lib.dense_dq_launches`` and ``dense_dkv_launches`` count them by
+route.  Each block owns 128 (tensor cores) or 64 (CUDA cores) query rows
+(dq) or key rows (dk/dv) and loops over 64-row tiles of the other side,
+so no sum crosses blocks and nothing needs atomics.
 """
 from __future__ import annotations
 
@@ -59,7 +70,8 @@ def fa2_backward(q, k, v, o, do, lse, *, causal=False, scale=None,
                  block_q=128, block_kv=128, kv_len=None, q_offset=None):
     """(dq, dk, dv) for (BH, Lq, d) / (BH, Lkv, d) inputs, in q's, k's
     and v's dtypes.  ``o`` and ``lse`` are the forward's outputs, ``do``
-    the output's cotangent."""
+    the output's cotangent (bf16 with bf16 inputs: the tensor-core
+    kernels; f32: the CUDA-core ones)."""
     delta = torch.sum(do.to(torch.float32) * o.to(torch.float32), dim=-1)
     if q.device.type == "cpu":
         dq, dk, dv = fa2_backward_plain(q, k, v, do, lse, delta,
@@ -72,9 +84,16 @@ def fa2_backward(q, k, v, o, do, lse, *, causal=False, scale=None,
     global launches_dq, launches_dkv
     scale, kv_len, q_offset = _defaults(q, k, scale, kv_len, q_offset)
     kw = dict(causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset)
-    do = do.to(torch.float32).contiguous()
-    dq = cuda_lib.launch_dense_dq(q, k, v, do, lse, delta, **kw)
+    if q.dtype == torch.bfloat16 and do.dtype == torch.bfloat16:
+        launch_dq = cuda_lib.launch_dense_dq_tc
+        launch_dkv = cuda_lib.launch_dense_dkv_tc
+        do = do.contiguous()
+    else:
+        launch_dq = cuda_lib.launch_dense_dq
+        launch_dkv = cuda_lib.launch_dense_dkv
+        do = do.to(torch.float32).contiguous()
+    dq = launch_dq(q, k, v, do, lse, delta, **kw)
     launches_dq += 1
-    dk, dv = cuda_lib.launch_dense_dkv(q, k, v, do, lse, delta, **kw)
+    dk, dv = launch_dkv(q, k, v, do, lse, delta, **kw)
     launches_dkv += 1
     return dq, dk, dv

@@ -84,7 +84,8 @@ class _KernelAttention(torch.autograd.Function):
     """Differentiable kernel attention over padded (BH, L, d) tiles.
 
     fa2: the FA-2 forward kernel saves (q, k, v, O, LSE) and the
-    backward runs the dq and dk/dv kernels.  hfa: the H-FA forward
+    backward runs the dq and dk/dv kernels, with the cotangent in q's
+    dtype when q is bf16.  hfa: the H-FA forward
     kernel; the backward differentiates the tile oracle on the unpadded
     keys with the cotangent in f32, so the gradient follows the
     quantized numerics the kernel computed (STE) - the reference's
@@ -110,6 +111,11 @@ class _KernelAttention(torch.autograd.Function):
         kw = ctx.kw
         if ctx.rail == "fa2":
             q3, k3, v3, out, lse = ctx.saved_tensors
+            if q3.dtype == torch.bfloat16:
+                # Exact: multihead_attention casts this Function's f32
+                # output to bf16, so the cotangent holds bf16 values; in
+                # bf16 it reaches the tensor-core backward.
+                g = g.to(torch.bfloat16)
             dq, dk, dv = fa2_bwd.fa2_backward(q3, k3, v3, out, g, lse, **kw)
         else:
             q3, k3, v3 = ctx.saved_tensors

@@ -5,8 +5,10 @@ one).  Run them on the machine with the card:
 
 Each paged kernel, on both rails, and each dense kernel (FA-2 forward,
 dq, dk/dv, H-FA forward - on f32 inputs the CUDA-core forward, on bf16
-the tensor-core one - the dense decode on both rails, the per-element
-LNS datapath) at small shapes against its plain version on the same
+the tensor-core one; the backward on the CUDA cores for an f32
+cotangent, on the tensor cores for bf16 inputs and cotangent - the dense
+decode on both rails, the per-element LNS datapath) at small shapes
+against its plain version on the same
 CUDA tensors (tolerances as in chip_smoke.py), and the rail and LNS
 device functions of every source (the tensor-core forward's integer
 form too) bit for bit against the plain torch versions.
@@ -227,6 +229,113 @@ def test_dense_backward_matches_plain(cuda, causal, d, dtype):
         bound = 1e-4 * max(1.0, w.abs().max().item()) if dtype == \
             torch.float32 else 2.0 ** -7 * w.abs().max().item()
         assert err <= bound, (err, bound)
+
+
+@pytest.mark.parametrize("geometry", list(FWD_GEOMETRY))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dense_forward_f32_hfa_matches_plain_on_exact_sums(cuda, causal, d,
+                                                          geometry):
+    """The CUDA-core H-FA forward (f32 inputs) on a dyadic grid within
+    +-0.5, where every score and every tile's sum of p is exact in any
+    order: O within 1e-5 of the plain version, as check (2) holds the
+    tensor-core kernel.  The running sum l is rounded twice, as the plain
+    version rounds it; contracted to one FMA, a last-bit difference in l
+    can cross a LogDiv rounding boundary and move a row by a rail step
+    (0.54%)."""
+    bh, lq, lkv, masks = FWD_GEOMETRY[geometry]
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    qa = thfa.dyadic_bf16((bh, lq, d), gen, cuda, bound=0.5).float()
+    ka = thfa.dyadic_bf16((bh, lkv, d), gen, cuda, bound=0.5).float()
+    v = torch.randn((bh, lkv, d), generator=gen, device=cuda)
+    before = dict(cuda_lib.dense_fwd_launches)
+    ko = thfa.hfa_forward(qa, ka, v, causal=causal, **masks)
+    po = thfa.hfa_forward_plain(qa, ka, v, causal=causal, **masks)
+    torch.cuda.synchronize()
+    assert cuda_lib.dense_fwd_launches == dict(before,
+                                               simt=before["simt"] + 1)
+    assert torch.isfinite(ko).all()
+    assert (ko - po).abs().max().item() <= DENSE_FWD_ATOL
+
+
+# (bh, lq, lkv, masks) of the tensor-core backward cases: whole 128-row
+# blocks; ragged (L not a multiple of 64 or 128, kv_len < Lkv, q_offset
+# > 0); dead rows (q_offset -5, LSE = NEG_INF); lengths below one block.
+BWD_TC_GEOMETRY = {"square": (2, 256, 256, {}),
+                   "ragged": (3, 200, 320, DENSE_MASKS),
+                   "dead": (2, 128, 128, dict(kv_len=100, q_offset=-5)),
+                   "short": (2, 100, 100, {})}
+
+
+def _bwd_counts():
+    return dict(cuda_lib.dense_dq_launches), dict(cuda_lib.dense_dkv_launches)
+
+
+@pytest.mark.parametrize("geometry", list(BWD_TC_GEOMETRY))
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_dense_backward_tc_matches_plain(cuda, causal, d, geometry):
+    """bf16 inputs and a bf16 cotangent: the tensor-core dq and dk/dv,
+    each within 2^-7 of its tensor's max of the plain version (P and dS
+    enter their products as bf16, the outputs are bf16), one launch each
+    on the tensor-core route and none on the CUDA-core one."""
+    bh, lq, lkv, masks = BWD_TC_GEOMETRY[geometry]
+    q, k, v = _dense_inputs(cuda, torch.bfloat16, d, bh=bh, lq=lq, lkv=lkv,
+                            seed=1)
+    o, lse = tfa2.fa2_forward_plain(q, k, v, causal=causal, **masks)
+    do = torch.randn(o.shape, generator=torch.Generator(device=cuda)
+                     .manual_seed(2), device=cuda).to(torch.bfloat16)
+    dq0, dkv0 = _bwd_counts()
+    got = tfa2_bwd.fa2_backward(q, k, v, o, do, lse, causal=causal, **masks)
+    delta = torch.sum(do.float() * o, dim=-1)
+    want = tfa2_bwd.fa2_backward_plain(q, k, v, do, lse, delta,
+                                       causal=causal, **masks)
+    torch.cuda.synchronize()
+    assert _bwd_counts() == (dict(dq0, tc=dq0["tc"] + 1),
+                             dict(dkv0, tc=dkv0["tc"] + 1))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.bfloat16, name
+        assert torch.isfinite(g.float()).all(), name
+        err = (g.float() - w).abs().max().item()
+        bound = 2.0 ** -7 * w.abs().max().item()
+        assert err <= bound, (name, err, bound)
+    if geometry == "dead" and causal:
+        assert torch.all(got[0][:, :5] == 0)
+
+
+def test_dense_backward_tc_refuses_what_it_cannot_take(cuda):
+    """The tensor-core backward raises a ValueError before any launch on
+    what it cannot take - unaligned tensors, a head dim other than 64 or
+    128, an f32 cotangent at its own entry - and fa2_backward does not
+    fall back to the CUDA cores when it raises."""
+    q, k, v = _dense_inputs(cuda, torch.bfloat16, 64, bh=1, lq=128,
+                            lkv=128)
+    o, lse = tfa2.fa2_forward_plain(q, k, v, causal=True)
+    do = torch.randn(q.shape, device=cuda).to(torch.bfloat16)
+    delta = torch.sum(do.float() * o, dim=-1)
+    kw = dict(causal=True, scale=64 ** -0.5, kv_len=128, q_offset=0)
+
+    def unaligned(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)
+        out = flat[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    before = _bwd_counts(), tfa2_bwd.launches_dq, tfa2_bwd.launches_dkv
+    d32 = [t[..., :32].contiguous() for t in (q, k, v, do)]
+    for launch in (cuda_lib.launch_dense_dq_tc, cuda_lib.launch_dense_dkv_tc):
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch(unaligned(q), k, v, do, lse, delta, **kw)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            launch(q, k, v, do, unaligned(lse), delta, **kw)
+        with pytest.raises(ValueError, match="head dim"):
+            launch(*d32, lse, delta, **kw)
+        with pytest.raises(ValueError, match="do must be"):
+            launch(q, k, v, do.float(), lse, delta, **kw)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa2_bwd.fa2_backward(q, k, unaligned(v), o, do, lse, causal=True)
+    assert (_bwd_counts(), tfa2_bwd.launches_dq,
+            tfa2_bwd.launches_dkv) == before
 
 
 @pytest.mark.parametrize("impl", ["fa2_pallas", "hfa_pallas"])
