@@ -8,12 +8,18 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the kernels from ``src/repro_torch/csrc/`` with nvcc for sm_90a.
 2. Kernels.  The rail device functions of both sources must equal the
    plain torch rail bit for bit over every finite bf16 value.  Each
-   paged kernel (decode,
-   prefill, verify), on both rails, runs at the main path's shapes
+   paged kernel, on both rails, runs at the main path's shapes
    (qwen3-1.7b: 16 query heads over 8 KV heads, d_head 128, page 16,
    bf16 pools, shuffled page tables, ragged lengths up to 2048, a free
    slot) and is held against its plain version on the same CUDA
-   tensors.  One line per kernel: its time, the plain version's, one
+   tensors: the decode the main path runs (``paged_decode_fwd_v2``,
+   split on the fa2 rail) and the CUDA-core one (``_simt``), the
+   tensor-core prefill (``paged_prefill_fwd_tc``) and the CUDA-core one,
+   and verify.  The v2 decode unsplit must equal the CUDA-core decode
+   bit for bit on both rails, and split be within 1e-5 of unsplit; the
+   tensor-core prefill on a dyadic grid within 1e-5 of the CUDA-core one.
+   One line per kernel: its time (events, and the device's own from
+   torch.profiler), the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
    (fa2 rail; a yardstick the port never calls) and the bound.  Then
    the bf16 dense forward on the tensor cores, both rails, at the
@@ -39,20 +45,26 @@ Phases, in order; any failure exits non-zero and prints no result line:
    dyadic grid), and on random inputs every row whose bf16 scores the
    kernel and the plain version form alike (the share that differ is
    printed).  The LNS device functions must equal the plain ones bit
-   for bit over every bf16 pattern and rail value.
+   for bit over every bf16 pattern and rail value.  Last, every kernel
+   at d 96 (hfa-paper-mini's head dim, G 1) and d 32 (G 2), bf16 and f32,
+   against its plain version.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
    the same logits through the kernels on the card as through the plain
    versions on the CPU - paged prefill, decode and verify, and the dense
    ring's prefill and decode steps on fa2, hfa_pallas, hfa and
    hfa_datapath - and the same training loss and gradients; those f32
-   runs must reach the dense forward and backward through the CUDA-core
-   kernels only.
+   runs must reach the dense forward and backward and the paged prefill
+   through the CUDA-core kernels only, and the paged decode through v2.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
    must finish with its token count, every logit must be finite, the
    cache invariants must hold, and each kernel's launch counter must
-   grow on every run whose path uses it.
+   grow on every run whose path uses it: every prefill on the tensor
+   cores and every decode (spec_k 0) on v2, none on the CUDA-core
+   prefill or decode.  On fa2 a further spec_k 0 run with every decode
+   walk unsplit prints how far its streams agree with the spec_k 4 and
+   the split spec_k 0 runs.
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
    0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
    loop of ``serve --dense``: 8 prompts of 512 tokens from
@@ -130,12 +142,15 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
 F32_OPS_PER_S = 67e12          # H100 SXM f32 on the CUDA cores
 SRC = "src/repro_torch/csrc/paged_attention.cu"
+PAGED_TC_SRC = "src/repro_torch/csrc/paged_attention_tc.cu"
 DENSE_SRC = "src/repro_torch/csrc/dense_attention.cu"
 DENSE_BWD_TC_SRC = "src/repro_torch/csrc/dense_attention_bwd_tc.cu"
 DECODE_SRC = "src/repro_torch/csrc/dense_decode.cu"
 DATAPATH_SRC = "src/repro_torch/csrc/hfa_datapath.cu"
 REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
+            "paged_decode_simt": "src/repro/kernels/paged_decode.py:51",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:38",
+            "paged_prefill_simt": "src/repro/kernels/paged_prefill.py:38",
             "paged_verify": "src/repro/kernels/paged_verify.py:47",
             "fa2_fwd": "src/repro/kernels/fa2.py:26",
             "fa2_bwd_dq": "src/repro/kernels/fa2_bwd.py:30",
@@ -146,6 +161,23 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "dense_decode": "src/repro/kernels/decode.py:33",
             "hfa_datapath": "src/repro/kernels/hfa_datapath.py:31"}
 MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
+# The paged kernels' rows: (kind, source, the route's key in
+# cuda_lib.paged_launches or None (verify: its module counter), the
+# kernel's name in a trace).  paged_decode and paged_prefill are the
+# redesigned kernels the main path runs; the _simt rows the CUDA-core
+# ones, which the decode path no longer launches and the prefill path
+# launches for f32 pools and d 32 / 96.
+PAGED_ROWS = {"paged_decode": ("paged_decode", PAGED_TC_SRC,
+                               ("decode", "v2"), "paged_decode_v2_kernel"),
+              "paged_decode_simt": ("paged_decode", SRC, ("decode", "simt"),
+                                    "paged_attention_kernel"),
+              "paged_prefill": ("paged_prefill", PAGED_TC_SRC,
+                                ("prefill", "tc"), "paged_prefill_tc_kernel"),
+              "paged_prefill_simt": ("paged_prefill", SRC,
+                                     ("prefill", "simt"),
+                                     "paged_attention_kernel"),
+              "paged_verify": ("paged_verify", SRC, None,
+                               "paged_attention_kernel")}
 # Launch counter of each dense kernel: (module, attribute) or (dict,
 # key).  The backward counts by route: "fa2_bwd_dq" and "fa2_bwd_dkv" are
 # the tensor-core kernels, "..._simt" the CUDA-core ones.
@@ -200,21 +232,27 @@ def device_ms(fn, key: str = "", calls: int = 20) -> float:
     """Device time per call of the kernels whose name holds ``key`` (all
     that ``fn`` launches by default), from torch.profiler over ``calls``
     calls after a warm-up: the kernels' own time, where :func:`timed`
-    also counts the gaps a host-bound caller leaves between launches."""
+    also counts the gaps a host-bound caller leaves between launches.
+    A window in which the profiler recorded no device time (it drops a
+    window now and then) is taken again, up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0.0))
-             for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and key in e.key)
-    return us / 1e3 / calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and key in e.key)
+        if us > 0:
+            return us / 1e3 / calls
+    raise RuntimeError(f"torch.profiler recorded no device time for "
+                       f"{key or 'the call'} in three windows")
 
 
 # ------------------------------------------------------------- phase 2
@@ -333,15 +371,107 @@ def _sdpa(args, name):
                                                   attn_mask=mask)
 
 
+def _prefill_simt(q, *args, use_hfa=False):
+    """The paged prefill on the CUDA-core kernel, for the checks (the
+    wrapper's rule picks the tensor cores for bf16 at d 64 / 128)."""
+    return cuda_lib.launch_paged("paged_prefill_fwd", q, *args,
+                                 scale=q.shape[-1] ** -0.5, use_hfa=use_hfa)
+
+
+def _decode_split(q, *args, splits, use_hfa=False):
+    """The v2 paged decode with its walk split into ``splits`` runs (1:
+    unsplit), for the checks."""
+    return cuda_lib.launch_paged_decode(q, *args, scale=q.shape[-1] ** -0.5,
+                                        use_hfa=use_hfa, splits=splits)
+
+
+def _paged_fns(row: str):
+    """(kernel call, plain version) of a paged row: the wrapper the main
+    path calls, or for a _simt row the CUDA-core kernel."""
+    kind = PAGED_ROWS[row][0]
+    plain = getattr(MODULES[kind], f"{kind}_partial_plain")
+    if row == "paged_decode_simt":
+        return pd.paged_decode_partial_simt, plain
+    if row == "paged_prefill_simt":
+        return _prefill_simt, plain
+    return getattr(MODULES[kind], f"{kind}_partial"), plain
+
+
+def _check_paged_exact(cases) -> dict:
+    """The checks that hold the redesigned kernels to the CUDA-core ones
+    at the kernels-phase shapes: (a) the v2 decode, unsplit, bit-equal
+    to paged_decode_fwd on both rails, and split (the main path's
+    splits) within 1e-5 of its unsplit walk after finalize, m exact;
+    (b) the tensor-core prefill on a dyadic grid (q and the K pool
+    within +-0.5: every score and every page's sum of p exact in any
+    order) within 1e-5 of the CUDA-core prefill after finalize, m exact,
+    on both rails."""
+    out = {}
+    args = cases["paged_decode"][0]
+    splits = cuda_lib.decode_splits(args[0], args[3], args[1].shape[1],
+                                    False)
+    for rail in ("fa2", "hfa"):
+        use_hfa = rail == "hfa"
+        got = _decode_split(*args, splits=1, use_hfa=use_hfa)
+        want = pd.paged_decode_partial_simt(*args, use_hfa=use_hfa)
+        torch.cuda.synchronize()
+        bad = sum(int((a.view(torch.int32) != w.view(torch.int32)).sum())
+                  for a, w in zip(got, want))
+        if bad:
+            raise AssertionError(f"paged_decode v2 unsplit [{rail}]: {bad} "
+                                 "values differ from paged_decode_fwd")
+    o1, m1, l1 = _decode_split(*args, splits=1)
+    o2, m2, l2 = _decode_split(*args, splits=splits)
+    err_split = float((decode_k.finalize_decode(o2, l2) -
+                       decode_k.finalize_decode(o1, l1)).abs().max())
+    if not (torch.equal(m1, m2) and err_split <= 1e-5
+            and bool(torch.isfinite(o2).all())):
+        raise AssertionError(f"paged_decode v2 split {splits}: max |out - "
+                             f"unsplit| {err_split:.3g} (atol 1e-5), m equal "
+                             f"{torch.equal(m1, m2)}")
+    out["decode_splits"] = splits
+    out["decode_split_err"] = err_split
+    print(f"check paged_decode: v2 unsplit bit-equal to paged_decode_fwd on "
+          f"both rails; split into {splits} runs (FA-2) vs unsplit: max "
+          f"|out err| {err_split:.3g} (atol 1e-5), m equal")
+    q, kp, vp, pt, start, kvl = cases["paged_prefill"][0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    qa = hfa_k.dyadic_bf16(q.shape, gen, "cuda", bound=0.5)
+    ka = hfa_k.dyadic_bf16(kp.shape, gen, "cuda", bound=0.5)
+    live = torch.tensor(cases["paged_prefill"][1], device="cuda")
+    mask = live[:, None, None].expand(q.shape[:4])
+    for rail in ("fa2", "hfa"):
+        use_hfa = rail == "hfa"
+        assert cuda_lib.paged_prefill_route(qa, ka, pt) == "tc"
+        res = [fn(qa, ka, vp, pt, start, kvl, use_hfa=use_hfa)
+               for fn in (pp.paged_prefill_partial, _prefill_simt)]
+        torch.cuda.synchronize()
+        o_tc, o_simt = (decode_k.finalize_decode(o, l, use_hfa=use_hfa)[mask]
+                        for o, _, l in res)
+        err = float((o_tc - o_simt).abs().max())
+        same_m = torch.equal(res[0][1][mask], res[1][1][mask])
+        if not (err <= 1e-5 and same_m):
+            raise AssertionError(f"paged_prefill tc [{rail}] on the dyadic "
+                                 f"grid: max |out - CUDA-core| {err:.3g} "
+                                 f"(atol 1e-5), m equal {same_m}")
+        out[f"prefill_dyadic_{rail}_err"] = err
+        print(f"check paged_prefill [{rail}]: tensor cores vs CUDA cores on "
+              f"the dyadic grid: max |out err| {err:.3g} (atol 1e-5), m "
+              f"equal")
+    return out
+
+
 def check_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
+    cases = kernel_cases(gen)
+    exact = _check_paged_exact(cases)
     rows = []
-    for name, (args, live, base, limit) in kernel_cases(gen).items():
-        mod = MODULES[name]
-        wrapper = getattr(mod, f"{name}_partial")
-        plain = getattr(mod, f"{name}_partial_plain")
-        entry = {"name": name, "route": "cuda", "source": SRC,
-                 "replaces": REPLACES[name]}
+    measured = {}                 # kind -> (bound, bound_by, library_ms)
+    for row_name, (name, src, _, kname) in PAGED_ROWS.items():
+        args, live, base, limit = cases[name]
+        wrapper, plain = _paged_fns(row_name)
+        entry = {"name": row_name, "route": "cuda", "source": src,
+                 "replaces": REPLACES[row_name]}
         for rail in ("fa2", "hfa"):
             use_hfa = rail == "hfa"
             ko, km, kl = wrapper(*args, use_hfa=use_hfa)
@@ -361,30 +491,197 @@ def check_kernels() -> list[dict]:
             if not (torch.isfinite(kout[mask]).all() and err <= ATOL_OUT[rail]
                     and err_m <= ATOL_M):
                 raise AssertionError(
-                    f"{name}[{rail}] disagrees with its plain version: "
+                    f"{row_name}[{rail}] disagrees with its plain version: "
                     f"max |out| err {err:.3g} (atol {ATOL_OUT[rail]}), "
                     f"max |m| err {err_m:.3g} (atol {ATOL_M})")
-            ms = timed(lambda: wrapper(*args, use_hfa=use_hfa))
+
+            def call(use_hfa=use_hfa):
+                return wrapper(*args, use_hfa=use_hfa)
+            ms = timed(call)
+            dev_ms = device_ms(call, kname)
             plain_ms = timed(lambda: plain(*args, use_hfa=use_hfa), reps=5,
                              inner=2)
             if rail == "fa2":
-                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+                entry.update(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             device_ms=dev_ms)
             entry[f"{rail}_ms"] = ms
+            entry[f"{rail}_device_ms"] = dev_ms
             entry[f"{rail}_plain_ms"] = plain_ms
             entry[f"{rail}_max_abs_err"] = err
         entry["max_abs_err"] = max(entry["fa2_max_abs_err"],
                                    entry["hfa_max_abs_err"])
-        entry["bound_ms"], entry["bound_by"] = _bound(args, live, base, limit)
-        entry["library_ms"] = timed(_sdpa(args, name))
-        print(f"kernel {name}: kernel_ms fa2 {entry['fa2_ms']:.4f} hfa "
-              f"{entry['hfa_ms']:.4f} | plain_ms fa2 "
-              f"{entry['fa2_plain_ms']:.4f} hfa {entry['hfa_plain_ms']:.4f} | "
-              f"library_ms {entry['library_ms']:.4f} | bound_ms "
+        if name not in measured:
+            lib = _sdpa(args, name)
+            measured[name] = (*_bound(args, live, base, limit), timed(lib),
+                              device_ms(lib))
+        (entry["bound_ms"], entry["bound_by"], entry["library_ms"],
+         entry["library_device_ms"]) = measured[name]
+        if row_name == "paged_decode":
+            entry.update(splits=exact["decode_splits"],
+                         split_err=exact["decode_split_err"])
+        if row_name == "paged_prefill":
+            entry.update(dyadic_err_fa2=exact["prefill_dyadic_fa2_err"],
+                         dyadic_err_hfa=exact["prefill_dyadic_hfa_err"])
+        print(f"kernel {row_name} ({src.rsplit('/', 1)[1]}): kernel_ms fa2 "
+              f"{entry['fa2_ms']:.4f} hfa {entry['hfa_ms']:.4f} (device "
+              f"{entry['fa2_device_ms']:.4f} / {entry['hfa_device_ms']:.4f}) "
+              f"| plain_ms fa2 {entry['fa2_plain_ms']:.4f} hfa "
+              f"{entry['hfa_plain_ms']:.4f} | library_ms "
+              f"{entry['library_ms']:.4f} (SDPA; device "
+              f"{entry['library_device_ms']:.4f}) | bound_ms "
               f"{entry['bound_ms']:.4f} ({entry['bound_by']}) | max_abs_err "
               f"fa2 {entry['fa2_max_abs_err']:.3g} hfa "
               f"{entry['hfa_max_abs_err']:.3g}")
         rows.append(entry)
     return rows
+
+
+# Head dims every kernel takes beside 64 and 128, each with the G of a
+# model that has it: 96 is hfa-paper-mini's d_head (32 query heads over
+# 32 KV heads, G 1); 32 at G 2.
+HEAD_DIM_CASES = {96: 1, 32: 2}
+
+
+def _paged_err(out, want, live, use_hfa):
+    """Max |finalized output| and |m| errors over the live rows."""
+    (ko, km, kl), (po, pm, pl_) = out, want
+    mask = live.expand(km.shape)
+    k = decode_k.finalize_decode(ko, kl, use_hfa=use_hfa)[mask]
+    w = decode_k.finalize_decode(po, pl_, use_hfa=use_hfa)[mask]
+    if not bool(torch.isfinite(k).all()):
+        return float("inf"), float("inf")
+    return float((k - w).abs().max()), float((km[mask] - pm[mask]).abs().max())
+
+
+def check_head_dims() -> None:
+    """Every kernel at d 96 and d 32 on the card against its plain version
+    (the tolerances of the main-shape checks): the paged decode (v2 and
+    the CUDA-core kernel), prefill (at these widths the CUDA-core route)
+    and verify, bf16 and f32 pools, both rails; the dense forward on both
+    rails, bf16 (the tensor-core kernel on inputs zero-padded to 128 /
+    64) and f32 (the CUDA cores); the FA-2 backward with a bf16 (tensor
+    cores, padded) and an f32 (CUDA cores) cotangent; the dense decode;
+    the LNS datapath bit for bit on exact scores."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def i32(a):
+        return torch.tensor(a, dtype=torch.int32, device="cuda")
+
+    for d, g in HEAD_DIM_CASES.items():
+        worst = {}
+
+        def hold(name, err, tol):
+            worst[name] = max(worst.get(name, 0.0), err)
+            if not err <= tol:
+                raise AssertionError(f"d {d}: {name} differs from its plain "
+                                     f"version by {err:.3g} (atol {tol})")
+        b, hkv, page, j = 3, 4, 16, 16
+        pt = torch.tensor(np.random.default_rng(d).permutation(b * j + 4)[
+            :b * j].reshape(b, j), dtype=torch.int32, device="cuda")
+        kvl, start, chunk = [200, 0, 77], [160, 0, 60], [40, 0, 17]
+        for dtype in (torch.bfloat16, torch.float32):
+            kp, vp = (rnd(b * j + 4, page, hkv, d, dtype=dtype)
+                      for _ in range(2))
+            q4, q5 = rnd(b, hkv, g, d, dtype=dtype), rnd(b, hkv, g, 40, d,
+                                                         dtype=dtype)
+            live1 = torch.tensor([True, False, True],
+                                 device="cuda")[:, None, None]
+            live = (torch.arange(40, device="cuda")[None] <
+                    i32(chunk)[:, None])[:, None, None]
+            for rail in ("fa2", "hfa"):
+                use_hfa = rail == "hfa"
+                dec = (q4, kp, vp, pt, i32(kvl))
+                want = pd.paged_decode_partial_plain(*dec, use_hfa=use_hfa)
+                for name, fn in (("paged_decode", pd.paged_decode_partial),
+                                 ("paged_decode_simt",
+                                  pd.paged_decode_partial_simt)):
+                    e, em = _paged_err(fn(*dec, use_hfa=use_hfa), want,
+                                       live1, use_hfa)
+                    hold(name, e, ATOL_OUT[rail])
+                    hold(name + " m", em, ATOL_M)
+                pre = (q5, kp, vp, pt, i32(start),
+                       i32(start) + i32(chunk))
+                e, em = _paged_err(
+                    pp.paged_prefill_partial(*pre, use_hfa=use_hfa),
+                    pp.paged_prefill_partial_plain(*pre, use_hfa=use_hfa),
+                    live, use_hfa)
+                hold("paged_prefill_simt", e, ATOL_OUT[rail])
+                hold("paged_prefill_simt m", em, ATOL_M)
+                ver = (q5[:, :, :, :5].contiguous(), kp, vp, pt,
+                       i32([150, 0, 60]), i32([5, 0, 3]))
+                vlive = (torch.arange(5, device="cuda")[None] <
+                         i32([5, 0, 3])[:, None])[:, None, None]
+                e, em = _paged_err(
+                    pv.paged_verify_partial(*ver, use_hfa=use_hfa),
+                    pv.paged_verify_partial_plain(*ver, use_hfa=use_hfa),
+                    vlive, use_hfa)
+                hold("paged_verify", e, ATOL_OUT[rail])
+                hold("paged_verify m", em, ATOL_M)
+            # Dense forward, both rails.
+            bh, ell = 4, 300
+            q, k, v = (rnd(bh, ell, d, dtype=dtype) for _ in range(3))
+            fwd0 = dict(cuda_lib.dense_fwd_launches)
+            ko, klse = fa2_k.fa2_forward(q, k, v, causal=True,
+                                         return_lse=True)
+            po, plse = fa2_k.fa2_forward_plain(q, k, v, causal=True)
+            hold("fa2_fwd", float((ko - po).abs().max()), ATOL_FA2_FWD)
+            hold("fa2_fwd lse", float((klse - plse).abs().max()),
+                 ATOL_FA2_FWD)
+            qa, ka = (hfa_k.dyadic_bf16((bh, ell, d), gen, "cuda",
+                                        bound=0.5).to(dtype)
+                      for _ in range(2))
+            hold("hfa_fwd (dyadic)",
+                 float((hfa_k.hfa_forward(qa, ka, v, causal=True) -
+                        hfa_k.hfa_forward_plain(qa, ka, v, causal=True))
+                       .abs().max()), ATOL_HFA_FWD)
+            route = "tc" if dtype == torch.bfloat16 else "simt"
+            if cuda_lib.dense_fwd_launches[route] != fwd0[route] + 2:
+                raise AssertionError(f"d {d}: the {dtype} dense forwards "
+                                     f"went to {cuda_lib.dense_fwd_launches}")
+            # FA-2 backward, both routes.
+            for do in (rnd(bh, ell, d), rnd(bh, ell, d, dtype=torch.float32)):
+                if dtype == torch.float32 and do.dtype == torch.bfloat16:
+                    continue
+                got = fa2_bwd.fa2_backward(q, k, v, ko, do, klse,
+                                           causal=True)
+                delta = torch.sum(do.float() * ko, dim=-1)
+                want = fa2_bwd.fa2_backward_plain(q, k, v, do, klse, delta,
+                                                  causal=True)
+                for name, gt, w in zip(("dq", "dk", "dv"), got, want):
+                    rel = float((gt.float() - w).abs().max() /
+                                w.abs().max())
+                    bound = REL_BWD if dtype == torch.bfloat16 else 1e-4
+                    hold(f"fa2_bwd {name} ({do.dtype} do, rel)", rel, bound)
+            # Dense decode on a ring read in place.
+            ring_k, ring_v = (rnd(b, 300, hkv, d, dtype=dtype)
+                              for _ in range(2))
+            dq_ = rnd(b, hkv, g, d, dtype=dtype)
+            for rail in ("fa2", "hfa"):
+                use_hfa = rail == "hfa"
+                args = (dq_, ring_k.transpose(1, 2), ring_v.transpose(1, 2))
+                (ko_, _, kl_), (po_, _, pl__) = (
+                    f(*args, kv_len=250, use_hfa=use_hfa) for f in (
+                        decode_k.decode_partial,
+                        decode_k.decode_partial_plain))
+                hold(f"dense_decode [{rail}]", float((
+                    decode_k.finalize_decode(ko_, kl_, use_hfa=use_hfa) -
+                    decode_k.finalize_decode(po_, pl__, use_hfa=use_hfa))
+                    .abs().max()), ATOL_DEC[rail])
+            # LNS datapath, exact scores: bit for bit.
+            qa, ka = (hfa_k.dyadic_bf16((2, 64, d), gen, "cuda").to(dtype)
+                      for _ in range(2))
+            va = rnd(2, 64, d, dtype=dtype)
+            got = dp_k.hfa_datapath(qa, ka, va, causal=True)
+            want = dp_k.hfa_datapath_plain(qa, ka, va, causal=True)
+            hold("hfa_datapath (bits differing)", float(
+                (got.view(torch.int16) != want.view(torch.int16)).sum()), 0)
+        torch.cuda.synchronize()
+        print(f"check head dim {d} (G {g}; bf16 and f32, both rails): every "
+              "kernel within its tolerance of its plain version; worst "
+              + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()))
 
 
 # The training shape of qwen3-1.7b at global batch 4 x seq 2048: 16 query
@@ -1068,8 +1365,7 @@ def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
                 "fp", cfg.n_kv_heads, cfg.d_head, torch.bfloat16):
             raise AssertionError(f"pool holds {kv_bytes} B per token")
         reqs = workload(cfg.vocab_size)
-        for mod in MODULES.values():
-            mod.launches = 0
+        _reset_paged_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         done = []
@@ -1083,7 +1379,7 @@ def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
             step += 1
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {n: m.launches for n, m in MODULES.items()}
+        launches = _paged_counts()
     finally:
         for meth in originals:
             model.__dict__.pop(meth, None)
@@ -1097,8 +1393,31 @@ def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
                      "stats": dict(eng.stats)}, wall
 
 
+def _reset_paged_counters() -> None:
+    for mod in MODULES.values():
+        mod.launches = 0
+    for routes in cuda_lib.paged_launches.values():
+        for r in routes:
+            routes[r] = 0
+
+
+def _paged_counts() -> dict:
+    """Launches of each paged row since the last reset."""
+    return {row: (MODULES[kind].launches if key is None else
+                  cuda_lib.paged_launches[key[0]][key[1]])
+            for row, (kind, _, key, _) in PAGED_ROWS.items()}
+
+
+def _agreement(a: dict, b: dict) -> str:
+    """Tokens and whole streams two engine runs agree on."""
+    agree = sum(int(x == y) for rid in a for x, y in zip(a[rid], b[rid]))
+    total = sum(len(t) for t in a.values())
+    same = sum(a[rid] == b[rid] for rid in a)
+    return f"{agree}/{total} tokens, {same}/{len(a)} whole streams"
+
+
 def check_engine() -> dict:
-    totals = {n: 0 for n in MODULES}
+    totals = {n: 0 for n in PAGED_ROWS}
     for rail in ("fa2", "hfa"):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
         t0 = time.perf_counter()
@@ -1114,12 +1433,17 @@ def check_engine() -> dict:
             streams, info, wall = run_engine(model, spec_k)
             runs[spec_k] = streams
             la = info["launches"]
+            # bf16 pools at d 128, page 16: every prefill on the tensor
+            # cores and every decode on v2, none on the CUDA-core kernels
+            # (spec_k 4 decodes through verify).
             need = ["paged_prefill",
                     "paged_decode" if spec_k == 0 else "paged_verify"]
-            if any(la[n] <= 0 for n in need):
-                raise AssertionError(f"[{rail} spec_k={spec_k}] a kernel of "
-                                     f"the path never launched: {la}")
-            for n in MODULES:
+            if any(la[n] <= 0 for n in need) or la["paged_prefill_simt"] \
+                    or la["paged_decode_simt"]:
+                raise AssertionError(f"[{rail} spec_k={spec_k}] launches "
+                                     f"{la}: need {need} > 0 and none on "
+                                     "the CUDA-core prefill or decode")
+            for n in PAGED_ROWS:
                 totals[n] += la[n]
             st = info["stats"]
             print(f"engine [{rail} spec_k={spec_k}]: wall {wall:.3f} s, "
@@ -1129,12 +1453,23 @@ def check_engine() -> dict:
                   f"{st['cached_prefill_tokens']} cached, drafts "
                   f"{st['draft_accepted']}/{st['draft_tokens']}, launches "
                   f"{la}")
-        agree = sum(int(a == b) for rid in runs[0]
-                    for a, b in zip(runs[0][rid], runs[4][rid]))
-        total = sum(len(t) for t in runs[0].values())
-        same = sum(runs[0][rid] == runs[4][rid] for rid in runs[0])
         print(f"engine [{rail}]: spec_k=4 vs spec_k=0 streams agree on "
-              f"{agree}/{total} tokens, {same}/{len(runs[0])} whole streams")
+              f"{_agreement(runs[0], runs[4])}")
+        if rail == "fa2":
+            # Witness for the split decode: spec_k 0 again with every
+            # decode walk unsplit (v2 then bit-equal to paged_decode_fwd),
+            # against spec_k 4 (which decodes through verify) and the
+            # split run.  Not counted as a main-path run.
+            rule = cuda_lib.decode_splits
+            cuda_lib.decode_splits = lambda *a: 1
+            try:
+                unsplit, _, wall = run_engine(model, 0)
+            finally:
+                cuda_lib.decode_splits = rule
+            print(f"engine [fa2 spec_k=0, decode unsplit]: wall {wall:.3f} "
+                  f"s; agrees with spec_k=4 on {_agreement(unsplit, runs[4])}"
+                  f", with the split spec_k=0 run on "
+                  f"{_agreement(unsplit, runs[0])}")
         del model
         torch.cuda.empty_cache()
     return totals
@@ -1497,18 +1832,35 @@ def main() -> int:
     cuda_lib.build(force=True)
     cuda_lib.library()
     print(f"build: nvcc sm_90a {time.perf_counter() - t0:.1f} s")
+    # Each kernel's registers and spills under its (mangled) name, and
+    # every ptxas warning (C7513 / C7512: wgmma serialized).
+    name = ""
     for line in cuda_lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            print("ptxas:", line.strip())
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+        elif "registers" in line or "spill" in line:
+            print("ptxas:", name, line.strip())
+        elif "warning" in line.lower() or "C75" in line:
+            print("ptxas warning:", name, line.strip())
     rows = []
     if "kernels" in phases:
         check_rail()
         check_lns()
         rows = check_kernels() + check_dense_kernels() + [
             check_decode_kernel(), check_datapath_kernel()]
+        check_head_dims()
         print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     if "reference" in phases:
+        _reset_paged_counters()
         check_small_reference()
+        paged = _paged_counts()
+        if paged["paged_prefill_simt"] <= 0 or paged["paged_prefill"] \
+                or paged["paged_decode"] <= 0 or paged["paged_decode_simt"]:
+            raise AssertionError(f"reference: the reduced f32 model's paged "
+                                 f"launches {paged}: its prefill must run "
+                                 "on the CUDA cores alone, its decode on v2")
+        print(f"reference: paged launches of the reduced f32 model by route "
+              f"{paged}")
         _reset_dense_counters()
         check_ring_reference()
         check_train_reference()

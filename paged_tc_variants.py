@@ -1,0 +1,198 @@
+"""Where the time of the redesigned paged kernels goes, on one NVIDIA GPU.
+
+  python3 paged_tc_variants.py [variant ...]
+
+Builds variants of ``src/repro_torch/csrc/paged_attention_tc.cu`` - each
+a text edit of the source that removes or changes one part of the work -
+with nvcc into ``build/paged_tc_variants/<variant>/``, and times every
+variant in this one process, on one card, at the kernels-phase shapes of
+``chip_smoke.py`` (prefill: B 2, Hkv 8, G 2, 512-token chunks at 520 and
+1000, d 128, bf16, page 16; decode: B 8, kv up to 2048, split 5 on the
+FA-2 rail and unsplit).  Each time is the best of 5 CUDA-event windows
+of 50 back-to-back launches called straight through ctypes, so the host
+adds no gap.  The variants that remove work give wrong results: they
+exist only to be timed.
+
+  base        the source as it is
+  no_pv       no P V wgmma (the rescale stays)
+  no_s        no S = Q K^T wgmma (the rail runs on zeros)
+  no_rail     no rail: alpha 1, P the raw scores
+  no_rail_pv  neither the rail nor P V
+  ring2       a 2-stage K/V ring (the source has 4)
+  units1      one warpgroup (one query head) a block, 2-stage ring
+  tiles4      the unsplit bf16 decode at G 2 in 4-tile steps (the source
+              takes 8)
+
+Without a card, or without nvcc, it exits non-zero.
+"""
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch.kernels import cuda_lib  # noqa: E402
+
+CSRC = ROOT / "src" / "repro_torch" / "csrc"
+OUT = ROOT / "build" / "paged_tc_variants"
+
+PV = "        pf_issue_pv<D, HFA>(o, ph[j], pl[j], v_addr, j);\n"
+S = "      pf_issue_qk<D>(sc, q_addr, smem_u32(k_s + s * kStage));\n"
+RAIL = ("      pf_rail_stage<HFA>(sc, m, l, alpha, ph, pl, bar->tab, p.scale, key_s, t, "
+        "lim);\n")
+NO_RAIL = """#pragma unroll
+      for (int j = 0; j < kPfPages; ++j) {
+        alpha[j][0] = alpha[j][1] = 1.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          ph[j][q] = pack_bf16(sc[8 * j + 2 * q], sc[8 * j + 2 * q + 1]);
+          pl[j][q] = ph[j][q];
+        }
+      }
+"""
+RING2 = ("constexpr int kPfStages = 4; ", "constexpr int kPfStages = 2; ")
+VARIANTS = {
+    "base": [],
+    "no_pv": [(PV, "")],
+    "no_s": [(S, "")],
+    "no_rail": [(RAIL, NO_RAIL)],
+    "no_rail_pv": [(RAIL, NO_RAIL), (PV, "")],
+    "ring2": [RING2],
+    "units1": [("constexpr int kPfUnits = 2; ", "constexpr int kPfUnits = 1; "),
+               RING2],
+    "tiles4": [("  constexpr int kWideStep = sizeof(T) == 2 ? 8 : 4;",
+                "  constexpr int kWideStep = 4;")],
+}
+
+
+def build(names: list[str]) -> dict:
+    """Build every variant in parallel; returns name -> loaded library."""
+    source = (CSRC / "paged_attention_tc.cu").read_text()
+    nvcc = cuda_lib._nvcc()
+    procs = {}
+    for name in names:
+        text = source
+        for old, new in VARIANTS[name]:
+            if old not in text:
+                raise RuntimeError(f"variant {name}: the source no longer "
+                                   f"holds {old.strip()[:60]!r}")
+            text = text.replace(old, new)
+        d = OUT / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in ("hfa_rail.cuh", "tc_common.cuh"):
+            (d / header).write_text((CSRC / header).read_text())
+        (d / "k.cu").write_text(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
+             str(d / "k.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
+    libs = {}
+    for name, proc in procs.items():
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"variant {name}: nvcc failed:\n{err}")
+        libs[name] = cuda_lib.bind(
+            ctypes.CDLL(str(OUT / name / "lib.so")),
+            ("paged_prefill_fwd_tc", "paged_decode_fwd_v2"))
+    return libs
+
+
+def shapes():
+    """The kernels-phase inputs (seeded) and the launch argument lists."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rng = np.random.default_rng(0)
+    hkv, g, d, page, j = 8, 2, 128, 16, 128
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    def pools(b):
+        n = b * j + 16
+        pt = rng.permutation(n)[:b * j].reshape(b, j)
+        return (rnd(n, page, hkv, d), rnd(n, page, hkv, d),
+                torch.tensor(pt, dtype=torch.int32, device="cuda"))
+
+    def i32(a):
+        return torch.tensor(np.asarray(a, np.int32), device="cuda")
+    kp, vp, pt = pools(2)
+    start = i32([520, 1000])
+    pf = [rnd(2, hkv, g, 512, d), kp, vp, pt, start,
+          start + i32([512, 300])]
+    pf += [torch.empty((2, hkv, g, 512, d), device="cuda")] + [
+        torch.empty((2, hkv, g, 512), device="cuda") for _ in range(2)]
+    kvl = rng.integers(1, 2049, 8)
+    kvl[3], kvl[5] = 0, 2048
+    kp, vp, pt = pools(8)
+    dc = [rnd(8, hkv, g, d), kp, vp, pt, i32(kvl),
+          torch.empty((8, hkv, g, d), device="cuda")] + [
+        torch.empty((8, hkv, g), device="cuda") for _ in range(2)] + [
+        torch.empty(8 * hkv * 5 * g * (d + 2), device="cuda"),
+        torch.zeros(8 * hkv, dtype=torch.int32, device="cuda")]
+    return pf, dc, (hkv, g, d, page, j, pf[1].shape[0])
+
+
+def timed(fn, n: int = 50) -> float:
+    for _ in range(5):
+        if fn() != 0:
+            raise RuntimeError("launch failed")
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        b.synchronize()
+        best = min(best, a.elapsed_time(b) / n)
+    return best
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("paged_tc_variants: no CUDA device", file=sys.stderr)
+        return 1
+    names = sys.argv[1:] or list(VARIANTS)
+    libs = build(names)
+    pf, dc, (hkv, g, d, page, j, n_pages) = shapes()
+    lut = ctypes.cast(cuda_lib._LUT, ctypes.c_void_p)
+    scale = ctypes.c_float(d ** -0.5)
+
+    def ptrs(ts):
+        return [ctypes.c_void_p(t.data_ptr()) for t in ts]
+
+    def stream():
+        return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip()
+    print(card)
+    for name, lib in libs.items():
+        def prefill(hfa, lib=lib):
+            return lib.paged_prefill_fwd_tc(*ptrs(pf), 2, hkv, g, 512, d, j,
+                                            page, n_pages, scale, hfa, lut,
+                                            stream())
+
+        def decode(hfa, splits, lib=lib):
+            return lib.paged_decode_fwd_v2(*ptrs(dc), 8, hkv, g, d, j, page,
+                                           splits, scale, hfa, 1, lut,
+                                           stream())
+        print(f"{name:12s} prefill ms fa2 {timed(lambda: prefill(0)):.4f} "
+              f"hfa {timed(lambda: prefill(1)):.4f} | decode ms fa2 split 5 "
+              f"{timed(lambda: decode(0, 5)):.4f}, unsplit fa2 "
+              f"{timed(lambda: decode(0, 1)):.4f} hfa "
+              f"{timed(lambda: decode(1, 1)):.4f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

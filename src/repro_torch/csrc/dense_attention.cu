@@ -44,11 +44,14 @@
 // running sum l = l alpha + sum p is rounded twice (__fmul_rn,
 // __fadd_rn), as the plain version and the tensor-core kernel round it:
 // on the H-FA rail an FMA's last-bit difference in l can cross a LogDiv
-// rounding boundary and move a row by a rail step.
+// rounding boundary and move a row by a rail step.  D is 32, 64, 96 or
+// 128 (a thread owns D / 16 output columns of a row).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <string.h>
+
+#include <type_traits>
 
 #include "hfa_rail.cuh"
 
@@ -390,7 +393,19 @@ int launch_with_smem(K kernel, dim3 grid, int smem_floats, cudaStream_t s, Args.
 }
 
 bool bad_shape(int BH, int Lq, int Lkv, int D) {
-  return BH <= 0 || BH > 65535 || Lq <= 0 || Lkv <= 0 || (D != 64 && D != 128);
+  return BH <= 0 || BH > 65535 || Lq <= 0 || Lkv <= 0 ||
+         (D != 32 && D != 64 && D != 96 && D != 128);
+}
+
+// Run f.template operator()<D>() for the runtime head dim D (32, 64, 96, 128).
+template <typename F>
+int by_head_dim(int D, F&& f) {
+  switch (D) {
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 96: return f(std::integral_constant<int, 96>());
+    default: return f(std::integral_constant<int, 128>());
+  }
 }
 
 template <typename T, int D>
@@ -442,7 +457,7 @@ extern "C" int dense_attn_fwd(const void* q, const void* k, const void* v, void*
   p.o = static_cast<float*>(o);
   p.lse_out = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return D == 64 ? fwd_t<float, 64>(p, lut, BH, use_hfa, s) : fwd_t<float, 128>(p, lut, BH, use_hfa, s);
+  return by_head_dim(D, [&](auto d) { return fwd_t<float, decltype(d)::value>(p, lut, BH, use_hfa, s); });
 }
 
 // dq (BH, Lq, D) in the input dtype; dout f32, lse and delta (BH, Lq) f32.
@@ -457,8 +472,10 @@ extern "C" int dense_attn_dq(const void* q, const void* k, const void* v, const 
   p.delta = static_cast<const float*>(delta);
   p.dq = dq;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return D == 64 ? dq_t<__nv_bfloat16, 64>(p, BH, s) : dq_t<__nv_bfloat16, 128>(p, BH, s);
-  return D == 64 ? dq_t<float, 64>(p, BH, s) : dq_t<float, 128>(p, BH, s);
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return bf16 ? dq_t<__nv_bfloat16, kD>(p, BH, s) : dq_t<float, kD>(p, BH, s);
+  });
 }
 
 // dk, dv (BH, Lkv, D) in the input dtype.
@@ -474,8 +491,10 @@ extern "C" int dense_attn_dkv(const void* q, const void* k, const void* v, const
   p.dk = dk;
   p.dv = dv;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return D == 64 ? dkv_t<__nv_bfloat16, 64>(p, BH, s) : dkv_t<__nv_bfloat16, 128>(p, BH, s);
-  return D == 64 ? dkv_t<float, 64>(p, BH, s) : dkv_t<float, 128>(p, BH, s);
+  return by_head_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return bf16 ? dkv_t<__nv_bfloat16, kD>(p, BH, s) : dkv_t<float, kD>(p, BH, s);
+  });
 }
 
 // The rail device functions as compiled in this source (hfa_rail.cuh).

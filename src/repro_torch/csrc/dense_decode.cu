@@ -21,6 +21,9 @@
 // (exp, or the FIX16 rail of hfa_rail.cuh: quant_rail then exp2_hfa_rail,
 // scores not rounded to bf16); thread c accumulates output column c over
 // the tile's keys (V rows read coalesced), and l = l * alpha + sum(p).
+// D is 32, 64, 96 or 128: at D 32 four threads share a column (each a
+// quarter of the keys, summed in order at the end), at D 64 two, and at
+// D 96 threads 96 .. 127 own no column.
 //
 // What bounds it: bytes.  One query token per head does 2 flops per K/V
 // byte, far below the card's ridge, so the least time is the live K/V
@@ -59,10 +62,11 @@ template <typename T, int D, bool HFA>
 __global__ void __launch_bounds__(kThreads) dense_decode_kernel(const DecodeParams p,
                                                                 const Lut lut) {
   constexpr int EPL = D / 32;           // row elements per lane (scores)
-  constexpr int NSPLIT = kThreads / D;  // threads per output column
+  constexpr int NSPLIT = kThreads / D;  // threads per output column: 4, 2, 1, 1
   __shared__ float ps[kMaxG][kTile];    // scores, then p
   __shared__ float red[kMaxG];          // tile max, then tile sum of p
-  __shared__ float part[kMaxG][D];      // second key half of o~ (D < kThreads)
+  // o~ of key parts 1 .. NSPLIT - 1 of each column (NSPLIT > 1)
+  __shared__ float part[NSPLIT > 1 ? NSPLIT - 1 : 1][kMaxG][D];
   const int n0 = blockIdx.y, n1 = blockIdx.x;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int G = p.G;
@@ -84,7 +88,10 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(const DecodePara
     l[g] = 0.f;
     acc[g] = 0.f;
   }
+  // Thread t owns column col for keys half, half + NSPLIT, ...; at D 96
+  // threads 96 .. 127 own none.
   const int col = t % D, half = t / D;
+  const bool owner = half < NSPLIT;
   const int limit = min(p.kv_len, p.S);
 
   for (int t0 = 0; t0 < limit; t0 += kTile) {
@@ -148,7 +155,7 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(const DecodePara
     float pv_acc[kMaxG];
 #pragma unroll
     for (int g = 0; g < kMaxG; ++g) pv_acc[g] = 0.f;
-    for (int j = half; j < n; j += NSPLIT) {
+    for (int j = half; owner && j < n; j += NSPLIT) {
       const float vv = to_f32(vg[(t0 + j) * p.ss + col]);
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g) pv_acc[g] = fmaf(g < G ? ps[g][j] : 0.f, vv, pv_acc[g]);
@@ -163,18 +170,21 @@ __global__ void __launch_bounds__(kThreads) dense_decode_kernel(const DecodePara
     }
   }
 
-  if (NSPLIT > 1) {  // D = 64: the two key halves of each column meet
+  if (NSPLIT > 1) {  // D 32 / 64: the key parts of each column meet, in order
     __syncthreads();
-    if (half == 1)
+    if (half >= 1)
 #pragma unroll
       for (int g = 0; g < kMaxG; ++g)
-        if (g < G) part[g][col] = acc[g];
+        if (g < G) part[half - 1][g][col] = acc[g];
     __syncthreads();
-    if (half == 1) return;
+    if (half == 0)
 #pragma unroll
-    for (int g = 0; g < kMaxG; ++g)
-      if (g < G) acc[g] += part[g][col];
+      for (int i = 0; i < NSPLIT - 1; ++i)
+#pragma unroll
+        for (int g = 0; g < kMaxG; ++g)
+          if (g < G) acc[g] += part[i][g][col];
   }
+  if (half != 0) return;
 #pragma unroll
   for (int g = 0; g < kMaxG; ++g) {
     if (g >= G) break;
@@ -194,6 +204,16 @@ int launch(const DecodeParams& p, const Lut& lut, int N0, int use_hfa, cudaStrea
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_d(const DecodeParams& p, const Lut& lut, int N0, int D, int use_hfa, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<T, 32>(p, lut, N0, use_hfa, s);
+    case 64: return launch<T, 64>(p, lut, N0, use_hfa, s);
+    case 96: return launch<T, 96>(p, lut, N0, use_hfa, s);
+    default: return launch<T, 128>(p, lut, N0, use_hfa, s);
+  }
+}
+
 }  // namespace
 
 // q (N0, N1, G, D) contiguous; k and v share the element strides s0, s1
@@ -205,7 +225,7 @@ extern "C" int dense_decode_fwd(const void* q, const void* k, const void* v, voi
                                 long long s1, long long ss, int kv_len, float scale,
                                 int use_hfa, int bf16, const void* lut_host, void* stream) {
   if (N0 <= 0 || N0 > 65535 || N1 <= 0 || G <= 0 || G > kMaxG || S <= 0 ||
-      (D != 64 && D != 128))
+      (D != 32 && D != 64 && D != 96 && D != 128))
     return (int)cudaErrorInvalidValue;
   Lut lut;
   memcpy(&lut, lut_host, sizeof(Lut));
@@ -218,10 +238,8 @@ extern "C" int dense_decode_fwd(const void* q, const void* k, const void* v, voi
   p.N1 = N1; p.G = G; p.S = S; p.kv_len = kv_len;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return D == 64 ? launch<__nv_bfloat16, 64>(p, lut, N0, use_hfa, s)
-                           : launch<__nv_bfloat16, 128>(p, lut, N0, use_hfa, s);
-  return D == 64 ? launch<float, 64>(p, lut, N0, use_hfa, s)
-                 : launch<float, 128>(p, lut, N0, use_hfa, s);
+  return bf16 ? launch_d<__nv_bfloat16>(p, lut, N0, D, use_hfa, s)
+              : launch_d<float>(p, lut, N0, D, use_hfa, s);
 }
 
 // The rail device functions as compiled in this source (hfa_rail.cuh).

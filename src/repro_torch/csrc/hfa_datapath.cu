@@ -126,6 +126,16 @@ int launch(const DatapathParams& p, const Lut& lut, int BH, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_d(const DatapathParams& p, const Lut& lut, int BH, int D, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch<T, 32>(p, lut, BH, s);
+    case 64: return launch<T, 64>(p, lut, BH, s);
+    case 96: return launch<T, 96>(p, lut, BH, s);
+    default: return launch<T, 128>(p, lut, BH, s);
+  }
+}
+
 __global__ void lns_eval_kernel(const int* sa, const float* ra, const int* sb, const float* rb,
                                 const float* x, const int* bits, int* sc, float* rc,
                                 float* quant, int* bsign, float* braw, unsigned short* packed,
@@ -141,11 +151,12 @@ __global__ void lns_eval_kernel(const int* sa, const float* ra, const int* sb, c
 }  // namespace
 
 // out (BH, Lq, D) bf16; q (BH, Lq, D), k and v (BH, Lkv, D) bf16 (bf16 = 1)
-// or f32, contiguous.  Returns the first CUDA error of the launch (0 = ok).
+// or f32, contiguous; D is 32, 64, 96 or 128.  Returns the first CUDA error of the launch (0 = ok).
 extern "C" int hfa_datapath_fwd(const void* q, const void* k, const void* v, void* out, int BH,
                                 int Lq, int Lkv, int D, int kv_len, int q_offset, int causal,
                                 float scale, int bf16, const void* lut_host, void* stream) {
-  if (BH <= 0 || BH > 65535 || Lq <= 0 || Lkv <= 0 || (D != 64 && D != 128))
+  if (BH <= 0 || BH > 65535 || Lq <= 0 || Lkv <= 0 ||
+      (D != 32 && D != 64 && D != 96 && D != 128))
     return (int)cudaErrorInvalidValue;
   Lut lut;
   memcpy(&lut, lut_host, sizeof(Lut));
@@ -155,9 +166,7 @@ extern "C" int hfa_datapath_fwd(const void* q, const void* k, const void* v, voi
   p.Lq = Lq; p.Lkv = Lkv; p.kv_len = kv_len; p.q_offset = q_offset; p.causal = causal;
   p.scale = scale;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return D == 64 ? launch<__nv_bfloat16, 64>(p, lut, BH, s)
-                           : launch<__nv_bfloat16, 128>(p, lut, BH, s);
-  return D == 64 ? launch<float, 64>(p, lut, BH, s) : launch<float, 128>(p, lut, BH, s);
+  return bf16 ? launch_d<__nv_bfloat16>(p, lut, BH, D, s) : launch_d<float>(p, lut, BH, D, s);
 }
 
 // The LNS device functions over n elements, for the bit-equality checks:

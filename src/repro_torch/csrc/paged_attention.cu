@@ -35,9 +35,14 @@
 //
 // What bounds it: the bytes of the live K/V pages (every page is read
 // once per 16-row tile, once per block from device memory and the rest
-// from L2).  This first version uses CUDA cores, plain loads and no
-// split of the page walk across blocks; wgmma, TMA and split-page merges
-// come later.
+// from L2).  It uses CUDA cores, plain loads and no split of the page
+// walk across blocks.  Verify always runs here; decode and bf16 prefill
+// at page 16 run the redesigned kernels of paged_attention_tc.cu
+// (paged_decode_fwd_v2, paged_prefill_fwd_tc), and this body stays for
+// f32 pools, d 32 / 96 and other page sizes (the rule is in
+// kernels/cuda_lib.py).  D is 32, 64, 96 or 128.  The scale is one
+// rounded multiply and l and acc are updated with explicit FMAs, so the
+// v2 decode, which repeats this order, is bit-equal to it.
 //
 // The H-FA rail (quant_rail, exp2_hfa_rail, recip_logdiv) comes from
 // hfa_rail.cuh, bit-equal to the plain torch versions.
@@ -189,7 +194,7 @@ paged_attention_kernel(const Params p, const Lut lut) {
         d2 = fmaf(qr[i + 2], kr[i + 2], d2);
         d3 = fmaf(qr[i + 3], kr[i + 3], d3);
       }
-      const float s = vis ? ((d0 + d1) + (d2 + d3)) * p.scale : kNegInf;
+      const float s = vis ? __fmul_rn((d0 + d1) + (d2 + d3), p.scale) : kNegInf;
       float mx = s;
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -208,7 +213,7 @@ paged_attention_kernel(const Params p, const Lut lut) {
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         ps += __shfl_xor_sync(0xffffffffu, ps, off);
-      l_run[pr] = l_run[pr] * alpha + ps;
+      l_run[pr] = fmaf(l_run[pr], alpha, ps);
       float pvacc[VPL];
 #pragma unroll
       for (int c = 0; c < VPL; ++c) pvacc[c] = 0.f;
@@ -219,7 +224,7 @@ paged_attention_kernel(const Params p, const Lut lut) {
         for (int c = 0; c < VPL; ++c) pvacc[c] = fmaf(pj, v_s[j][c * 16 + kk], pvacc[c]);
       }
 #pragma unroll
-      for (int c = 0; c < VPL; ++c) acc[pr][c] = acc[pr][c] * alpha + pvacc[c];
+      for (int c = 0; c < VPL; ++c) acc[pr][c] = fmaf(acc[pr][c], alpha, pvacc[c]);
       m_run[pr] = m_new;
     }
   }
@@ -251,21 +256,26 @@ void launch_rail(const Params& p, const Lut& lut, int B, int use_hfa, cudaStream
     launch_t<T, D, false>(p, lut, B, s);
 }
 
+template <typename T>
+void launch_d(const Params& p, const Lut& lut, int B, int D, int use_hfa, cudaStream_t s) {
+  switch (D) {
+    case 32: launch_rail<T, 32>(p, lut, B, use_hfa, s); break;
+    case 64: launch_rail<T, 64>(p, lut, B, use_hfa, s); break;
+    case 96: launch_rail<T, 96>(p, lut, B, use_hfa, s); break;
+    default: launch_rail<T, 128>(p, lut, B, use_hfa, s); break;
+  }
+}
+
 int launch(const Params& p, int B, int D, int use_hfa, int bf16, const void* lut_host,
            void* stream) {
   Lut lut;
   memcpy(&lut, lut_host, sizeof(Lut));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (B <= 0 || p.R <= 0 || p.L <= 0 || p.J <= 0 || p.page <= 0 || p.hkv <= 0 ||
-      (D != 64 && D != 128))
+      (D != 32 && D != 64 && D != 96 && D != 128))
     return (int)cudaErrorInvalidValue;
-  if (bf16) {
-    if (D == 64) launch_rail<__nv_bfloat16, 64>(p, lut, B, use_hfa, s);
-    else launch_rail<__nv_bfloat16, 128>(p, lut, B, use_hfa, s);
-  } else {
-    if (D == 64) launch_rail<float, 64>(p, lut, B, use_hfa, s);
-    else launch_rail<float, 128>(p, lut, B, use_hfa, s);
-  }
+  if (bf16) launch_d<__nv_bfloat16>(p, lut, B, D, use_hfa, s);
+  else launch_d<float>(p, lut, B, D, use_hfa, s);
   return (int)cudaGetLastError();
 }
 

@@ -1,0 +1,877 @@
+// Paged chunked prefill on Hopper's tensor cores and paged decode as a
+// bandwidth kernel (sm_90a), on the fa2 rail (exp, float divide later)
+// or the H-FA rail (FIX16 quantized exponentials, hfa_rail.cuh).
+//
+// Replaces two Pallas TPU kernels of the reference package:
+//   src/repro/kernels/paged_prefill.py  _paged_prefill_kernel -> paged_prefill_fwd_tc
+//   src/repro/kernels/paged_decode.py   _paged_decode_kernel  -> paged_decode_fwd_v2
+// Both emit the unnormalized triplet (o~, m, l) per query row, as the
+// CUDA-core body of paged_attention.cu does, which stays for verify, for
+// f32 pools and d 32 / 96 in prefill, and for other page sizes.
+//
+// ---------------------------------------------------------------- prefill
+// What it computes.  A chunk of L positions from start_pos, G query heads
+// per KV head: query row (g, l) of slot b sees KV positions kv <=
+// start_pos[b] + l and kv < kv_lens[b].  As in the reference's page grid
+// axis, the online update runs page by page (16 keys): for each page in
+// order, m_new, alpha, p, l = l alpha + sum p, acc = acc alpha + P V.
+// On the H-FA rail the output depends on where those rescales fall, so
+// they fall exactly there.  A masked key gives p = 0; a page no row of a
+// warpgroup can see is skipped, which is exact (m unchanged, alpha 1, p 0);
+// a row that sees nothing is the neutral triplet (0, NEG_INF, 0).
+//
+// What bounds it.  At the kernels-phase chunks of chip_smoke.py (B 2,
+// Hkv 8, G 2, L 512 at start 520 and 1000, d 128) the least time is the
+// bytes of q, the live pages and the triplet (6.7 us at 3.35 TB/s); the
+// products alone take 6.1 us at the bf16 peak.  What holds this design
+// back is the rail on the CUDA cores: every score of a 64-key stage is
+// scaled, masked and exponentiated by the warpgroup that holds it, with
+// 8 warps an SM to hide the latency of that chain, and the longest walk
+// (1,300 keys) runs 21 stages in one block (paged_tc_variants.py times
+// the parts).
+//
+// Design.  One block of two warpgroups (256 threads) per (slot, kv head,
+// pair of units), where a unit is 64 chunk positions of one query head:
+// at G 2 the block holds both heads of one kv head at the same positions,
+// 128 rows, so every K/V tile feeds all of them and every row of a
+// warpgroup has the same causal limit.  Blocks launch with the latest
+// positions (the longest walks) first.  Q arrives by TMA as one 64-row box
+// per warpgroup from the (B Hkv G, L, D) view of q.  K and V pages arrive
+// by TMA, one (16, 64-column) box per page and column half, from a 3-D
+// tensor map over the pool (D, Hkv, P page) with 128-byte swizzle; the
+// block reads its walk's page ids from the page table into shared memory
+// once, so a refill waits on no load from device memory.  A ring of 4 stages of 64
+// keys (4 pages) keeps the next tiles loading while the current one
+// computes; the last of the 8 warps done with a stage refills it.  Per
+// stage a warpgroup runs S = Q K^T as wgmma m64n64k16 (Q and K from shared
+// memory, K-major); the products of bf16 inputs are exact in f32, so S
+// differs from the reference's f32 dot only in summation order.  Then the
+// rail on the S fragment in registers, page by page in order (each thread
+// holds 2 rows x 4 keys of a page; row max and sum are quad shuffles; a
+// key's mask is one compare with its row's key limit, no branch), and
+// O += P_page V_page as one
+// m64nDk16 wgmma a page with P in registers: exact bf16 on the H-FA rail
+// (every p is g7/128 2^-k), hi + lo bf16 halves on the FA-2 rail (within
+// 2^-18 of p).  O is rescaled by the page's alpha between those wgmmas,
+// on every page (skipping the rescale where every alpha of a warpgroup is
+// exactly 1 was measured slower: the vote costs more than the waits it
+// saves, PERF.md).  l is summed in f32 from the unsplit p and rounded
+// twice, l alpha then + sum p, as the plain version.
+//
+// ----------------------------------------------------------------- decode
+// What it computes.  One query token per slot: the G rows of a (slot, kv
+// head) see kv < kv_lens[b].  It keeps the arithmetic order of the
+// CUDA-core kernel (paged_attention.cu) everywhere: 16-key tiles, each
+// score four interleaved fmaf chains over D then ((d0 + d1) + (d2 + d3))
+// times the scale, max and sum of p as xor butterflies over a tile's 16
+// lanes, P V as an fmaf chain over the tile's 16 keys and then
+// acc = fmaf(acc, alpha, pv), l = fmaf(l, alpha, sum p).  An unsplit walk
+// is therefore bit-equal to paged_decode_fwd on both rails.
+//
+// What bounds it: bytes.  One token does 2 flops per K/V byte; the least
+// time is the live K/V pages over 3.35 TB/s (8.6 us at B 8, Hkv 8, kv up to
+// 2048, d 128, bf16).
+//
+// Design.  Rows sized to G (not 16): a block of 64 G threads, thread
+// (row, key) scoring one key of a 4-tile (64-key) step, so at G 2 all four
+// warps score (the unsplit bf16 walk at G <= 2 takes 8-tile steps with
+// 128 G threads: one block an SM, twice the warps to hide a step's
+// latency).  The per-tile online update then runs in tile order over the
+// step's 4 tiles (the row's prefix max from shared memory), and threads
+// that own output columns apply acc = acc alpha_j + sum_k p v tile by tile.
+// Tiles arrive by cp.async (16 bytes a thread, rows padded by 16 bytes so
+// the score loads hit distinct banks) into a ring of two steps, so the
+// next 32 KB (d 128 bf16) load while a step computes.  On the FA-2 rail
+// the page walk is split across blocks into contiguous runs of tiles, so
+// that the grid fills the card; each split writes its triplet to a
+// workspace, and the last block of a (slot, kv head) to finish (an atomic
+// counter that wraps back to 0 as it counts that block) merges them by
+// Eq. 16: m = max m_s,
+// l = sum l_s exp(m_s - m), o = sum o_s exp(m_s - m), in split order.  A
+// split with no live key is the neutral triplet and merges to no NaN.  The
+// H-FA rail stays unsplit: a split moves the rescale points, and the
+// result would no longer be the reference's walk.
+
+#include <cuda.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+#include <string.h>
+
+#include "hfa_rail.cuh"
+#include "tc_common.cuh"
+
+namespace {
+
+// ================================================================ prefill
+constexpr int kPfRows = 64;                    // chunk positions of a unit (one warpgroup)
+constexpr int kPfPage = 16;                    // keys per page: the rescale step
+constexpr int kPfStageKeys = 64;               // keys per ring stage: 4 pages
+constexpr int kPfPages = kPfStageKeys / kPfPage;
+constexpr int kPfStages = 4;                   // depth of the K/V ring
+constexpr int kPfUnits = 2;                    // warpgroups (units) a block
+constexpr int kPfThreads = 128 * kPfUnits;
+
+struct PfParams {
+  const int* pt;        // (B, J) page ids
+  const int* start;     // (B,) chunk start position
+  const int* kv_lens;   // (B,) positions written
+  float* o;             // (B, Hkv, G, L, D)
+  float* m;             // (B, Hkv, G, L)
+  float* l;             // (B, Hkv, G, L)
+  int L, G, J, hkv, n_units;
+  float scale;
+};
+
+template <int D>
+__host__ __device__ constexpr int pf_stage_bytes() { return kPfStageKeys * D * 2; }
+template <int D>
+__host__ __device__ constexpr int pf_q_bytes() { return kPfRows * D * 2; }
+// 1024 bytes of slack to align the tiles for the 128-byte swizzle, the two
+// warpgroups' Q, the K and V rings, PfBarriers, then the slot's page ids
+// (4 bytes each, up to kPfMaxPages).  At D 128: 161 KB and the ids.
+constexpr int kPfMaxPages = 16384;
+template <int D>
+__host__ __device__ constexpr int pf_smem_bytes(int pages) {
+  return 1024 + kPfUnits * pf_q_bytes<D>() + 2 * kPfStages * pf_stage_bytes<D>() + 256 +
+         4 * pages;
+}
+
+struct PfBarriers {
+  uint64_t full_q;
+  uint64_t full_k[kPfStages], full_v[kPfStages];
+  int released[kPfStages];   // warps done with the stage's tile
+  unsigned tab[32];          // PWL g7 table of exp2_hfa_rail_tab
+};
+static_assert(sizeof(PfBarriers) <= 256, "pf_smem_bytes reserves 256 bytes for PfBarriers");
+static_assert(pf_smem_bytes<128>(kPfMaxPages) <= 232448, "a block may use 227 KB of shared memory");
+
+// One box of 64 columns x 16 rows of a pool's kv head `h` at pool row `row`.
+__device__ __forceinline__ void tma_page(void* dst, const CUtensorMap* map, uint64_t* bar, int col,
+                                         int h, int row) {
+  tma_load(dst, map, bar, col, h, row);   // coordinates {col, h, row}
+}
+
+// Issue the TMA loads of stage i (pages 4 i .. of the slot's walk, those
+// below n_pages; ids from shared memory) into ring slot i % kPfStages.
+template <int D>
+__device__ __forceinline__ void pf_load_stage(uint8_t* k_s, uint8_t* v_s, PfBarriers* bar,
+                                              const CUtensorMap* tm_k, const CUtensorMap* tm_v,
+                                              const int* ptb, int i, int n_pages, int h) {
+  constexpr uint32_t kStage = pf_stage_bytes<D>(), kHalf = kPfStageKeys * 128;
+  constexpr uint32_t kPageBox = kPfPage * 128;
+  const int s = i % kPfStages;
+  const int p0 = kPfPages * i, np = min(kPfPages, n_pages - p0);
+  const uint32_t bytes = (uint32_t)np * kPfPage * D * 2;
+  mbar_expect_tx(&bar->full_k[s], bytes);
+  mbar_expect_tx(&bar->full_v[s], bytes);
+  for (int j = 0; j < np; ++j) {
+    const int row = ptb[p0 + j] * kPfPage;
+    for (int hh = 0; hh < D / kSwzCols; ++hh) {
+      const uint32_t off = s * kStage + hh * kHalf + j * kPageBox;
+      tma_page(k_s + off, tm_k, &bar->full_k[s], hh * kSwzCols, h, row);
+      tma_page(v_s + off, tm_v, &bar->full_v[s], hh * kSwzCols, h, row);
+    }
+  }
+}
+
+// S = Q K^T for one warpgroup's 64 rows against the 64 keys of a stage.
+template <int D>
+__device__ __forceinline__ void pf_issue_qk(float (&sc)[32], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk / 4) * (kPfRows * 128) + (kk % 4) * 32;
+    const uint32_t koff = (kk / 4) * (kPfStageKeys * 128) + (kk % 4) * 32;
+    wgmma_ss_m64n64(sc, sw128_desc(q_addr + off, 16, 1024), sw128_desc(k_addr + koff, 16, 1024),
+                    kk > 0);
+  }
+}
+
+// O += P V for page j of the stage whose V sits at v_addr (MN-major,
+// 64-column halves kPfStageKeys * 128 bytes apart).
+template <int D, bool HFA>
+__device__ __forceinline__ void pf_issue_pv(float (&o)[D / 2], const uint32_t (&ph)[4],
+                                            const uint32_t (&pl)[4], uint32_t v_addr, int j) {
+  const uint64_t db = sw128_desc(v_addr + j * kPfPage * 128, kPfStageKeys * 128, 1024);
+  if constexpr (D == 128) {
+    wgmma_rs_m64n128(o, ph, db);
+    if constexpr (!HFA) wgmma_rs_m64n128(o, pl, db);
+  } else {
+    wgmma_rs_m64n64(o, ph, db);
+    if constexpr (!HFA) wgmma_rs_m64n64(o, pl, db);
+  }
+}
+
+// The rail of a stage's pages on the S fragment, page by page in order:
+// scale, masks, each page's row max, m after each page, alpha, p
+// (packed into the register A fragment of the page's 16 keys: bf16 on
+// H-FA, hi + lo on FA-2) and l.  Row h of this thread sees the keys below
+// lim[h] (its position + 1, clipped to kv_lim and to the warpgroup's walk
+// end): one compare an element, with no branch (nvcc turns && and || into
+// a branch an element, which serializes the exponentials behind it).
+// Pages past the walk end (their smem may be stale) are masked whole, so
+// they leave m unchanged, alpha is exactly 1 and p 0.  The pages' maxima,
+// exponentials and sums are independent of one another, so they are
+// formed together; only m and l are chained page to page.
+//
+// Accumulator fragment of wgmma m64n64 (f32): thread (warp w, lane 4 g + t)
+// holds element e at row 16 w + g + 8 ((e / 2) % 2), column 8 (e / 4) +
+// 2 t + (e % 2).  Page j is elements 8 j .. 8 j + 7; read in that order and
+// packed pairwise they are the A fragment of its 16 keys.
+template <bool HFA>
+__device__ __forceinline__ void pf_rail_stage(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                              float (&alpha)[kPfPages][2],
+                                              uint32_t (&ph)[kPfPages][4],
+                                              uint32_t (&pl)[kPfPages][4], const unsigned* tab,
+                                              float scale, int key_s, int t,
+                                              const int (&lim)[2]) {
+  float mx[kPfPages][2];
+#pragma unroll
+  for (int j = 0; j < kPfPages; ++j) {
+    const int rel[2] = {lim[0] - key_s - j * kPfPage - 2 * t,
+                        lim[1] - key_s - j * kPfPage - 2 * t};
+    mx[j][0] = mx[j][1] = kNegInf;
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int h = (u / 2) % 2;
+      const float x = 8 * (u / 4) + (u % 2) < rel[h] ? __fmul_rn(sc[8 * j + u], scale) : kNegInf;
+      sc[8 * j + u] = x;
+      mx[j][h] = fmaxf(mx[j][h], x);
+    }
+  }
+  float m_new[kPfPages][2], ps[kPfPages][2];
+#pragma unroll
+  for (int j = 0; j < kPfPages; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float prev = j ? m_new[j - 1][h] : m[h];
+      m_new[j][h] = fmaxf(prev, quad_max(mx[j][h]));
+      alpha[j][h] = HFA ? exp2_hfa_rail_tab(quant_rail_int(fminf(prev - m_new[j][h], 0.f)), tab)
+                        : expf(fminf(prev - m_new[j][h], 0.f));
+      ps[j][h] = 0.f;
+    }
+#pragma unroll
+  for (int j = 0; j < kPfPages; ++j) {
+    const int rel[2] = {lim[0] - key_s - j * kPfPage - 2 * t,
+                        lim[1] - key_s - j * kPfPage - 2 * t};
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int h = (u / 2) % 2;
+      const float x = sc[8 * j + u] - m_new[j][h];
+      const float e = HFA ? exp2_hfa_rail_tab(quant_rail_int(x), tab) : expf(x);
+      const bool keep = (8 * (u / 4) + (u % 2) < rel[h]) & (m_new[j][h] != kNegInf);
+      sc[8 * j + u] = keep ? e : 0.f;
+      ps[j][h] += sc[8 * j + u];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < kPfPages; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) ps[j][h] = quad_sum(ps[j][h]);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+#pragma unroll
+    for (int j = 0; j < kPfPages; ++j)   // two roundings a page, as the plain version (no FMA)
+      l[h] = __fadd_rn(__fmul_rn(l[h], alpha[j][h]), ps[j][h]);
+    m[h] = m_new[kPfPages - 1][h];
+  }
+#pragma unroll
+  for (int j = 0; j < kPfPages; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ph[j][q] = pack_bf16(sc[8 * j + 2 * q], sc[8 * j + 2 * q + 1]);
+      if constexpr (!HFA) {
+        const __nv_bfloat162 hb = *reinterpret_cast<const __nv_bfloat162*>(&ph[j][q]);
+        pl[j][q] = pack_bf16(sc[8 * j + 2 * q] - __low2float(hb),
+                             sc[8 * j + 2 * q + 1] - __high2float(hb));
+      }
+    }
+}
+
+template <int D, bool HFA>
+__global__ void __launch_bounds__(kPfThreads, 1)
+    paged_prefill_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
+                            const __grid_constant__ CUtensorMap tm_k,
+                            const __grid_constant__ CUtensorMap tm_v, const PfParams p,
+                            const Lut lut) {
+  constexpr uint32_t kStage = pf_stage_bytes<D>();
+  constexpr int NO = D / 2;                      // O accumulator floats per thread
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* q_s = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                            ~static_cast<uintptr_t>(1023));
+  uint8_t* k_s = q_s + kPfUnits * pf_q_bytes<D>();
+  uint8_t* v_s = k_s + kPfStages * kStage;
+  PfBarriers* bar = reinterpret_cast<PfBarriers*>(v_s + kPfStages * kStage);
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int blk = gridDim.z - 1 - blockIdx.z;    // latest positions (longest walks) first
+  const int start = p.start[b];
+  const int kv_lim = max(0, min(p.kv_lens[b], p.J * kPfPage));
+  // Keys unit u's rows can see: [0, end(u)); its positions are chunk
+  // (u / G) * 64 .. of query head u % G.
+  auto unit_end = [&](int u) {
+    if (u >= p.n_units) return 0;
+    return max(0, min(start + min((u / p.G) * kPfRows + kPfRows, p.L), kv_lim));
+  };
+  int end = 0;
+  for (int w = 0; w < kPfUnits; ++w) end = max(end, unit_end(kPfUnits * blk + w));
+  const int n_pages = (end + kPfPage - 1) / kPfPage;
+  const int n_stages = (n_pages + kPfPages - 1) / kPfPages;
+  // The walk's page ids, read once into shared memory: a refill then
+  // waits on no load from device memory.
+  int* ptb = reinterpret_cast<int*>(bar + 1);
+  for (int j = threadIdx.x; j < n_pages; j += kPfThreads) ptb[j] = p.pt[(size_t)b * p.J + j];
+
+  if (threadIdx.x < 32) bar->tab[threadIdx.x] = pwl_table_word(threadIdx.x, lut);
+  if (threadIdx.x == 0) {
+    mbar_init(&bar->full_q, 1);
+    for (int s = 0; s < kPfStages; ++s) {
+      mbar_init(&bar->full_k[s], 1);
+      mbar_init(&bar->full_v[s], 1);
+      bar->released[s] = 0;
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {   // Q of the block's units, and the first stages into the ring
+    const int nq = min(kPfUnits, p.n_units - kPfUnits * blk);
+    mbar_expect_tx(&bar->full_q, nq * pf_q_bytes<D>());
+    for (int w = 0; w < nq; ++w) {
+      const int u = kPfUnits * blk + w;
+      const int slab = ((b * p.hkv + h) * p.G + u % p.G);
+      for (int hh = 0; hh < D / kSwzCols; ++hh)
+        tma_load(q_s + w * pf_q_bytes<D>() + hh * (kPfRows * 128), &tm_q, &bar->full_q,
+                 hh * kSwzCols, (u / p.G) * kPfRows, slab);
+    }
+    for (int i = 0; i < min(kPfStages, n_stages); ++i)
+      pf_load_stage<D>(k_s, v_s, bar, &tm_k, &tm_v, ptb, i, n_pages, h);
+  }
+
+  const int cw = threadIdx.x / 128;              // warpgroup: unit kPfUnits blk + cw
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int t = lane % 4;
+  const int unit = kPfUnits * blk + cw;
+  const bool active = unit < p.n_units;
+  const int g = active ? unit % p.G : 0;
+  const int l0 = active ? (unit / p.G) * kPfRows : 0;
+  const int my_end = unit_end(unit);
+  const int lrow = l0 + warp * 16 + lane / 4;    // chunk position of elements 0, 1; +8 for 2, 3
+  // Keys below lim[h] are visible to row h of this thread (elements 0, 1
+  // and 2, 3): its position + 1, within kv_lim and the warpgroup's walk.
+  const int lim[2] = {min(start + lrow + 1, my_end), min(start + lrow + 9, my_end)};
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[kPfPages][2], o[NO], sc[32];
+  uint32_t ph[kPfPages][4], pl[kPfPages][4];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  const uint32_t q_addr = smem_u32(q_s + cw * pf_q_bytes<D>());
+  // This warp is done with the stage in slot s; the last of the block's
+  // 4 kPfUnits warps to get there refills the slot with stage `next`.
+  auto release = [&](int s, int next) {
+    if (lane == 0 && atomicAdd(&bar->released[s], 1) == 4 * kPfUnits - 1) {
+      bar->released[s] = 0;
+      if (next < n_stages) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        pf_load_stage<D>(k_s, v_s, bar, &tm_k, &tm_v, ptb, next, n_pages, h);
+      }
+    }
+  };
+  if (active) mbar_wait(&bar->full_q, 0);   // no block exits with a copy in flight
+
+  for (int i = 0; i < n_stages; ++i) {
+    const int s = i % kPfStages;
+    const int parity = (i / kPfStages) & 1;
+    // Every warp waits for every stage, used or not: an early release of a
+    // later round of the same slot would count towards the wrong refill.
+    mbar_wait(&bar->full_k[s], parity);
+    mbar_wait(&bar->full_v[s], parity);
+    const int key_s = i * kPfStageKeys;
+    if (active && key_s < my_end) {              // warpgroup-uniform
+#pragma unroll
+      for (int e = 0; e < 32; ++e) sc[e] = 0.f;
+      fence_regs(sc);
+      wgmma_fence();
+      pf_issue_qk<D>(sc, q_addr, smem_u32(k_s + s * kStage));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      const int n_pg = min(kPfPages, (my_end - key_s + kPfPage - 1) / kPfPage);
+      pf_rail_stage<HFA>(sc, m, l, alpha, ph, pl, bar->tab, p.scale, key_s, t, lim);
+      const uint32_t v_addr = smem_u32(v_s + s * kStage);
+      // O waits for the previous page's P V and is rescaled by this page's
+      // alpha before its own P V, page by page as the plain version.
+#pragma unroll
+      for (int j = 0; j < kPfPages; ++j) {
+        if (j >= n_pg) break;                    // warpgroup-uniform
+        fence_regs(ph[j]);
+        if constexpr (!HFA) fence_regs(pl[j]);
+        wgmma_wait<0>();
+        fence_regs(o);
+#pragma unroll
+        for (int c = 0; c < NO; ++c) o[c] *= alpha[j][(c / 2) % 2];
+        fence_regs(o);
+        wgmma_fence();
+        pf_issue_pv<D, HFA>(o, ph[j], pl[j], v_addr, j);
+        wgmma_commit();
+      }
+      wgmma_wait<0>();
+      fence_regs(o);
+    }
+    release(s, i + kPfStages);
+  }
+
+  if (!active) return;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = lrow + 8 * hr;
+    if (row >= p.L) continue;
+    const size_t r = (((size_t)b * p.hkv + h) * p.G + g) * p.L + row;
+    float* orow = p.o + r * D;
+#pragma unroll
+    for (int nb = 0; nb < D / 8; ++nb)
+      *reinterpret_cast<float2*>(orow + 8 * nb + 2 * t) =
+          make_float2(o[4 * nb + 2 * hr], o[4 * nb + 2 * hr + 1]);
+    if (t == 0) {
+      p.m[r] = m[hr];
+      p.l[r] = l[hr];
+    }
+  }
+}
+
+// The pool (P, page, Hkv, D) bf16 as boxes of 64 columns x 16 rows of one
+// kv head, 128-byte swizzled: dims (D, Hkv, P page).
+inline bool make_pool_map(CUtensorMap* map, const void* base, int rows, int hkv, int D) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)hkv, (cuuint64_t)rows};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2, (cuuint64_t)hkv * D * 2};
+  const cuuint32_t box[3] = {kSwzCols, 1, kPfPage};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool HFA>
+int launch_pf(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+              const PfParams& p, const Lut& lut, int B, cudaStream_t s) {
+  auto kernel = paged_prefill_tc_kernel<D, HFA>;
+  const int bytes = pf_smem_bytes<D>(p.J);
+  static bool ready = false;   // the shared-memory attribute is set
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pf_smem_bytes<D>(kPfMaxPages));
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  const dim3 grid(p.hkv, B, (p.n_units + kPfUnits - 1) / kPfUnits);
+  kernel<<<grid, kPfThreads, bytes, s>>>(mq, mk, mv, p, lut);
+  return (int)cudaGetLastError();
+}
+
+bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0; }
+
+// ================================================================= decode
+constexpr int kDcTile = 16;                    // keys per tile: the rescale step
+constexpr int kDcMaxG = 16;                    // 64 G threads a block
+constexpr int kDcSmallG = 4;                   // G the register-rich variant takes
+
+struct DcParams {
+  const void* q;        // (B, Hkv, G, D)
+  const void* k;        // (P, page, Hkv, D)
+  const void* v;
+  const int* pt;        // (B, J)
+  const int* kv_lens;   // (B,)
+  float* o;             // (B, Hkv, G, D)
+  float* m;             // (B, Hkv, G)
+  float* l;
+  float* ws;            // (B Hkv, splits, G, D + 2) split triplets, splits > 1
+  unsigned* counters;   // (B Hkv) splits finished, 0 between launches
+  int G, J, page, hkv, splits;
+  float scale;
+};
+
+constexpr int kDcRing = 2;                     // steps in the cp.async ring
+
+// TILES: 16-key tiles a compute step takes, 16 TILES G threads a block: 4
+// for the split walk (whose blocks share an SM three at a time), 8 for the
+// unsplit bf16 walk at G <= 2 (one block an SM: twice the keys in flight
+// and twice the warps to hide the step's latency).
+template <typename T, int D, int TILES>
+struct DcLayout {
+  static constexpr int kRow = D * (int)sizeof(T) + 16;     // padded smem row, bytes
+  static constexpr int kTileBytes = kDcTile * kRow;
+  static constexpr int kStep = kDcTile * TILES;            // keys a step
+  static constexpr int kRingBytes = kDcRing * TILES * kTileBytes;   // K or V
+  static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte copies per key row
+  // K ring, V ring, q (f32), p (f32), then per (row, tile) max, alpha, sum.
+  static constexpr int bytes(int G) {
+    return 2 * kRingBytes + G * D * 4 + G * kStep * 4 + 3 * G * TILES * 4;
+  }
+};
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void widen8(const float* p, float* o) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
+}
+// 16 bytes of a padded smem row as f32: 8 bf16 or 4 f32 values.
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* o) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x;
+    o[2 * i + 1] = f.y;
+  }
+}
+__device__ __forceinline__ void widen16(const float* p, float* o) { widen8(p, o); }
+
+__device__ __forceinline__ float dc_f32(float x) { return x; }
+__device__ __forceinline__ float dc_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// MAXT: the block size the registers are budgeted for - 256 threads (up
+// to 255 registers a thread) for G <= 4, 1024 for larger G.
+template <typename T, int D, bool HFA, int MAXT, int TILES>
+__global__ void __launch_bounds__(MAXT) paged_decode_v2_kernel(const DcParams p, const Lut lut) {
+  using Lay = DcLayout<T, D, TILES>;
+  constexpr int kDcStep = Lay::kStep;
+  constexpr int VPE = 16 / (int)sizeof(T);       // values per 16-byte load
+  constexpr int NCOL = (D + 63) / 64;            // output columns a thread owns
+  extern __shared__ __align__(16) uint8_t dc_smem[];
+  uint8_t* k_ring = dc_smem;
+  uint8_t* v_ring = k_ring + Lay::kRingBytes;
+  float* q_s = reinterpret_cast<float*>(v_ring + Lay::kRingBytes);   // [G][D]
+  float* p_s = q_s + p.G * D;                    // [G][16 TILES]
+  float* tmax = p_s + p.G * kDcStep;             // [G][TILES]
+  float* talpha = tmax + p.G * TILES;            // [G][TILES]
+  float* tsum = talpha + p.G * TILES;            // [G][TILES]
+  __shared__ int last_block;
+
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int r = tid / kDcStep, kk = tid % kDcStep;   // (row, key of the step)
+  const int tj = kk / kDcTile, lane16 = kk % kDcTile;
+  const bool owner = kk < 64;   // owns output columns kk, kk + 64 of row r
+  const size_t bh = (size_t)b * p.hkv + h;
+
+  const int n_kv = max(0, min(p.kv_lens[b], p.J * p.page));
+  const int n_tiles = (n_kv + kDcTile - 1) / kDcTile;
+  const int per = (n_tiles + p.splits - 1) / p.splits;
+  const int t_begin = min(sp * per, n_tiles), t_end = min(t_begin + per, n_tiles);
+  const int n_steps = (t_end - t_begin + TILES - 1) / TILES;
+
+  const T* qg = static_cast<const T*>(p.q) + bh * p.G * D;
+  for (int i = tid; i < p.G * D; i += nthreads) q_s[i] = dc_f32(qg[i]);
+
+  const T* kpool = static_cast<const T*>(p.k);
+  const T* vpool = static_cast<const T*>(p.v);
+  const int* ptb = p.pt + (size_t)b * p.J;
+  const uint32_t k_base = smem_u32(k_ring), v_base = smem_u32(v_ring);
+  // cp.async of the tiles of step st into ring slot st % kDcRing; keys at
+  // or past n_kv are zero-filled (their p is 0, and 0 * 0 adds nothing).
+  auto load_step = [&](int st) {
+    const int tile0 = t_begin + st * TILES;
+    const int nt = min(TILES, t_end - tile0);
+    const uint32_t slot = (uint32_t)(st % kDcRing) * TILES * Lay::kTileBytes;
+    for (int idx = tid; idx < nt * kDcTile * Lay::kChunks; idx += nthreads) {
+      const int key = idx / Lay::kChunks, c = idx % Lay::kChunks;
+      const int kv = tile0 * kDcTile + key;
+      const bool live = kv < n_kv;
+      const size_t row = live ? (size_t)ptb[kv / p.page] * p.page + kv % p.page : 0;
+      const size_t off = (row * p.hkv + h) * D + c * VPE;
+      const uint32_t dst = slot + key * Lay::kRow + c * 16;
+      cp_async16(k_base + dst, kpool + off, live ? 16 : 0);
+      cp_async16(v_base + dst, vpool + off, live ? 16 : 0);
+    }
+  };
+
+  float m_run = kNegInf, l_run = 0.f, acc[NCOL];
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c) acc[c] = 0.f;
+  const float* qr = q_s + r * D;
+  __syncthreads();   // q_s written
+
+#pragma unroll
+  for (int st = 0; st < kDcRing - 1; ++st) {
+    if (st < n_steps) load_step(st);
+    cp_async_commit();
+  }
+  for (int st = 0; st < n_steps; ++st) {
+    if (st + kDcRing - 1 < n_steps) load_step(st + kDcRing - 1);   // the slot step st-1 freed
+    cp_async_commit();
+    cp_async_wait<kDcRing - 1>();
+    __syncthreads();   // step st has landed
+    const int tile0 = t_begin + st * TILES;
+    const int nt = min(TILES, t_end - tile0);
+    const uint32_t slot = (uint32_t)(st % kDcRing) * TILES * Lay::kTileBytes;
+    // Scores: thread (r, kk) takes key kk of the step, as the CUDA-core
+    // kernel's lane does (four interleaved chains over D).
+    const int kv = (tile0 + tj) * kDcTile + lane16;
+    const bool vis = tj < nt && kv < n_kv;
+    const T* kr = reinterpret_cast<const T*>(k_ring + slot + kk * Lay::kRow);
+    float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+#pragma unroll
+    for (int i = 0; i < D; i += VPE) {
+      float kf[VPE], qf[VPE];
+      widen16(kr + i, kf);
+#pragma unroll
+      for (int u = 0; u < VPE; u += 4) widen8(qr + i + u, qf + u);
+#pragma unroll
+      for (int u = 0; u < VPE; u += 4) {
+        d0 = fmaf(qf[u], kf[u], d0);
+        d1 = fmaf(qf[u + 1], kf[u + 1], d1);
+        d2 = fmaf(qf[u + 2], kf[u + 2], d2);
+        d3 = fmaf(qf[u + 3], kf[u + 3], d3);
+      }
+    }
+    const float s = vis ? __fmul_rn((d0 + d1) + (d2 + d3), p.scale) : kNegInf;
+    float mx = s;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    if (lane16 == 0) tmax[r * TILES + tj] = mx;
+    __syncthreads();
+    // The row's running max through the step's tiles, in order; this
+    // thread's tile takes m before it and m_new after it.
+    float m_prev = m_run, m_new = m_run;
+    for (int j = 0; j < nt; ++j) {
+      m_prev = m_new;
+      m_new = fmaxf(m_prev, tmax[r * TILES + j]);
+      if (j == tj) break;
+    }
+    float alpha, pv;
+    if (HFA) {
+      alpha = exp2_hfa_rail(quant_rail(fminf(m_prev - m_new, 0.f)), lut);
+      pv = exp2_hfa_rail(quant_rail(s - m_new), lut);
+    } else {
+      alpha = expf(fminf(m_prev - m_new, 0.f));
+      pv = expf(s - m_new);
+    }
+    pv = (vis && m_new != kNegInf) ? pv : 0.f;
+    float ps = pv;
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+    p_s[r * kDcStep + kk] = pv;
+    if (lane16 == 0 && tj < nt) {
+      talpha[r * TILES + tj] = alpha;
+      tsum[r * TILES + tj] = ps;
+    }
+    __syncthreads();
+    // Each tile's sum_k p v (an fmaf chain over its 16 keys; the tiles'
+    // chains are independent), then tile by tile acc = acc alpha_j + that
+    // sum, l = l alpha_j + sum p; m after the step's last tile.  Threads
+    // (row, kk) own output columns kk, kk + 64 of the row.
+    const float* pr = p_s + r * kDcStep;
+    float pvacc[TILES][NCOL];
+#pragma unroll
+    for (int j = 0; j < TILES; ++j) {
+      const T* vt = reinterpret_cast<const T*>(v_ring + slot + j * Lay::kTileBytes);
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) {
+        pvacc[j][c] = 0.f;
+        const int col = kk + 64 * c;
+        if (owner && j < nt && col < D) {
+#pragma unroll
+          for (int key = 0; key < kDcTile; ++key)
+            pvacc[j][c] = fmaf(pr[j * kDcTile + key],
+                               dc_f32(vt[key * (Lay::kRow / (int)sizeof(T)) + col]), pvacc[j][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < TILES; ++j) {
+      if (j >= nt) break;
+      const float a = talpha[r * TILES + j];
+#pragma unroll
+      for (int c = 0; c < NCOL; ++c) acc[c] = fmaf(acc[c], a, pvacc[j][c]);
+      l_run = fmaf(l_run, a, tsum[r * TILES + j]);
+      m_run = fmaxf(m_run, tmax[r * TILES + j]);
+    }
+    __syncthreads();   // step st consumed before its slot is refilled
+  }
+  cp_async_wait<0>();
+
+  const size_t row = bh * p.G + r;
+  if (p.splits == 1) {
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c)
+      if (owner && kk + 64 * c < D) p.o[row * D + kk + 64 * c] = acc[c];
+    if (kk == 0) {
+      p.m[row] = m_run;
+      p.l[row] = l_run;
+    }
+    return;
+  }
+  // Split walk: this block's triplet to the workspace; the last block of
+  // the (slot, kv head) merges all of them.
+  float* wsr = p.ws + ((bh * p.splits + sp) * p.G + r) * (D + 2);
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c)
+    if (owner && kk + 64 * c < D) wsr[kk + 64 * c] = acc[c];
+  if (kk == 0) {
+    wsr[D] = m_run;
+    wsr[D + 1] = l_run;
+  }
+  __threadfence();
+  __syncthreads();
+  // atomicInc wraps at splits - 1: the last block reads splits - 1 and
+  // leaves the counter at 0 for the next launch, with no reset to order.
+  if (tid == 0) last_block = atomicInc(&p.counters[bh], p.splits - 1) == p.splits - 1;
+  __syncthreads();
+  if (!last_block) return;
+  __threadfence();
+  const float* wsb = p.ws + bh * p.splits * p.G * (D + 2);
+  float mm = kNegInf;
+  for (int s2 = 0; s2 < p.splits; ++s2)
+    mm = fmaxf(mm, __ldcg(wsb + (s2 * p.G + r) * (D + 2) + D));
+  float ll = 0.f, oo[NCOL];
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c) oo[c] = 0.f;
+  for (int s2 = 0; s2 < p.splits; ++s2) {
+    const float* w = wsb + (s2 * p.G + r) * (D + 2);
+    const float f = expf(fminf(__ldcg(w + D) - mm, 0.f));
+    ll = fmaf(__ldcg(w + D + 1), f, ll);
+#pragma unroll
+    for (int c = 0; c < NCOL; ++c)
+      if (owner && kk + 64 * c < D) oo[c] = fmaf(__ldcg(w + kk + 64 * c), f, oo[c]);
+  }
+#pragma unroll
+  for (int c = 0; c < NCOL; ++c)
+    if (owner && kk + 64 * c < D) p.o[row * D + kk + 64 * c] = oo[c];
+  if (kk == 0) {
+    p.m[row] = mm;
+    p.l[row] = ll;
+  }
+}
+
+template <typename T, int D, bool HFA, int MAXT, int TILES>
+int launch_dc(const DcParams& p, const Lut& lut, int B, cudaStream_t s) {
+  using Lay = DcLayout<T, D, TILES>;
+  auto kernel = paged_decode_v2_kernel<T, D, HFA, MAXT, TILES>;
+  const int bytes = Lay::bytes(p.G);
+  static bool ready = false;   // the shared-memory attribute is set
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::bytes(MAXT / Lay::kStep));
+    if (err != cudaSuccess) return (int)err;
+    ready = true;
+  }
+  kernel<<<dim3(p.splits, p.hkv, B), Lay::kStep * p.G, bytes, s>>>(p, lut);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_dc_rail(const DcParams& p, const Lut& lut, int B, int use_hfa, cudaStream_t s) {
+  constexpr int kSmall = 64 * kDcSmallG, kWide = 64 * kDcMaxG;
+  if (p.G > kDcSmallG)
+    return use_hfa ? launch_dc<T, D, true, kWide, 4>(p, lut, B, s)
+                   : launch_dc<T, D, false, kWide, 4>(p, lut, B, s);
+  // The unsplit bf16 walk at G <= 2 takes 8-tile steps (f32 rows would
+  // not fit twice the ring).
+  constexpr int kWideStep = sizeof(T) == 2 ? 8 : 4;
+  if (p.splits == 1 && p.G <= 2)
+    return use_hfa ? launch_dc<T, D, true, kSmall, kWideStep>(p, lut, B, s)
+                   : launch_dc<T, D, false, kSmall, kWideStep>(p, lut, B, s);
+  return use_hfa ? launch_dc<T, D, true, kSmall, 4>(p, lut, B, s)
+                 : launch_dc<T, D, false, kSmall, 4>(p, lut, B, s);
+}
+
+template <typename T>
+int launch_dc_d(const DcParams& p, const Lut& lut, int B, int D, int use_hfa, cudaStream_t s) {
+  switch (D) {
+    case 32: return launch_dc_rail<T, 32>(p, lut, B, use_hfa, s);
+    case 64: return launch_dc_rail<T, 64>(p, lut, B, use_hfa, s);
+    case 96: return launch_dc_rail<T, 96>(p, lut, B, use_hfa, s);
+    default: return launch_dc_rail<T, 128>(p, lut, B, use_hfa, s);
+  }
+}
+
+static_assert(DcLayout<float, 128, 4>::bytes(kDcMaxG) <= 232448, "227 KB a block");
+static_assert(DcLayout<__nv_bfloat16, 128, 8>::bytes(2) <= 232448, "227 KB a block");
+
+}  // namespace
+
+// Each entry point returns the first CUDA error of its launch (0 = ok).
+//
+// q (B, Hkv, G, L, D) bf16; pools (P, page, Hkv, D) bf16, page 16; all
+// 16-byte aligned and contiguous; D is 64 or 128.  o (B, Hkv, G, L, D), m
+// and l (B, Hkv, G, L) f32.
+extern "C" int paged_prefill_fwd_tc(const void* q, const void* k, const void* v, const void* pt,
+                                    const void* start_pos, const void* kv_lens, void* o, void* m,
+                                    void* l, int B, int hkv, int G, int L, int D, int J, int page,
+                                    int num_pages, float scale, int use_hfa, const void* lut_host,
+                                    void* stream) {
+  const int n_units = G * ((L + kPfRows - 1) / kPfRows);
+  if (B <= 0 || B > 65535 || hkv <= 0 || G <= 0 || L <= 0 || J <= 0 || num_pages <= 0 ||
+      page != kPfPage || J > kPfMaxPages || (D != 64 && D != 128) || (n_units + kPfUnits - 1) / kPfUnits > 65535 ||
+      !aligned16(q) ||
+      !aligned16(k) || !aligned16(v))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B * hkv * G, L, D, kPfRows) ||
+      !make_pool_map(&mk, k, num_pages * page, hkv, D) ||
+      !make_pool_map(&mv, v, num_pages * page, hkv, D))
+    return (int)cudaErrorInvalidValue;
+  Lut lut;
+  memcpy(&lut, lut_host, sizeof(Lut));
+  PfParams p;
+  p.pt = static_cast<const int*>(pt);
+  p.start = static_cast<const int*>(start_pos);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.o = static_cast<float*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.L = L; p.G = G; p.J = J; p.hkv = hkv; p.n_units = n_units;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D == 64)
+    return use_hfa ? launch_pf<64, true>(mq, mk, mv, p, lut, B, s)
+                   : launch_pf<64, false>(mq, mk, mv, p, lut, B, s);
+  return use_hfa ? launch_pf<128, true>(mq, mk, mv, p, lut, B, s)
+                 : launch_pf<128, false>(mq, mk, mv, p, lut, B, s);
+}
+
+// q (B, Hkv, G, D); pools (P, page, Hkv, D), bf16 (bf16 = 1) or f32,
+// contiguous; D is 32, 64, 96 or 128; G <= 16.  splits > 1 (FA-2 rail
+// only) splits each walk into that many runs of 16-key tiles, with ws
+// (B Hkv splits G (D + 2) f32) and counters (B Hkv uint32, zero, and left
+// zero) for the merge; launches that share counters run one at a time (one
+// stream).  o (B, Hkv, G, D), m and l (B, Hkv, G) f32.
+extern "C" int paged_decode_fwd_v2(const void* q, const void* k, const void* v, const void* pt,
+                                   const void* kv_lens, void* o, void* m, void* l, void* ws,
+                                   void* counters, int B, int hkv, int G, int D, int J, int page,
+                                   int splits, float scale, int use_hfa, int bf16,
+                                   const void* lut_host, void* stream) {
+  if (B <= 0 || B > 65535 || hkv <= 0 || hkv > 65535 || G <= 0 || G > kDcMaxG || J <= 0 ||
+      page <= 0 || splits <= 0 || (D != 32 && D != 64 && D != 96 && D != 128) ||
+      (splits > 1 && (use_hfa || ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Lut lut;
+  memcpy(&lut, lut_host, sizeof(Lut));
+  DcParams p;
+  p.q = q; p.k = k; p.v = v;
+  p.pt = static_cast<const int*>(pt);
+  p.kv_lens = static_cast<const int*>(kv_lens);
+  p.o = static_cast<float*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<unsigned*>(counters);
+  p.G = G; p.J = J; p.page = page; p.hkv = hkv; p.splits = splits;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_dc_d<__nv_bfloat16>(p, lut, B, D, use_hfa, s)
+              : launch_dc_d<float>(p, lut, B, D, use_hfa, s);
+}

@@ -1,7 +1,7 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``paged_attention.cu``,
-``dense_attention.cu``, ``dense_attention_tc.cu``,
+``paged_attention_tc.cu``, ``dense_attention.cu``, ``dense_attention_tc.cu``,
 ``dense_attention_bwd_tc.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``,
 and the headers ``hfa_rail.cuh``, ``lns_rail.cuh`` and ``tc_common.cuh``
 they share) is
@@ -60,11 +60,59 @@ dense_fwd_launches = {"tc": 0, "simt": 0}
 # Rows a block of the tensor-core backward owns (dq: query rows, dk/dv:
 # key rows); its grid takes at most 65535 such blocks.
 DENSE_BWD_TC_ROWS = 128
+# Head dims every kernel takes; the tensor-core sources take TC_HEAD_DIMS
+# and the wrappers zero-pad 32 and 96 up to them (fa2.pad_head_dim).
+HEAD_DIMS = (32, 64, 96, 128)
+TC_HEAD_DIMS = (64, 128)
+# Page size the tensor-core paged prefill takes (its rescale step), and
+# the widest page table (it holds a slot's page ids in shared memory).
+PAGED_TC_PAGE = 16
+PAGED_TC_MAX_PAGES = 16384
+# Query heads per KV head the v2 paged decode takes (64 G threads a block).
+PAGED_DECODE_MAX_G = 16
+# Launches of the paged kernels by route.  prefill: "tc" the tensor-core
+# kernel (paged_prefill_fwd_tc), "simt" the CUDA-core one
+# (paged_prefill_fwd); decode: "v2" paged_decode_fwd_v2, "simt"
+# paged_decode_fwd (launched only by the checks).
+paged_launches = {"prefill": {"tc": 0, "simt": 0},
+                  "decode": {"v2": 0, "simt": 0}}
 # Launches of the FA-2 backward by kernel: "tc" the tensor-core kernels
 # (bf16 inputs and cotangent), "simt" the CUDA-core ones (an f32
 # cotangent).
 dense_dq_launches = {"tc": 0, "simt": 0}
 dense_dkv_launches = {"tc": 0, "simt": 0}
+
+
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+# Argument types of every C entry point; each returns its first CUDA error.
+SIGNATURES = {
+    "paged_decode_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P, _P],
+    "paged_prefill_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "paged_verify_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "paged_prefill_fwd_tc": [_P] * 9 + [_I] * 8 + [_F, _I, _P, _P],
+    "paged_decode_fwd_v2": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "dense_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P],
+    "dense_attn_fwd_tc": [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P],
+    "dense_attn_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
+    "dense_attn_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
+    "dense_attn_dq_tc": [_P] * 7 + [_I] * 7 + [_F, _P],
+    "dense_attn_dkv_tc": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "dense_decode_fwd": [_P] * 6 + [_I] * 5 + [_L] * 3 + [
+        _I, _F, _I, _I, _P, _P],
+    "hfa_datapath_fwd": [_P] * 4 + [_I] * 7 + [_F, _I, _P, _P],
+    "lns_eval": [_P] * 12 + [_I, _P, _P],
+    **{name: [_P] * 4 + [_I, _P, _P] for name in RAIL_ENTRIES.values()},
+}
+
+
+def bind(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Set the argument and result types of the entry points ``names``
+    (default: all of :data:`SIGNATURES`) on ``lib``; returns ``lib``."""
+    for name in names or SIGNATURES:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _nvcc() -> str:
@@ -130,36 +178,7 @@ def library() -> ctypes.CDLL:
             raise RuntimeError("no CUDA device: the attention kernels run "
                                "only on the card")
         lib = ctypes.CDLL(str(build()))
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.paged_decode_fwd.argtypes = [ptr] * 8 + [i32] * 6 + [
-            f32, i32, i32, ptr, ptr]
-        for name in ("paged_prefill_fwd", "paged_verify_fwd"):
-            getattr(lib, name).argtypes = [ptr] * 9 + [i32] * 7 + [
-                f32, i32, i32, ptr, ptr]
-        for name in RAIL_ENTRIES.values():
-            getattr(lib, name).argtypes = [ptr] * 4 + [i32, ptr, ptr]
-        lib.dense_attn_fwd.argtypes = [ptr] * 5 + [i32] * 7 + [
-            f32, i32, ptr, ptr]
-        lib.dense_attn_fwd_tc.argtypes = [ptr] * 6 + [i32] * 7 + [
-            f32, i32, ptr, ptr]
-        lib.dense_attn_dq.argtypes = [ptr] * 7 + [i32] * 7 + [f32, i32, ptr]
-        lib.dense_attn_dkv.argtypes = [ptr] * 8 + [i32] * 7 + [f32, i32, ptr]
-        lib.dense_attn_dq_tc.argtypes = [ptr] * 7 + [i32] * 7 + [f32, ptr]
-        lib.dense_attn_dkv_tc.argtypes = [ptr] * 8 + [i32] * 7 + [f32, ptr]
-        i64 = ctypes.c_longlong
-        lib.dense_decode_fwd.argtypes = [ptr] * 6 + [i32] * 5 + [i64] * 3 + [
-            i32, f32, i32, i32, ptr, ptr]
-        lib.hfa_datapath_fwd.argtypes = [ptr] * 4 + [i32] * 7 + [
-            f32, i32, ptr, ptr]
-        lib.lns_eval.argtypes = [ptr] * 12 + [i32, ptr, ptr]
-        for name in ("paged_decode_fwd", "paged_prefill_fwd",
-                     "paged_verify_fwd", "dense_attn_fwd",
-                     "dense_attn_fwd_tc", "dense_attn_dq",
-                     "dense_attn_dkv", "dense_attn_dq_tc", "dense_attn_dkv_tc",
-                     "dense_decode_fwd", "hfa_datapath_fwd",
-                     "lns_eval", *RAIL_ENTRIES.values()):
-            getattr(lib, name).restype = ctypes.c_int
-        _lib = lib
+        _lib = bind(lib)
     return _lib
 
 
@@ -181,25 +200,21 @@ def _require(cond: bool, msg: str) -> None:
         raise ValueError(msg)
 
 
-def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
-                 v_pages: torch.Tensor, page_table: torch.Tensor,
-                 lens_a: torch.Tensor, lens_b: torch.Tensor | None, *,
-                 scale: float, use_hfa: bool):
-    """Launch one paged attention entry point on the current stream.
+def _check_head_dim(entry: str, d: int) -> None:
+    _require(d in HEAD_DIMS, f"{entry}: head dim {d} not in {HEAD_DIMS}")
 
-    q: (B, Hkv, G, L, d) in the pools' dtype; returns the f32 triplet
-    o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).
-    """
-    b, hkv, g, ell, d = q.shape
-    tensors = [q, k_pages, v_pages, page_table, lens_a] + (
-        [] if lens_b is None else [lens_b])
+
+def _check_paged(entry, q, k_pages, v_pages, page_table, lens):
+    b, hkv = q.shape[:2]
+    d = q.shape[-1]
+    tensors = [q, k_pages, v_pages, page_table, *lens]
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              f"{entry}: every tensor must be on the same CUDA device")
     _require(q.dtype in (torch.bfloat16, torch.float32)
              and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
              f"{entry}: q and pools must share a dtype in (bf16, f32), got "
              f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
-    _require(d in (64, 128), f"{entry}: head dim {d} not in (64, 128)")
+    _check_head_dim(entry, d)
     _require(k_pages.dim() == 4 and k_pages.shape == v_pages.shape
              and k_pages.shape[2] == hkv and k_pages.shape[3] == d,
              f"{entry}: pools {tuple(k_pages.shape)} do not match q "
@@ -210,9 +225,31 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
              f"{entry}: page table and lengths must be int32")
     _require(all(t.is_contiguous() for t in tensors),
              f"{entry}: every tensor must be contiguous")
-    o = torch.empty((b, hkv, g, ell, d), dtype=torch.float32, device=q.device)
-    m = torch.empty((b, hkv, g, ell), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, hkv, g, ell), dtype=torch.float32, device=q.device)
+
+
+def _triplet(q, lead):
+    """Empty f32 (o~, m, l) for query rows ``lead`` = q.shape[:-1]."""
+    o = torch.empty((*lead, q.shape[-1]), dtype=torch.float32,
+                    device=q.device)
+    m = torch.empty(lead, dtype=torch.float32, device=q.device)
+    return o, m, torch.empty_like(m)
+
+
+def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
+                 v_pages: torch.Tensor, page_table: torch.Tensor,
+                 lens_a: torch.Tensor, lens_b: torch.Tensor | None, *,
+                 scale: float, use_hfa: bool):
+    """Launch one entry point of the CUDA-core paged kernel
+    (``paged_attention.cu``) on the current stream.
+
+    q: (B, Hkv, G, L, d) in the pools' dtype; returns the f32 triplet
+    o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).  Decode and prefill
+    launches are counted in :data:`paged_launches` as "simt".
+    """
+    b, hkv, g, ell, d = q.shape
+    lens = [lens_a] + ([] if lens_b is None else [lens_b])
+    _check_paged(entry, q, k_pages, v_pages, page_table, lens)
+    o, m, l = _triplet(q, q.shape[:-1])
     if o.numel() == 0:
         return o, m, l
     lib = library()
@@ -226,6 +263,120 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
                               int(use_hfa), int(q.dtype == torch.bfloat16),
                               ctypes.cast(_LUT, ctypes.c_void_p), _stream())
     check(err, entry)
+    kind = {"paged_decode_fwd": "decode", "paged_prefill_fwd": "prefill"}
+    if entry in kind:
+        paged_launches[kind[entry]]["simt"] += 1
+    return o, m, l
+
+
+def paged_prefill_route(q: torch.Tensor, k_pages: torch.Tensor,
+                        page_table: torch.Tensor) -> str:
+    """Which kernel takes a paged prefill: "tc" (``paged_prefill_fwd_tc``,
+    the tensor cores) for bf16 pools at d 64 or 128, page 16 and at most
+    :data:`PAGED_TC_MAX_PAGES` pages a slot; "simt" (``paged_prefill_fwd``,
+    the CUDA cores) for everything else - f32 pools, d 32 or 96, other
+    page sizes."""
+    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+            and k_pages.shape[1] == PAGED_TC_PAGE
+            and page_table.shape[1] <= PAGED_TC_MAX_PAGES):
+        return "tc"
+    return "simt"
+
+
+def launch_paged_prefill(q, k_pages, v_pages, page_table, start_pos,
+                         kv_lens, *, scale: float, use_hfa: bool):
+    """Paged chunked prefill on the current stream, on the kernel
+    :func:`paged_prefill_route` picks; counted in :data:`paged_launches`.
+    q (B, Hkv, G, L, d); returns the f32 triplet o~ (B, Hkv, G, L, d), m
+    and l (B, Hkv, G, L)."""
+    if paged_prefill_route(q, k_pages, page_table) == "simt":
+        return launch_paged("paged_prefill_fwd", q, k_pages, v_pages,
+                            page_table, start_pos, kv_lens, scale=scale,
+                            use_hfa=use_hfa)
+    entry = "paged_prefill_fwd_tc"
+    _check_paged(entry, q, k_pages, v_pages, page_table,
+                 [start_pos, kv_lens])
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k_pages, v_pages)),
+             f"{entry}: q and the pools must be 16-byte aligned (TMA)")
+    b, hkv, g, ell, d = q.shape
+    o, m, l = _triplet(q, q.shape[:-1])
+    if o.numel() == 0:
+        return o, m, l
+    err = library().paged_prefill_fwd_tc(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
+        _ptr(start_pos), _ptr(kv_lens), _ptr(o), _ptr(m), _ptr(l), b, hkv,
+        g, ell, d, page_table.shape[1], k_pages.shape[1], k_pages.shape[0],
+        ctypes.c_float(scale), int(use_hfa),
+        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, entry)
+    paged_launches["prefill"]["tc"] += 1
+    return o, m, l
+
+
+# (device, stream) -> the v2 decode's split counters: launches on one
+# stream run in order, so no two share a counter at once.
+_counters: dict = {}
+_sm_count: dict = {}      # device -> streaming multiprocessors
+
+
+def decode_splits(q: torch.Tensor, page_table: torch.Tensor, page: int,
+                  use_hfa: bool) -> int:
+    """Runs of the page walk the v2 decode splits each (slot, kv head)
+    into: on the FA-2 rail enough for two blocks per SM, at most one run
+    per 64-key step of the longest walk; 1 on the H-FA rail, whose
+    result depends on where the rescales fall."""
+    if use_hfa:
+        return 1
+    dev = q.device
+    if dev not in _sm_count:
+        _sm_count[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    pairs = q.shape[0] * q.shape[1]
+    steps = -(-page_table.shape[1] * page // 64)
+    return max(1, min(-(-2 * _sm_count[dev] // pairs), steps))
+
+
+def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
+                        scale: float, use_hfa: bool,
+                        splits: int | None = None):
+    """Paged decode on the current stream through ``paged_decode_fwd_v2``
+    (counted in :data:`paged_launches` as "v2").  q (B, Hkv, G, d);
+    returns the f32 triplet o~ (B, Hkv, G, d), m and l (B, Hkv, G).
+    ``splits`` (default :func:`decode_splits`) > 1 splits each page walk
+    across blocks, FA-2 rail only; 1 is the unsplit walk."""
+    entry = "paged_decode_fwd_v2"
+    _check_paged(entry, q, k_pages, v_pages, page_table, [kv_lens])
+    b, hkv, g, d = q.shape
+    _require(1 <= g <= PAGED_DECODE_MAX_G,
+             f"{entry}: {g} query heads per KV head, the kernel takes "
+             f"1..{PAGED_DECODE_MAX_G}")
+    page = k_pages.shape[1]
+    if splits is None:
+        splits = decode_splits(q, page_table, page, use_hfa)
+    _require(splits >= 1 and not (use_hfa and splits > 1),
+             f"{entry}: {splits} splits (the H-FA rail runs unsplit)")
+    o, m, l = _triplet(q, q.shape[:-1])
+    if o.numel() == 0:
+        return o, m, l
+    ws = counters = None
+    if splits > 1:
+        ws = torch.empty(b * hkv * splits * g * (d + 2), dtype=torch.float32,
+                         device=q.device)
+        key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
+        cnt = _counters.get(key)
+        if cnt is None or cnt.numel() < b * hkv:
+            cnt = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
+            _counters[key] = cnt
+        counters = _ptr(cnt)
+        ws = _ptr(ws)
+    err = library().paged_decode_fwd_v2(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
+        _ptr(kv_lens), _ptr(o), _ptr(m), _ptr(l), ws, counters, b, hkv, g,
+        d, page_table.shape[1], page, splits, ctypes.c_float(scale),
+        int(use_hfa), int(q.dtype == torch.bfloat16),
+        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+    check(err, entry)
+    paged_launches["decode"]["v2"] += 1
     return o, m, l
 
 
@@ -241,8 +392,7 @@ def _check_dense(entry: str, q, k, v, *extra) -> None:
              and k.shape[0] == q.shape[0] and k.shape[2] == q.shape[2],
              f"{entry}: shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v "
              f"{tuple(v.shape)} are not (BH, Lq, d) / (BH, Lkv, d)")
-    _require(q.shape[2] in (64, 128),
-             f"{entry}: head dim {q.shape[2]} not in (64, 128)")
+    _check_head_dim(entry, q.shape[2])
     _require(all(t.is_contiguous() for t in tensors),
              f"{entry}: every tensor must be contiguous")
 
@@ -304,6 +454,9 @@ def launch_dense_fwd_scores(q, k, v, *, causal: bool, scale: float,
 
 
 def _check_tc(q, k, v) -> None:
+    _require(q.shape[2] in TC_HEAD_DIMS,
+             f"dense_attn_fwd_tc: head dim {q.shape[2]} not in "
+             f"{TC_HEAD_DIMS} (fa2.pad_head_dim pads 32 and 96)")
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
              "dense_attn_fwd_tc: q, k, v must be 16-byte aligned (TMA)")
     _require(-(-q.shape[1] // DENSE_TC_ROWS) <= 65535,
@@ -353,6 +506,9 @@ def _tc_bwd_inputs(entry, q, k, v, do, lse, delta):
     bf16 q, k, v and do, f32 lse and delta, every one 16-byte aligned
     (TMA), and a grid within range."""
     ptrs = _bwd_inputs(entry, q, k, v, do, lse, delta, torch.bfloat16)
+    _require(q.shape[2] in TC_HEAD_DIMS,
+             f"{entry}: head dim {q.shape[2]} not in {TC_HEAD_DIMS} "
+             f"(fa2.pad_head_dim pads 32 and 96)")
     _require(q.dtype == torch.bfloat16,
              f"{entry}: q, k, v must be bf16 (f32 goes to the CUDA cores)")
     _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v, do, lse, delta)),
@@ -431,8 +587,7 @@ def launch_dense_decode(q, k, v, *, scale: float, kv_len: int,
              f"{entry}: q {tuple(q.shape)} and k/v {tuple(k.shape)} are not "
              f"(..., G, d) / (..., S, d) with shared strides and a "
              f"contiguous last dim")
-    _require(q.shape[-1] in (64, 128),
-             f"{entry}: head dim {q.shape[-1]} not in (64, 128)")
+    _check_head_dim(entry, q.shape[-1])
     _require(1 <= q.shape[-2] <= DECODE_MAX_G,
              f"{entry}: {q.shape[-2]} query heads per KV head, the kernel "
              f"takes 1..{DECODE_MAX_G}")

@@ -13,7 +13,9 @@ training lengths the card's arithmetic bounds it, not its memory.  The
 tensor-core kernel forms S = QKᵀ with wgmma from TMA-loaded bf16 tiles
 (products exact in f32) and P·V as two wgmmas, on p split into bf16
 hi + lo (within 2^-16 of p); tiles above the diagonal and past
-``kv_len`` are skipped.
+``kv_len`` are skipped.  It takes d 64 and 128; bf16 inputs at d 32 and
+96 are zero-padded to the next of those (:func:`pad_head_dim`), which
+is exact, and the output is sliced back.
 """
 from __future__ import annotations
 
@@ -30,6 +32,24 @@ def _defaults(q, k, scale, kv_len, q_offset):
     return ((1.0 / d ** 0.5) if scale is None else scale,
             lkv if kv_len is None else int(kv_len),
             (lkv - lq) if q_offset is None else int(q_offset))
+
+
+def pad_head_dim(*ts: torch.Tensor) -> tuple[torch.Tensor, ...]:
+    """Zero-pad the head dim (the last) of each tensor to the next width
+    the tensor-core kernels take (64 or 128); a width they take comes
+    back as it is.  Exact on both rails, forward and backward: the zero
+    columns add exact zeros to every score q.k and to do.v, so scores,
+    every partial sum of P V, LSE, delta, dq, dk and dv keep their
+    values, and the padded columns of O, dq, dk and dv are zero.  The
+    caller passes the scale of the true d and slices the outputs back.
+    Raises on a width the kernels do not take."""
+    d = ts[0].shape[-1]
+    if d not in cuda_lib.HEAD_DIMS:
+        raise ValueError(f"head dim {d} not in {cuda_lib.HEAD_DIMS}")
+    width = next(w for w in cuda_lib.TC_HEAD_DIMS if w >= d)
+    if width == d:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, width - d)) for t in ts)
 
 
 def fa2_forward_plain(q, k, v, *, causal=False, scale=None, block_kv=128,
@@ -89,9 +109,13 @@ def fa2_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     elif q.device.type == "cuda":
         global launches
         scale, kv_len, q_offset = _defaults(q, k, scale, kv_len, q_offset)
+        d = q.shape[-1]
+        if q.dtype == torch.bfloat16:
+            q, k, v = pad_head_dim(q, k, v)
         out, lse = cuda_lib.launch_dense_fwd(
             q, k, v, causal=causal, scale=scale, kv_len=kv_len,
             q_offset=q_offset, use_hfa=False)
+        out = out[..., :d].contiguous()
         launches += 1
     else:
         raise ValueError(f"fa2_forward: no kernel for {q.device}")

@@ -14,7 +14,9 @@ picks the kernels, with no fallback between them:
   bf16 attention output) go to the tensor-core kernels of
   ``csrc/dense_attention_bwd_tc.cu`` (``dense_attn_dq_tc``,
   ``dense_attn_dkv_tc``: wgmma with TMA-fed tiles, P and dS into their
-  products as bf16), which raise on what they cannot take;
+  products as bf16; d 32 and 96 zero-padded to 64 and 128, q, k, v and
+  ``do`` alike, by ``fa2.pad_head_dim``, exactly, and dq, dk, dv sliced
+  back), which raise on what they cannot take;
 * an f32 ``do`` (the reduced f32 model, or bf16 inputs with an f32
   cotangent) goes to the CUDA-core kernels of ``csrc/dense_attention.cu``
   (``dense_attn_dq``, ``dense_attn_dkv``, f32 throughout); a bf16 ``do``
@@ -31,7 +33,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.fa2 import _defaults
+from repro_torch.kernels.fa2 import _defaults, pad_head_dim
 
 launches_dq = 0
 launches_dkv = 0
@@ -84,10 +86,11 @@ def fa2_backward(q, k, v, o, do, lse, *, causal=False, scale=None,
     global launches_dq, launches_dkv
     scale, kv_len, q_offset = _defaults(q, k, scale, kv_len, q_offset)
     kw = dict(causal=causal, scale=scale, kv_len=kv_len, q_offset=q_offset)
+    d = q.shape[-1]
     if q.dtype == torch.bfloat16 and do.dtype == torch.bfloat16:
         launch_dq = cuda_lib.launch_dense_dq_tc
         launch_dkv = cuda_lib.launch_dense_dkv_tc
-        do = do.contiguous()
+        q, k, v, do = pad_head_dim(q, k, v, do.contiguous())
     else:
         launch_dq = cuda_lib.launch_dense_dq
         launch_dkv = cuda_lib.launch_dense_dkv
@@ -96,4 +99,4 @@ def fa2_backward(q, k, v, o, do, lse, *, causal=False, scale=None,
     launches_dq += 1
     dk, dv = launch_dkv(q, k, v, do, lse, delta, **kw)
     launches_dkv += 1
-    return dq, dk, dv
+    return tuple(t[..., :d].contiguous() for t in (dq, dk, dv))

@@ -9,7 +9,8 @@ P·V accumulated in f32, the ``recip_logdiv`` finalize, no LSE.  On a
 CUDA tensor it launches a hand-written kernel on the H-FA rail (count
 in :data:`launches`); on a CPU tensor it runs the tile oracle
 :func:`repro_torch.kernels.ref.ref_hfa_mxu`.  bf16 inputs go to the
-tensor-core kernel of ``csrc/dense_attention_tc.cu`` (wgmma, TMA), f32
+tensor-core kernel of ``csrc/dense_attention_tc.cu`` (wgmma, TMA; d 32
+and 96 zero-padded to 64 and 128 by ``fa2.pad_head_dim``, exactly), f32
 inputs to the CUDA-core kernel of ``csrc/dense_attention.cu``.  Every
 rail value of p is g7/128·2^-k with g7 an integer in [64, 128], exact
 in bf16, so P·V on bf16 tensor cores is exact apart from summation
@@ -39,7 +40,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import cuda_lib
-from repro_torch.kernels.fa2 import _defaults
+from repro_torch.kernels.fa2 import _defaults, pad_head_dim
 from repro_torch.kernels.ref import ref_hfa_mxu, ref_hfa_walk
 
 launches = 0
@@ -74,9 +75,11 @@ def hfa_forward_scores(q, k, v, *, causal=False, scale=None, kv_len=None,
         raise ValueError("hfa_forward_scores: the scores-out kernel takes "
                          f"bf16 CUDA tensors, got {q.dtype} on {q.device}")
     scale, kv_len, q_offset = _defaults(q, k, scale, kv_len, q_offset)
-    return cuda_lib.launch_dense_fwd_scores(q, k, v, causal=causal,
-                                            scale=scale, kv_len=kv_len,
-                                            q_offset=q_offset)
+    d = q.shape[-1]
+    o, scores = cuda_lib.launch_dense_fwd_scores(
+        *pad_head_dim(q, k, v), causal=causal, scale=scale, kv_len=kv_len,
+        q_offset=q_offset)
+    return o[..., :d].contiguous(), scores
 
 
 def score_errors(q, k, s, *, causal=False, scale=None, kv_len=None,
@@ -146,8 +149,11 @@ def hfa_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{block_kv}")
     global launches
     scale, kv_len, q_offset = _defaults(q, k, scale, kv_len, q_offset)
+    d = q.shape[-1]
+    if q.dtype == torch.bfloat16:       # d 32 / 96 padded, exactly
+        q, k, v = pad_head_dim(q, k, v)
     out, _ = cuda_lib.launch_dense_fwd(q, k, v, causal=causal, scale=scale,
                                        kv_len=kv_len, q_offset=q_offset,
                                        use_hfa=True)
     launches += 1
-    return out
+    return out[..., :d].contiguous()

@@ -6,14 +6,20 @@ table ``(B, pages_per_seq)``.
 
 ``paged_decode_partial`` replaces the Pallas kernel
 ``src/repro/kernels/paged_decode.py::_paged_decode_kernel`` (wrapper
-``paged_decode_partial_pallas``).  On a CUDA tensor it launches the
-hand-written kernel in ``csrc/paged_attention.cu`` (entry
-``paged_decode_fwd``) and counts the launch in :data:`launches`; on a
+``paged_decode_partial_pallas``).  On a CUDA tensor it launches
+``paged_decode_fwd_v2`` of ``csrc/paged_attention_tc.cu`` and counts the
+launch in :data:`launches` (and in ``cuda_lib.paged_launches``); on a
 CPU tensor it runs :func:`paged_decode_partial_plain`.  What bounds the
 kernel on the card is the bytes of the live K/V pages it reads (one
 query token per slot does 2 flops per K/V byte, far below the card's
-ridge); the kernel reads each live page once per (slot, kv head) block
-and stops at ``ceil(kv_len / 16)`` tiles, so dead pages cost nothing.
+ridge): it streams them through a cp.async ring, stops at
+``ceil(kv_len / 16)`` tiles, and on the FA-2 rail splits each page walk
+across blocks and merges the parts by Eq. 16 inside the kernel (the H-FA
+rail walks unsplit, as its rescale points must stay where the
+reference's are).  Unsplit, it is bit-equal to the CUDA-core kernel
+``paged_decode_fwd`` of ``csrc/paged_attention.cu``, which
+:func:`paged_decode_partial_simt` launches for the checks;
+``kernels/ref.py::paged_decode_split_model`` models the split walk.
 
 Also here: ``append_kv`` / ``write_prefill_kv`` scatter new K/V through
 the page table, and ``gather_pages`` builds the dense view the plain
@@ -100,11 +106,23 @@ def paged_decode_partial(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_partial: no kernel for {q.device}")
     global launches
+    out = cuda_lib.launch_paged_decode(
+        q, k_pages, v_pages, page_table, kv_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
+    launches += 1
+    return out
+
+
+def paged_decode_partial_simt(q, k_pages, v_pages, page_table, kv_lens, *,
+                              scale=None, use_hfa=False):
+    """For the checks: the same triplet from the CUDA-core kernel
+    ``paged_decode_fwd`` (16-row blocks, one per (slot, kv head), plain
+    loads); counted in ``cuda_lib.paged_launches["decode"]["simt"]``, not
+    in :data:`launches`."""
     o, m, l = cuda_lib.launch_paged(
         "paged_decode_fwd", q[:, :, :, None, :], k_pages, v_pages,
         page_table, kv_lens, None, scale=_default_scale(q.shape[-1], scale),
         use_hfa=use_hfa)
-    launches += 1
     return o[:, :, :, 0], m[..., 0], l[..., 0]
 
 

@@ -8,14 +8,18 @@ which is scattered into the pools first (``write_chunk_kv``).
 
 ``paged_prefill_partial`` replaces the Pallas kernel
 ``src/repro/kernels/paged_prefill.py::_paged_prefill_kernel`` (wrapper
-``paged_prefill_partial_pallas``).  On a CUDA tensor it launches
-``paged_prefill_fwd`` from ``csrc/paged_attention.cu`` and counts it in
-:data:`launches`; on a CPU tensor it runs the plain version.  On the
-card it is bound by the bytes of the live K/V pages it reads and, for
-long chunks, by its f32 arithmetic (G*L rows against every visible
-position); each block takes 16 query rows, so a 512-token chunk spreads
-over many blocks, and each block stops at the last page its rows can
-see under the causal mask.
+``paged_prefill_partial_pallas``).  On a CUDA tensor it launches one of
+two kernels and counts the launch in :data:`launches` (and by route in
+``cuda_lib.paged_launches["prefill"]``); on a CPU tensor it runs the
+plain version.  The rule (``cuda_lib.paged_prefill_route``): bf16 pools
+at d 64 or 128 and page 16 - the serving path - go to
+``paged_prefill_fwd_tc`` of ``csrc/paged_attention_tc.cu`` (wgmma on
+TMA-fed pages, the online update page by page, P as bf16 on the H-FA
+rail and as bf16 hi + lo on the FA-2 rail); everything else (f32 pools,
+d 32 or 96, other page sizes) to the CUDA-core ``paged_prefill_fwd`` of
+``csrc/paged_attention.cu``.  Each block stops at the last page its rows
+can see under the causal mask.  ``kernels/ref.py::paged_prefill_tc_model``
+is a plain model of the tensor-core kernel's numerics, for the tests.
 """
 from __future__ import annotations
 
@@ -58,9 +62,9 @@ def paged_prefill_partial(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_prefill_partial: no kernel for {q.device}")
     global launches
-    out = cuda_lib.launch_paged(
-        "paged_prefill_fwd", q, k_pages, v_pages, page_table, start_pos,
-        kv_lens, scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
+    out = cuda_lib.launch_paged_prefill(
+        q, k_pages, v_pages, page_table, start_pos, kv_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
     launches += 1
     return out
 

@@ -12,6 +12,13 @@
   (the reference's oracle of ``decode_partial_pallas``; no ``kv_len``
   mask).
 * ``ref_hfa_datapath`` - the bit-accurate ``core.hfa`` emulation.
+* ``paged_prefill_tc_model`` - a model of the tensor-core paged
+  prefill's numerics (page by page, P as bf16 or bf16 hi + lo).
+* ``paged_decode_split_model`` - a model of the v2 paged decode's split
+  walk and its Eq. 16 merge.
+
+The last two are for the tests only; the kernels' plain versions stay
+``paged_prefill_partial_plain`` and ``paged_decode_partial_plain``.
 """
 from __future__ import annotations
 
@@ -20,7 +27,8 @@ import torch
 from repro_torch.core import hfa as core_hfa
 from repro_torch.core import reference
 from repro_torch.kernels import bitmath
-from repro_torch.kernels.decode import decode_partial_plain
+from repro_torch.kernels.decode import decode_partial_plain, merge_partials
+from repro_torch.kernels.paged_decode import gather_pages
 
 NEG_INF = -1e30
 
@@ -126,3 +134,95 @@ def ref_hfa_datapath(q, k, v, *, causal=False, scale=None):
     """Oracle of the per-element datapath kernel: the bit-accurate
     ``core.hfa`` emulation, (..., Lq, d) bf16."""
     return core_hfa.hfa_attention(q, k, v, causal=causal, scale=scale)
+
+
+def paged_prefill_tc_model(q, k_pages, v_pages, page_table, start_pos,
+                           kv_lens, *, scale=None, use_hfa=False):
+    """Model of ``paged_prefill_fwd_tc``: the online update one page of
+    the pools at a time, in order (the reference's page grid axis), f32
+    scores and p, l = l alpha + sum p (two roundings), and P V with P in
+    bf16 - exact on the H-FA rail, where every p is g7/128 2^-k - or as
+    bf16 hi + lo on the FA-2 rail: acc = (acc alpha + P_hi V) + P_lo V.
+    q (B, Hkv, G, L, d); masks and returns as ``paged_prefill_partial``."""
+    b, hkv, g, ell, d = q.shape
+    page = k_pages.shape[1]
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    qf = q.to(torch.float32)
+    q_pos = start_pos.to(torch.int32)[:, None] + torch.arange(
+        ell, dtype=torch.int32, device=q.device)[None]          # (B, L)
+    kvl = kv_lens.to(torch.int32)
+    m = torch.full(q.shape[:-1], NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    for j in range(page_table.shape[1]):
+        ids = page_table[:, j].to(torch.int64)
+        kp = k_pages[ids].to(torch.float32).transpose(1, 2)   # (B, Hkv, page, d)
+        vp = v_pages[ids].to(torch.float32).transpose(1, 2)
+        s = torch.einsum("bhgld,bhkd->bhglk", qf, kp) * scale
+        kv = j * page + torch.arange(page, dtype=torch.int32,
+                                     device=q.device)
+        mask = (kv[None, None] <= q_pos[..., None]) & \
+            (kv[None, None] < kvl[:, None, None])
+        mask = mask[:, None, None]                             # (B,1,1,L,page)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        dm = torch.minimum(m - m_new, torch.zeros_like(m))
+        if use_hfa:
+            alpha = bitmath.exp2_hfa_rail(bitmath.quant_rail(dm))
+            p = bitmath.exp2_hfa_rail(bitmath.quant_rail(s - m_new[..., None]))
+        else:
+            alpha = torch.exp(dm)
+            p = torch.exp(s - m_new[..., None])
+        p = torch.where(mask & (m_new != NEG_INF)[..., None], p,
+                        torch.zeros_like(p))
+        l = l * alpha + torch.sum(p, dim=-1)
+        hi = p.to(torch.bfloat16).to(torch.float32)
+        acc = acc * alpha[..., None] + torch.einsum("bhglk,bhkd->bhgld", hi, vp)
+        if not use_hfa:
+            lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+            acc = acc + torch.einsum("bhglk,bhkd->bhgld", lo, vp)
+        m = m_new
+    return acc, m, l
+
+
+DECODE_TILE = 16      # keys per tile of the v2 paged decode
+
+
+def paged_decode_split_model(q, k_pages, v_pages, page_table, kv_lens, *,
+                             splits, scale=None, use_hfa=False):
+    """Model of ``paged_decode_fwd_v2``: slot b's walk of n = ceil(min(
+    kv_lens[b], J page) / 16) tiles of 16 keys is cut into ``splits``
+    contiguous runs of ceil(n / splits) tiles; each run's triplet is the
+    online update tile by tile (``decode_partial_plain`` with 16-key
+    tiles, p in f32); the runs merge by Eq. 16 (``merge_partials``).  A
+    run with no tile is the neutral triplet.  One split is the unsplit
+    walk.  q (B, Hkv, G, d); returns o~ (B, Hkv, G, d), m and l (B, Hkv,
+    G)."""
+    b, hkv, g, d = q.shape
+    j_max = page_table.shape[1] * k_pages.shape[1]
+    kc = gather_pages(k_pages, page_table).transpose(1, 2)    # (B, Hkv, S, d)
+    vc = gather_pages(v_pages, page_table).transpose(1, 2)
+    pad = (-j_max) % DECODE_TILE
+    kc = torch.nn.functional.pad(kc, (0, 0, 0, pad))
+    vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
+    outs = []
+    for bi in range(b):
+        n_kv = max(0, min(int(kv_lens[bi]), j_max))
+        n_tiles = -(-n_kv // DECODE_TILE)
+        per = -(-n_tiles // splits)
+        parts = []
+        for sp in range(splits):
+            t0 = min(sp * per, n_tiles)
+            t1 = min(t0 + per, n_tiles)
+            k0, k1 = t0 * DECODE_TILE, max(t1, t0 + 1) * DECODE_TILE
+            parts.append(decode_partial_plain(
+                q[bi], kc[bi, :, k0:k1], vc[bi, :, k0:k1], scale=scale,
+                block_kv=DECODE_TILE, kv_len=min(n_kv, t1 * DECODE_TILE) - k0,
+                use_hfa=use_hfa))
+        if splits == 1:
+            outs.append(parts[0])
+        else:
+            outs.append(merge_partials(*(torch.stack(x) for x in zip(*parts)),
+                                       use_hfa=use_hfa))
+    return tuple(torch.stack(x) for x in zip(*outs))

@@ -3,7 +3,10 @@ one).  Run them on the machine with the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Each paged kernel, on both rails, and each dense kernel (FA-2 forward,
+Each paged kernel, on both rails and on each route (decode: the v2
+kernel and the CUDA-core one; prefill: the tensor cores for bf16 at d 64
+/ 128 and the CUDA cores; verify), at d 32, 64, 96 and 128, and each
+dense kernel (FA-2 forward,
 dq, dk/dv, H-FA forward - on f32 inputs the CUDA-core forward, on bf16
 the tensor-core one; the backward on the CUDA cores for an f32
 cotangent, on the tensor cores for bf16 inputs and cotangent - the dense
@@ -11,8 +14,15 @@ decode on both rails, the per-element LNS datapath) at small shapes
 against its plain version on the same
 CUDA tensors (tolerances as in chip_smoke.py), and the rail and LNS
 device functions of every source (the tensor-core forward's integer
-form too) bit for bit against the plain torch versions.
+form too) bit for bit against the plain torch versions.  The dense
+kernels run at d 32 and 96 too (the tensor-core ones on inputs
+zero-padded to 64 and 128).  The v2 decode unsplit is bit-equal to the
+CUDA-core decode on both rails, and split within 1e-5 of it; the
+tensor-core prefill on a dyadic grid within 1e-5 of the CUDA-core one on
+the H-FA rail; the launch counters count by route; every entry refuses
+a head dim outside (32, 64, 96, 128).
 """
+
 import numpy as np
 import pytest
 import torch
@@ -27,6 +37,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.kernels import paged_verify as pv
+from repro_torch.kernels import ref
 
 pytestmark = pytest.mark.gpu
 
@@ -51,46 +62,98 @@ def test_rail_device_functions_bit_exact(cuda, source):
                        bitmath.recip_logdiv(x[pos]).view(torch.int32))
 
 
+def _paged_counts():
+    return {k: dict(v) for k, v in cuda_lib.paged_launches.items()}
+
+
+def _paged_pools(cuda, dtype, d, b=3, j=6, hkv=2, page=16, seed=None,
+                 dyadic=False):
+    """Shuffled bf16 / f32 pools and page table on the card."""
+    seed = d if seed is None else seed
+    rng = np.random.default_rng(seed)
+    num_pages = b * j + 2
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    shape = (num_pages, page, hkv, d)
+    kp = (thfa.dyadic_bf16(shape, gen, cuda, bound=0.5) if dyadic else
+          torch.randn(shape, generator=gen, device=cuda)).to(dtype)
+    vp = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    pt = torch.tensor(rng.permutation(num_pages)[:b * j].reshape(b, j),
+                      dtype=torch.int32, device=cuda)
+    return kp, vp, pt, gen
+
+
+def _i32(cuda, a):
+    return torch.tensor(a, dtype=torch.int32, device=cuda)
+
+
+def _prefill_simt(q, kp, vp, pt, start, kv_lens, use_hfa=False):
+    """The paged prefill on the CUDA-core kernel, for the checks (the
+    wrapper's rule picks the tensor cores for bf16 at d 64 / 128)."""
+    return cuda_lib.launch_paged(
+        "paged_prefill_fwd", q, kp, vp, pt, start, kv_lens,
+        scale=q.shape[-1] ** -0.5, use_hfa=use_hfa)
+
+
+def _decode_split(q, kp, vp, pt, kv_lens, splits, use_hfa=False):
+    """The v2 paged decode with its walk split into ``splits`` runs (1:
+    unsplit), for the checks."""
+    return cuda_lib.launch_paged_decode(
+        q, kp, vp, pt, kv_lens, scale=q.shape[-1] ** -0.5, use_hfa=use_hfa,
+        splits=splits)
+
+
+@pytest.mark.parametrize("route", ["default", "simt"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
 @pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
-def test_kernel_matches_plain(cuda, kind, d, dtype, use_hfa):
-    rng = np.random.default_rng(d)
-    g, hkv, page, j, b = 2, 2, 16, 6, 3
-    num_pages = b * j + 2
-    gen = torch.Generator(device=cuda).manual_seed(d)
+def test_kernel_matches_plain(cuda, kind, d, dtype, use_hfa, route):
+    """Each paged kernel against its plain version: route "default" is
+    the wrapper's own (decode: v2; prefill: the tensor cores for bf16 at d
+    64 / 128, else the CUDA cores), "simt" the CUDA-core kernel."""
+    g, hkv, b = 2, 2, 3
+    kp, vp, pt, gen = _paged_pools(cuda, dtype, d, b=b, hkv=hkv)
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=cuda).to(dtype)
 
-    kp, vp = rnd(num_pages, page, hkv, d), rnd(num_pages, page, hkv, d)
-    pt = torch.tensor(rng.permutation(num_pages)[:b * j].reshape(b, j),
-                      dtype=torch.int32, device=cuda)
-
-    def i32(a):
-        return torch.tensor(a, dtype=torch.int32, device=cuda)
-
+    i32 = lambda a: _i32(cuda, a)  # noqa: E731
     if kind == "decode":
         args = (rnd(b, hkv, g, d), kp, vp, pt, i32([37, 0, 96]))
-        fn, plain, live = pd.paged_decode_partial, \
-            pd.paged_decode_partial_plain, [[1], [0], [1]]
+        fn = pd.paged_decode_partial if route == "default" else \
+            pd.paged_decode_partial_simt
+        plain, live = pd.paged_decode_partial_plain, [[1], [0], [1]]
+        key = ("decode", "v2" if route == "default" else "simt")
     elif kind == "prefill":
         args = (rnd(b, hkv, g, 7, d), kp, vp, pt, i32([0, 20, 40]),
                 i32([7, 23, 47]))
-        fn, plain = pp.paged_prefill_partial, pp.paged_prefill_partial_plain
+        rule = cuda_lib.paged_prefill_route(args[0], kp, pt)
+        fn = pp.paged_prefill_partial if route == "default" else \
+            _prefill_simt
+        plain = pp.paged_prefill_partial_plain
         live = [[1] * 7, [1] * 3 + [0] * 4, [1] * 7]
+        key = ("prefill", rule if route == "default" else "simt")
+        assert rule == ("tc" if dtype == torch.bfloat16 and d in (64, 128)
+                        else "simt")
     else:
         args = (rnd(b, hkv, g, 5, d), kp, vp, pt, i32([30, 0, 90]),
                 i32([5, 0, 2]))
         fn, plain = pv.paged_verify_partial, pv.paged_verify_partial_plain
         live = [[1] * 5, [0] * 5, [1, 1, 0, 0, 0]]
-    before = {m: m.launches for m in (pd, pp, pv)}
+        key = None
+    before, mods = _paged_counts(), {m: m.launches for m in (pd, pp, pv)}
     ko, km, kl = fn(*args, use_hfa=use_hfa)
     po, pm, pl_ = plain(*args, use_hfa=use_hfa)
     torch.cuda.synchronize()
-    mod = {"decode": pd, "prefill": pp, "verify": pv}[kind]
-    assert mod.launches == before[mod] + 1
+    if key is not None:
+        before[key[0]][key[1]] += 1
+    assert _paged_counts() == before
+    # The wrappers count their own launches; the checks' forced routes not.
+    counted = {"decode": pd, "prefill": pp, "verify": pv}[kind]
+    if kind != "verify" and route == "simt":
+        counted = None
+    assert {m: m.launches for m in mods} == {
+        m: c + (m is counted) for m, c in mods.items()}
     if kind == "decode":
         ko, po = ko[:, :, :, None], po[:, :, :, None]
         km, pm, kl, pl_ = (x[..., None] for x in (km, pm, kl, pl_))
@@ -105,6 +168,119 @@ def test_kernel_matches_plain(cuda, kind, d, dtype, use_hfa):
     dead = ~torch.tensor(live, dtype=torch.bool, device=cuda).any(-1)
     if dead.any():
         assert torch.all(kl[dead] == 0) and torch.all(ko[dead] == 0)
+
+
+def _decode_case(cuda, dtype, d, g=2, seed=None):
+    """Decode inputs at a walk long enough to split: B 4 (a free slot,
+    a slot shorter than one 64-key step), Hkv 2, J 12 pages of 16."""
+    kp, vp, pt, gen = _paged_pools(cuda, dtype, d, b=4, j=12, seed=seed)
+    q = torch.randn((4, 2, g, d), generator=gen, device=cuda).to(dtype)
+    return q, kp, vp, pt, _i32(cuda, [150, 0, 192, 9])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_decode_v2_unsplit_bit_equal_to_simt(cuda, use_hfa, g, d, dtype):
+    """The v2 decode keeps the CUDA-core kernel's arithmetic order, so
+    its unsplit walk gives the same triplet bit for bit, both rails."""
+    args = _decode_case(cuda, dtype, d, g)
+    got = _decode_split(*args, 1, use_hfa=use_hfa)
+    want = pd.paged_decode_partial_simt(*args, use_hfa=use_hfa)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("o", "m", "l"), got, want):
+        assert torch.equal(a.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_decode_v2_split_matches_unsplit(cuda, d, dtype, splits):
+    """FA-2 rail: the page walk split into runs and merged by Eq. 16 in
+    the kernel - within 1e-5 of the unsplit walk after finalize, m
+    exact (the same scores), no NaN where a run holds no key (16 splits
+    of a walk of at most 12 tiles), and the counters left at zero for
+    the next launch (a second launch agrees bit for bit)."""
+    args = _decode_case(cuda, dtype, d, seed=d + splits)
+    o1, m1, l1 = _decode_split(*args, 1)
+    o2, m2, l2 = _decode_split(*args, splits)
+    o3, m3, l3 = _decode_split(*args, splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o2).all() and torch.isfinite(l2).all()
+    assert torch.equal(m1, m2)
+    assert (decode_k.finalize_decode(o2, l2) -
+            decode_k.finalize_decode(o1, l1)).abs().max().item() <= 1e-5
+    assert torch.equal(o2, o3) and torch.equal(l2, l3)
+    assert all(int(c.count_nonzero()) == 0
+               for c in cuda_lib._counters.values())
+    assert torch.all(l2[1] == 0) and torch.all(o2[1] == 0) \
+        and torch.all(m2[1] == -1e30)
+    want = ref.paged_decode_split_model(*args, splits=splits)
+    assert (decode_k.finalize_decode(o2, l2) - decode_k.finalize_decode(
+        want[0], want[2])).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("g", [1, 2, 4])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_prefill_tc_dyadic_matches_simt(cuda, use_hfa, d, g):
+    """The tensor-core prefill on a dyadic grid within +-0.5 - every
+    score and every page's sum of p exact in any order, and on the H-FA
+    rail every p exact in bf16 - within 1e-5 of the CUDA-core kernel
+    after finalize, m exact, over a 200-token chunk from 0, a ragged
+    137-token chunk at start_pos 230 and a free slot, and within 1e-5 of
+    its plain model (kernels/ref.py)."""
+    b, hkv, ell = 3, 2, 200
+    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, d, b=b, j=30,
+                                   hkv=hkv, dyadic=True, seed=g)
+    q = thfa.dyadic_bf16((b, hkv, g, ell, d), gen, cuda, bound=0.5)
+    start, chunk = _i32(cuda, [0, 230, 0]), _i32(cuda, [200, 137, 0])
+    args = (q, kp, vp, pt, start, start + chunk)
+    before = _paged_counts()
+    tc = pp.paged_prefill_partial(*args, use_hfa=use_hfa)
+    simt = _prefill_simt(*args, use_hfa=use_hfa)
+    model = ref.paged_prefill_tc_model(*args, use_hfa=use_hfa)
+    torch.cuda.synchronize()
+    after = _paged_counts()["prefill"]
+    assert after == {"tc": before["prefill"]["tc"] + 1,
+                     "simt": before["prefill"]["simt"] + 1}
+    live = (torch.arange(ell, device=cuda)[None] < chunk[:, None])
+    mask = live[:, None, None].expand(tc[1].shape)
+    outs = [decode_k.finalize_decode(o, l, use_hfa=use_hfa)[mask]
+            for o, _, l in (tc, simt, model)]
+    assert torch.isfinite(outs[0]).all()
+    assert (outs[0] - outs[1]).abs().max().item() <= 1e-5
+    assert (outs[0] - outs[2]).abs().max().item() <= 1e-5
+    assert torch.equal(tc[1][mask], simt[1][mask])
+    assert torch.all(tc[2][2] == 0) and torch.all(tc[0][2] == 0) \
+        and torch.all(tc[1][2] == -1e30)
+
+
+def test_paged_entries_refuse_other_head_dims(cuda):
+    """Every paged entry, and the dense and decode kernels, refuse a
+    head dim outside (32, 64, 96, 128) with a clear message and launch
+    nothing."""
+    before = _paged_counts()
+    for d in (16, 48, 160):
+        kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, d)
+        q4 = torch.randn((3, 2, 2, d), generator=gen, device=cuda).to(
+            torch.bfloat16)
+        q5 = q4[:, :, :, None].contiguous()
+        lens = _i32(cuda, [5, 0, 9])
+        calls = (lambda: pd.paged_decode_partial(q4, kp, vp, pt, lens),
+                 lambda: pd.paged_decode_partial_simt(q4, kp, vp, pt, lens),
+                 lambda: pp.paged_prefill_partial(q5, kp, vp, pt, lens, lens),
+                 lambda: _prefill_simt(q5, kp, vp, pt, lens, lens),
+                 lambda: pv.paged_verify_partial(q5, kp, vp, pt, lens, lens),
+                 lambda: tfa2.fa2_forward(*[q4[:, 0]] * 3),
+                 lambda: thfa.hfa_forward(*[q4[:, 0].float()] * 3),
+                 lambda: decode_k.decode_partial(q4, q4, q4),
+                 lambda: dp_k.hfa_datapath(*[q4[:, 0]] * 3))
+        for call in calls:
+            with pytest.raises(ValueError, match="head dim"):
+                call()
+    assert _paged_counts() == before
 
 
 def _dense_inputs(cuda, dtype, d, bh=3, lq=200, lkv=320, seed=0):
@@ -126,7 +302,7 @@ FWD_GEOMETRY = {"masks": (3, 200, 320, DENSE_MASKS),
 
 @pytest.mark.parametrize("geometry", list(FWD_GEOMETRY))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("rail", ["fa2", "hfa"])
 def test_dense_forward_matches_plain(cuda, rail, causal, d, dtype, geometry):
@@ -197,16 +373,16 @@ def test_dense_forward_tc_refuses_what_it_cannot_take(cuda):
     odd.copy_(q)
     with pytest.raises(ValueError, match="16-byte aligned"):
         tfa2.fa2_forward(odd, k, v, causal=True)
-    d32 = [t[..., :32].contiguous() for t in (q, k, v)]
+    d48 = [t[..., :48].contiguous() for t in (q, k, v)]
     with pytest.raises(ValueError, match="head dim"):
-        thfa.hfa_forward(*d32, causal=True)
+        thfa.hfa_forward(*d48, causal=True)
     with pytest.raises(ValueError, match="bf16 CUDA"):
         thfa.hfa_forward_scores(*(t.float() for t in (q, k, v)))
     assert cuda_lib.dense_fwd_launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_dense_backward_matches_plain(cuda, causal, d, dtype):
     q, k, v = _dense_inputs(cuda, dtype, d, seed=1)
@@ -232,7 +408,7 @@ def test_dense_backward_matches_plain(cuda, causal, d, dtype):
 
 
 @pytest.mark.parametrize("geometry", list(FWD_GEOMETRY))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_dense_forward_f32_hfa_matches_plain_on_exact_sums(cuda, causal, d,
                                                           geometry):
@@ -272,7 +448,7 @@ def _bwd_counts():
 
 
 @pytest.mark.parametrize("geometry", list(BWD_TC_GEOMETRY))
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("causal", [False, True])
 def test_dense_backward_tc_matches_plain(cuda, causal, d, geometry):
     """bf16 inputs and a bf16 cotangent: the tensor-core dq and dk/dv,
@@ -375,7 +551,7 @@ def _ring(cuda, dtype, d, b=3, s_len=300, hkv=2, g=2, seed=4):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("kv_len", [0, 1, 130, 300])
 @pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
 def test_dense_decode_matches_plain(cuda, use_hfa, kv_len, d, dtype):
@@ -428,7 +604,7 @@ def _dyadic(cuda, shape, seed):
                             .manual_seed(seed), cuda)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
 @pytest.mark.parametrize("shape", [(3, 40, 40), (2, 24, 70)],
                          ids=["square", "suffix"])
 @pytest.mark.parametrize("causal", [False, True])
