@@ -12,12 +12,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    (qwen3-1.7b: 16 query heads over 8 KV heads, d_head 128, page 16,
    bf16 pools, shuffled page tables, ragged lengths up to 2048, a free
    slot) and is held against its plain version on the same CUDA
-   tensors: the decode the main path runs (``paged_decode_fwd_v2``,
-   split on the fa2 rail) and the CUDA-core one (``_simt``), the
-   tensor-core prefill (``paged_prefill_fwd_tc``) and the CUDA-core one,
-   and verify.  The v2 decode unsplit must equal the CUDA-core decode
-   bit for bit on both rails, and split be within 1e-5 of unsplit; the
-   tensor-core prefill on a dyadic grid within 1e-5 of the CUDA-core one.
+   tensors: the decode and the verify the main path runs
+   (``paged_decode_fwd_v2`` and ``paged_verify_fwd_v2``, split on the fa2
+   rail; verify one block a query head on the hfa rail) and the CUDA-core
+   ones (``_simt``), the tensor-core prefill (``paged_prefill_fwd_tc``)
+   and the CUDA-core one.  The v2 decode and verify unsplit must equal
+   the CUDA-core decode and verify bit for bit on both rails, and split
+   be within 1e-5 (decode) and 2e-7 (verify) of unsplit; a verify of G K
+   = 20 rows must take the CUDA-core route; the tensor-core prefill on a
+   dyadic grid within 1e-5 of the CUDA-core one.
    One line per kernel: its time (events, and the device's own from
    torch.profiler), the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
@@ -37,9 +40,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cores (dense_attention_bwd_tc.cu, the training path) and f32 ``do``
    on the CUDA cores, each launch and each route's whole backward timed
    beside SDPA's autograd backward.  Then the
-   dense decode kernel at the dense-serve decode shape (B 8 x Hkv 8, G
-   2, kv_len 576 of a 640-slot bf16 ring read in place, d 128) on both
-   rails, beside SDPA on the same decode, and the per-element LNS
+   dense decode kernel (``dense_decode_fwd_v2``) at the dense-serve
+   decode shape (B 8 x Hkv 8, G 2, kv_len 576 of a 640-slot bf16 ring read
+   in place, d 128) on both rails (fa2 split, and within 1e-5 of its
+   unsplit walk; hfa on a dyadic grid within 1e-5 of the plain 128-key
+   walk), beside SDPA on the same decode, and the per-element LNS
    datapath kernel at the dense-serve prefill shape (BH 128, L 512, d
    128, causal): bit for bit on inputs whose scores are exact (a
    dyadic grid), and on random inputs every row whose bf16 scores the
@@ -54,15 +59,17 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ring's prefill and decode steps on fa2, hfa_pallas, hfa and
    hfa_datapath - and the same training loss and gradients; those f32
    runs must reach the dense forward and backward and the paged prefill
-   through the CUDA-core kernels only, and the paged decode through v2.
+   through the CUDA-core kernels only, and the paged decode and verify
+   through v2.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
    must finish with its token count, every logit must be finite, the
    cache invariants must hold, and each kernel's launch counter must
    grow on every run whose path uses it: every prefill on the tensor
-   cores and every decode (spec_k 0) on v2, none on the CUDA-core
-   prefill or decode.  On fa2 a further spec_k 0 run with every decode
+   cores, every decode (spec_k 0) and every verify (spec_k 4) on v2, none
+   on a CUDA-core paged kernel.  On fa2 a further spec_k 0 run with every
+   decode
    walk unsplit prints how far its streams agree with the spec_k 4 and
    the split spec_k 0 runs.
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
@@ -70,7 +77,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    loop of ``serve --dense``: 8 prompts of 512 tokens from
    ``DataPipeline`` (seed 0), 64 greedy decode steps, a 640-slot dense
    ring, on impls fa2, hfa_pallas and hfa_datapath.  Each run must
-   launch the dense decode kernel on every step of every layer and its
+   launch the dense decode kernel (``dense_decode_fwd_v2``, the only
+   one) on every step of every layer and its
    prefill kernel on every layer (fa2 and hfa_pallas: the tensor-core
    forward, 28 launches, none on the CUDA-core one), give finite logits
    and 8 x 64 tokens; prefill ms, decode ms/token, tok/s, launches and the tokens that
@@ -93,7 +101,9 @@ Opt-in phases, named on the command line (``python3 chip_smoke.py
 kernels profile_train`` runs just those): ``profile`` traces engine
 steps, ``profile_train`` one full-width training step per rail (with
 the dense attention kernels' share of the step) and
-``profile_dense`` full-width dense decode steps under torch.profiler.
+``profile_dense`` full-width dense decode steps under torch.profiler;
+``decode_variants`` times the v2 verify and the dense decode at other
+grids (runs of the walk, blocks of the rows).
 
 There is no CPU fallback: without a card the script stops at once.
 """
@@ -152,6 +162,7 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "paged_prefill": "src/repro/kernels/paged_prefill.py:38",
             "paged_prefill_simt": "src/repro/kernels/paged_prefill.py:38",
             "paged_verify": "src/repro/kernels/paged_verify.py:47",
+            "paged_verify_simt": "src/repro/kernels/paged_verify.py:47",
             "fa2_fwd": "src/repro/kernels/fa2.py:26",
             "fa2_bwd_dq": "src/repro/kernels/fa2_bwd.py:30",
             "fa2_bwd_dkv": "src/repro/kernels/fa2_bwd.py:73",
@@ -162,11 +173,11 @@ REPLACES = {"paged_decode": "src/repro/kernels/paged_decode.py:51",
             "hfa_datapath": "src/repro/kernels/hfa_datapath.py:31"}
 MODULES = {"paged_decode": pd, "paged_prefill": pp, "paged_verify": pv}
 # The paged kernels' rows: (kind, source, the route's key in
-# cuda_lib.paged_launches or None (verify: its module counter), the
-# kernel's name in a trace).  paged_decode and paged_prefill are the
-# redesigned kernels the main path runs; the _simt rows the CUDA-core
-# ones, which the decode path no longer launches and the prefill path
-# launches for f32 pools and d 32 / 96.
+# cuda_lib.paged_launches, the kernel's name in a trace).  paged_decode,
+# paged_prefill and paged_verify are the redesigned kernels the main path
+# runs; the _simt rows the CUDA-core ones, which the decode path no
+# longer launches, the prefill path launches for f32 pools and d 32 / 96
+# and the verify path for more than 16 rows a (slot, kv head).
 PAGED_ROWS = {"paged_decode": ("paged_decode", PAGED_TC_SRC,
                                ("decode", "v2"), "paged_decode_v2_kernel"),
               "paged_decode_simt": ("paged_decode", SRC, ("decode", "simt"),
@@ -176,8 +187,10 @@ PAGED_ROWS = {"paged_decode": ("paged_decode", PAGED_TC_SRC,
               "paged_prefill_simt": ("paged_prefill", SRC,
                                      ("prefill", "simt"),
                                      "paged_attention_kernel"),
-              "paged_verify": ("paged_verify", SRC, None,
-                               "paged_attention_kernel")}
+              "paged_verify": ("paged_verify", PAGED_TC_SRC, ("verify", "v2"),
+                               "paged_decode_v2_kernel"),
+              "paged_verify_simt": ("paged_verify", SRC, ("verify", "simt"),
+                                    "paged_attention_kernel")}
 # Launch counter of each dense kernel: (module, attribute) or (dict,
 # key).  The backward counts by route: "fa2_bwd_dq" and "fa2_bwd_dkv" are
 # the tensor-core kernels, "..._simt" the CUDA-core ones.
@@ -385,6 +398,19 @@ def _decode_split(q, *args, splits, use_hfa=False):
                                         use_hfa=use_hfa, splits=splits)
 
 
+def _verify_v2(q, *args, splits, row_blocks, use_hfa=False):
+    """The v2 paged verify at a given grid: ``splits`` runs of the walk
+    (1: unsplit) and ``row_blocks`` blocks of the rows, for the checks."""
+    return cuda_lib.launch_paged_verify(q, *args, scale=q.shape[-1] ** -0.5,
+                                        use_hfa=use_hfa, splits=splits,
+                                        row_blocks=row_blocks)
+
+
+def _bits_differ(got, want) -> int:
+    return sum(int((a.view(torch.int32) != w.view(torch.int32)).sum())
+               for a, w in zip(got, want))
+
+
 def _paged_fns(row: str):
     """(kernel call, plain version) of a paged row: the wrapper the main
     path calls, or for a _simt row the CUDA-core kernel."""
@@ -394,6 +420,8 @@ def _paged_fns(row: str):
         return pd.paged_decode_partial_simt, plain
     if row == "paged_prefill_simt":
         return _prefill_simt, plain
+    if row == "paged_verify_simt":
+        return pv.paged_verify_partial_simt, plain
     return getattr(MODULES[kind], f"{kind}_partial"), plain
 
 
@@ -405,7 +433,11 @@ def _check_paged_exact(cases) -> dict:
     (b) the tensor-core prefill on a dyadic grid (q and the K pool
     within +-0.5: every score and every page's sum of p exact in any
     order) within 1e-5 of the CUDA-core prefill after finalize, m exact,
-    on both rails."""
+    on both rails; (c) the v2 verify, unsplit, bit-equal to
+    paged_verify_fwd on both rails, in one block of the G K rows and in
+    one block a query head, and split (the main path's splits, FA-2)
+    within 2e-7 of its unsplit walk after finalize, m exact; (d) a verify
+    of G K = 20 rows on the CUDA-core route, against its plain version."""
     out = {}
     args = cases["paged_decode"][0]
     splits = cuda_lib.decode_splits(args[0], args[3], args[1].shape[1],
@@ -415,8 +447,7 @@ def _check_paged_exact(cases) -> dict:
         got = _decode_split(*args, splits=1, use_hfa=use_hfa)
         want = pd.paged_decode_partial_simt(*args, use_hfa=use_hfa)
         torch.cuda.synchronize()
-        bad = sum(int((a.view(torch.int32) != w.view(torch.int32)).sum())
-                  for a, w in zip(got, want))
+        bad = _bits_differ(got, want)
         if bad:
             raise AssertionError(f"paged_decode v2 unsplit [{rail}]: {bad} "
                                  "values differ from paged_decode_fwd")
@@ -434,6 +465,65 @@ def _check_paged_exact(cases) -> dict:
     print(f"check paged_decode: v2 unsplit bit-equal to paged_decode_fwd on "
           f"both rails; split into {splits} runs (FA-2) vs unsplit: max "
           f"|out err| {err_split:.3g} (atol 1e-5), m equal")
+    args = cases["paged_verify"][0]
+    q = args[0]
+    b, hkv, g, kw = q.shape[:4]
+    for rail in ("fa2", "hfa"):
+        use_hfa = rail == "hfa"
+        want = pv.paged_verify_partial_simt(*args, use_hfa=use_hfa)
+        for rb in (1, g):
+            got = _verify_v2(*args, splits=1, row_blocks=rb, use_hfa=use_hfa)
+            torch.cuda.synchronize()
+            bad = _bits_differ(got, want)
+            if bad:
+                raise AssertionError(f"paged_verify v2 unsplit, {rb} row "
+                                     f"blocks [{rail}]: {bad} values differ "
+                                     "from paged_verify_fwd")
+    v_splits = cuda_lib.verify_splits(
+        b * hkv, args[3].shape[1] * args[1].shape[1], False,
+        cuda_lib.sm_count(q.device))
+    o1, m1, l1 = _verify_v2(*args, splits=1, row_blocks=1)
+    o2, m2, l2 = _verify_v2(*args, splits=v_splits, row_blocks=1)
+    err_v = float((decode_k.finalize_decode(o2, l2) -
+                   decode_k.finalize_decode(o1, l1)).abs().max())
+    if not (torch.equal(m1, m2) and err_v <= 2e-7
+            and bool(torch.isfinite(o2).all())):
+        raise AssertionError(f"paged_verify v2 split {v_splits}: max |out - "
+                             f"unsplit| {err_v:.3g} (atol 2e-7), m equal "
+                             f"{torch.equal(m1, m2)}")
+    out["verify_splits"] = v_splits
+    out["verify_split_err"] = err_v
+    print(f"check paged_verify: v2 unsplit bit-equal to paged_verify_fwd on "
+          f"both rails (1 and {g} row blocks); split into {v_splits} runs "
+          f"(FA-2) vs unsplit: max |out err| {err_v:.3g} (atol 2e-7), m "
+          f"equal")
+    # G K = 20 rows: the CUDA-core route, against the plain version.
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q20 = torch.randn((b, hkv, 4, kw, q.shape[-1]), generator=gen,
+                      device="cuda").to(q.dtype)
+    live = torch.tensor(cases["paged_verify"][1], device="cuda")
+    mask = live[:, None, None].expand(q20.shape[:4])
+    assert cuda_lib.paged_verify_route(4, kw) == "simt"
+    for rail in ("fa2", "hfa"):
+        use_hfa = rail == "hfa"
+        before = dict(cuda_lib.paged_launches["verify"])
+        res = [fn(q20, *args[1:], use_hfa=use_hfa) for fn in
+               (pv.paged_verify_partial, pv.paged_verify_partial_plain)]
+        torch.cuda.synchronize()
+        err = float((decode_k.finalize_decode(res[0][0], res[0][2],
+                                              use_hfa=use_hfa) -
+                     decode_k.finalize_decode(res[1][0], res[1][2],
+                                              use_hfa=use_hfa))[mask]
+                    .abs().max())
+        err_m = float((res[0][1] - res[1][1])[mask].abs().max())
+        if cuda_lib.paged_launches["verify"] != {
+                "v2": before["v2"], "simt": before["simt"] + 1} or not (
+                err <= ATOL_OUT[rail] and err_m <= ATOL_M):
+            raise AssertionError(f"paged_verify G K 20 [{rail}]: launches "
+                                 f"{cuda_lib.paged_launches['verify']}, out "
+                                 f"err {err:.3g}, m err {err_m:.3g}")
+        print(f"check paged_verify G K 20 [{rail}]: CUDA-core route, max "
+              f"|out err| {err:.3g} (atol {ATOL_OUT[rail]}), m {err_m:.3g}")
     q, kp, vp, pt, start, kvl = cases["paged_prefill"][0]
     gen = torch.Generator(device="cuda").manual_seed(7)
     qa = hfa_k.dyadic_bf16(q.shape, gen, "cuda", bound=0.5)
@@ -519,6 +609,12 @@ def check_kernels() -> list[dict]:
         if row_name == "paged_decode":
             entry.update(splits=exact["decode_splits"],
                          split_err=exact["decode_split_err"])
+        if row_name == "paged_verify":
+            q = args[0]
+            entry.update(splits=exact["verify_splits"],
+                         split_err=exact["verify_split_err"],
+                         row_blocks_hfa=cuda_lib.verify_row_blocks(
+                             q.shape[2], q.shape[3], True))
         if row_name == "paged_prefill":
             entry.update(dyadic_err_fa2=exact["prefill_dyadic_fa2_err"],
                          dyadic_err_hfa=exact["prefill_dyadic_hfa_err"])
@@ -555,13 +651,15 @@ def _paged_err(out, want, live, use_hfa):
 
 def check_head_dims() -> None:
     """Every kernel at d 96 and d 32 on the card against its plain version
-    (the tolerances of the main-shape checks): the paged decode (v2 and
-    the CUDA-core kernel), prefill (at these widths the CUDA-core route)
-    and verify, bf16 and f32 pools, both rails; the dense forward on both
+    (the tolerances of the main-shape checks): the paged decode and
+    verify (v2, split on the FA-2 rail, and the CUDA-core kernel), prefill
+    (at these widths the CUDA-core route), bf16 and f32 pools, both
+    rails; the dense forward on both
     rails, bf16 (the tensor-core kernel on inputs zero-padded to 128 /
     64) and f32 (the CUDA cores); the FA-2 backward with a bf16 (tensor
     cores, padded) and an f32 (CUDA cores) cotangent; the dense decode;
-    the LNS datapath bit for bit on exact scores."""
+    the LNS datapath bit for bit on exact scores.  The dense decode is
+    split on the FA-2 rail (2 runs at kv_len 250)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
 
     def rnd(*shape, dtype=torch.bfloat16):
@@ -614,12 +712,14 @@ def check_head_dims() -> None:
                        i32([150, 0, 60]), i32([5, 0, 3]))
                 vlive = (torch.arange(5, device="cuda")[None] <
                          i32([5, 0, 3])[:, None])[:, None, None]
-                e, em = _paged_err(
-                    pv.paged_verify_partial(*ver, use_hfa=use_hfa),
-                    pv.paged_verify_partial_plain(*ver, use_hfa=use_hfa),
-                    vlive, use_hfa)
-                hold("paged_verify", e, ATOL_OUT[rail])
-                hold("paged_verify m", em, ATOL_M)
+                want = pv.paged_verify_partial_plain(*ver, use_hfa=use_hfa)
+                for name, fn in (("paged_verify", pv.paged_verify_partial),
+                                 ("paged_verify_simt",
+                                  pv.paged_verify_partial_simt)):
+                    e, em = _paged_err(fn(*ver, use_hfa=use_hfa), want,
+                                       vlive, use_hfa)
+                    hold(name, e, ATOL_OUT[rail])
+                    hold(name + " m", em, ATOL_M)
             # Dense forward, both rails.
             bh, ell = 4, 300
             q, k, v = (rnd(bh, ell, d, dtype=dtype) for _ in range(3))
@@ -1043,7 +1143,11 @@ ATOL_DEC = {"fa2": 2e-5, "hfa": 1e-4}
 
 def check_decode_kernel() -> dict:
     """Kernel 4 at the dense-serve decode shape against its plain
-    version on the same CUDA tensors, both rails, beside one SDPA call
+    version on the same CUDA tensors, both rails (fa2 split as the main
+    path splits it, and its split within 1e-5 of the unsplit walk, m
+    exact), on the H-FA rail on a dyadic grid (q and the K ring within
+    +-0.5: every score and every tile's sum of p exact in any order)
+    within 1e-5 of the plain 128-key walk, m exact, beside one SDPA call
     on the same decode."""
     gen = torch.Generator(device="cuda").manual_seed(4)
     b, hkv, g, s_len, kvl, d = DEC_B, DEC_HKV, DEC_G, DEC_S, DEC_KV, DEC_D
@@ -1054,8 +1158,10 @@ def check_decode_kernel() -> dict:
     q = rnd(b, hkv, g, d)
     ring_k, ring_v = rnd(b, s_len, hkv, d), rnd(b, s_len, hkv, d)
     k, v = ring_k.transpose(1, 2), ring_v.transpose(1, 2)   # in place
+    splits = cuda_lib.dense_decode_splits(b * hkv, kvl, False,
+                                          cuda_lib.sm_count(q.device))
     row = {"name": "dense_decode", "route": "cuda", "source": DECODE_SRC,
-           "replaces": REPLACES["dense_decode"]}
+           "replaces": REPLACES["dense_decode"], "splits": splits}
     for rail in ("fa2", "hfa"):
         use_hfa = rail == "hfa"
 
@@ -1084,19 +1190,47 @@ def check_decode_kernel() -> dict:
                 f"out {err:.3g} (atol {ATOL_DEC[rail]}), m {err_m:.3g} "
                 f"(atol 2e-6), o~/l relative {max(errs):.3g}")
         row[f"{rail}_ms"] = timed(kernel)
+        row[f"{rail}_device_ms"] = device_ms(kernel, "dense_decode_v2_kernel")
         row[f"{rail}_plain_ms"] = timed(plain, reps=5, inner=2)
         row[f"{rail}_max_abs_err"] = err
         row[f"{rail}_triplet_rel_err"] = max(errs)
         if rail == "fa2":
-            row.update(ms=row["fa2_ms"], plain_ms=row["fa2_plain_ms"])
+            row.update(ms=row["fa2_ms"], plain_ms=row["fa2_plain_ms"],
+                       device_ms=row["fa2_device_ms"])
     row["max_abs_err"] = max(row["fa2_max_abs_err"], row["hfa_max_abs_err"])
+    # The split walk against one walk, and the H-FA rail on the dyadic
+    # grid against the plain walk.
+    one = cuda_lib.launch_dense_decode(q, k, v, scale=d ** -0.5, kv_len=kvl,
+                                       use_hfa=False, splits=1)
+    split = decode_k.decode_partial(q, k, v, kv_len=kvl)
+    err_split = float((decode_k.finalize_decode(split[0], split[2]) -
+                       decode_k.finalize_decode(one[0], one[2])).abs().max())
+    qa = hfa_k.dyadic_bf16(q.shape, gen, "cuda", bound=0.5)
+    ka = hfa_k.dyadic_bf16(ring_k.shape, gen, "cuda", bound=0.5).transpose(
+        1, 2)
+    got, want = (f(qa, ka, v, kv_len=kvl, use_hfa=True) for f in (
+        decode_k.decode_partial, decode_k.decode_partial_plain))
+    err_dy = float((decode_k.finalize_decode(got[0], got[2], use_hfa=True) -
+                    decode_k.finalize_decode(want[0], want[2], use_hfa=True))
+                   .abs().max())
+    if not (err_split <= 1e-5 and torch.equal(split[1], one[1])
+            and err_dy <= 1e-5 and torch.equal(got[1], want[1])):
+        raise AssertionError(f"dense_decode: split {splits} vs unsplit "
+                             f"{err_split:.3g} (atol 1e-5, m equal "
+                             f"{torch.equal(split[1], one[1])}); hfa dyadic "
+                             f"vs plain {err_dy:.3g} (atol 1e-5, m equal "
+                             f"{torch.equal(got[1], want[1])})")
+    row.update(split_err=err_split, hfa_dyadic_err=err_dy)
     # SDPA on the same decode: (B, H, 1, d) against the live keys, the
     # KV heads repeated kv-major, built outside the timed region.
     q4 = q.reshape(b, hkv * g, 1, d)
     k4, v4 = (t[:, :, :kvl].repeat_interleave(g, dim=1).contiguous()
               for t in (k, v))
-    row["library_ms"] = timed(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4))
+
+    def lib():
+        return F.scaled_dot_product_attention(q4, k4, v4)
+    row["library_ms"] = timed(lib)
+    row["library_device_ms"] = device_ms(lib)
     kv_bytes = b * hkv * kvl * d * 2 * 2
     io_bytes = q.numel() * 2 + b * hkv * g * (d + 2) * 4
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -1104,15 +1238,18 @@ def check_decode_kernel() -> dict:
     row["bound_ms"] = max(t_bytes, t_ops)
     row["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
     print(f"kernel dense_decode (B {b}, Hkv {hkv}, G {g}, kv_len {kvl} of a "
-          f"{s_len}-slot bf16 ring, d {d}): kernel_ms fa2 "
-          f"{row['fa2_ms']:.4f} hfa {row['hfa_ms']:.4f} | plain_ms fa2 "
-          f"{row['fa2_plain_ms']:.4f} hfa {row['hfa_plain_ms']:.4f} | "
-          f"library_ms {row['library_ms']:.4f} (SDPA) | bound_ms "
+          f"{s_len}-slot bf16 ring, d {d}; fa2 split {splits}): kernel_ms "
+          f"fa2 {row['fa2_ms']:.4f} hfa {row['hfa_ms']:.4f} (device "
+          f"{row['fa2_device_ms']:.4f} / {row['hfa_device_ms']:.4f}) | "
+          f"plain_ms fa2 {row['fa2_plain_ms']:.4f} hfa "
+          f"{row['hfa_plain_ms']:.4f} | library_ms {row['library_ms']:.4f} "
+          f"(SDPA; device {row['library_device_ms']:.4f}) | bound_ms "
           f"{row['bound_ms']:.4f} ({row['bound_by']}, {kv_bytes / 1e6:.2f} MB "
           f"of live K/V) | max |out| err fa2 {row['fa2_max_abs_err']:.3g} "
           f"hfa {row['hfa_max_abs_err']:.3g} | o~/l rel err fa2 "
           f"{row['fa2_triplet_rel_err']:.3g} hfa "
-          f"{row['hfa_triplet_rel_err']:.3g}")
+          f"{row['hfa_triplet_rel_err']:.3g} | split vs unsplit "
+          f"{err_split:.3g}, hfa dyadic vs plain {err_dy:.3g}, m equal")
     return row
 
 
@@ -1403,9 +1540,8 @@ def _reset_paged_counters() -> None:
 
 def _paged_counts() -> dict:
     """Launches of each paged row since the last reset."""
-    return {row: (MODULES[kind].launches if key is None else
-                  cuda_lib.paged_launches[key[0]][key[1]])
-            for row, (kind, _, key, _) in PAGED_ROWS.items()}
+    return {row: cuda_lib.paged_launches[key[0]][key[1]]
+            for row, (_, _, key, _) in PAGED_ROWS.items()}
 
 
 def _agreement(a: dict, b: dict) -> str:
@@ -1434,15 +1570,15 @@ def check_engine() -> dict:
             runs[spec_k] = streams
             la = info["launches"]
             # bf16 pools at d 128, page 16: every prefill on the tensor
-            # cores and every decode on v2, none on the CUDA-core kernels
-            # (spec_k 4 decodes through verify).
+            # cores and every decode (spec_k 0) or verify (spec_k 4) on
+            # v2, none on the CUDA-core kernels.
             need = ["paged_prefill",
                     "paged_decode" if spec_k == 0 else "paged_verify"]
-            if any(la[n] <= 0 for n in need) or la["paged_prefill_simt"] \
-                    or la["paged_decode_simt"]:
+            simt = [n for n in PAGED_ROWS if n.endswith("_simt")]
+            if any(la[n] <= 0 for n in need) or any(la[n] for n in simt):
                 raise AssertionError(f"[{rail} spec_k={spec_k}] launches "
-                                     f"{la}: need {need} > 0 and none on "
-                                     "the CUDA-core prefill or decode")
+                                     f"{la}: need {need} > 0 and none of "
+                                     f"{simt}")
             for n in PAGED_ROWS:
                 totals[n] += la[n]
             st = info["stats"]
@@ -1718,6 +1854,62 @@ def profile_engine(steps: int = 10, warm: int = 30) -> None:
     _report_profile(prof, wall, steps, "engine fa2 spec_k=0")
 
 
+def decode_variants() -> None:
+    """Opt-in phase (``python3 chip_smoke.py decode_variants``): the
+    device time (median of three profiler windows) of the v2 paged verify
+    at the kernels-phase shape for several grids - runs of the walk
+    (FA-2) and blocks of the rows - and of the dense decode at the
+    dense-serve shape for several runs, the verify's held against its
+    unsplit walk; the rules in ``kernels/cuda_lib.py`` (``verify_splits``,
+    ``verify_row_blocks``, ``dense_decode_splits``) were chosen from
+    these times."""
+
+    def dev(fn, key):
+        return statistics.median(device_ms(fn, key) for _ in range(3))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = kernel_cases(gen)["paged_verify"][0]
+    g = args[0].shape[2]
+    grids = {"fa2": [(1, 1), (3, 1), (5, 1), (8, 1), (9, 1), (16, 1),
+                     (8, g)],
+             "hfa": [(1, 1), (1, g), (1, 5), (1, 10)]}
+    for rail, cells in grids.items():
+        use_hfa = rail == "hfa"
+        want = _verify_v2(*args, splits=1, row_blocks=1, use_hfa=use_hfa)
+        times = []
+        for splits, rb in cells:
+            def call(splits=splits, rb=rb):
+                return _verify_v2(*args, splits=splits, row_blocks=rb,
+                                  use_hfa=use_hfa)
+            got = call()
+            err = float((decode_k.finalize_decode(got[0], got[2],
+                                                  use_hfa=use_hfa) -
+                         decode_k.finalize_decode(want[0], want[2],
+                                                  use_hfa=use_hfa))
+                        .abs().max())
+            times.append(f"{splits}x{rb}: "
+                         f"{dev(call, 'paged_decode_v2_kernel'):.4f} "
+                         f"(err {err:.2g})")
+        print(f"variants paged_verify [{rail}] (runs x row blocks: device "
+              f"ms): " + ", ".join(times))
+    b, hkv, g, s_len, kvl, d = DEC_B, DEC_HKV, DEC_G, DEC_S, DEC_KV, DEC_D
+    q = torch.randn((b, hkv, g, d), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    ring = [torch.randn((b, s_len, hkv, d), generator=gen, device="cuda").to(
+        torch.bfloat16).transpose(1, 2) for _ in range(2)]
+    for rail, cells in (("fa2", (1, 2, 3, 5)), ("hfa", (1,))):
+        use_hfa = rail == "hfa"
+        times = []
+        for splits in cells:
+            def call(splits=splits):
+                return cuda_lib.launch_dense_decode(
+                    q, *ring, scale=d ** -0.5, kv_len=kvl, use_hfa=use_hfa,
+                    splits=splits)
+            times.append(f"{splits}: "
+                         f"{dev(call, 'dense_decode_v2_kernel'):.4f}")
+        print(f"variants dense_decode [{rail}] (runs: device ms): "
+              + ", ".join(times))
+
+
 # Kernel-name substrings of the port's dense attention kernels in a trace.
 ATTENTION_KERNELS = {"forward (tensor cores)": "dense_fwd_tc_kernel",
                      "forward (CUDA cores)": "dense_fwd_kernel",
@@ -1855,10 +2047,12 @@ def main() -> int:
         check_small_reference()
         paged = _paged_counts()
         if paged["paged_prefill_simt"] <= 0 or paged["paged_prefill"] \
-                or paged["paged_decode"] <= 0 or paged["paged_decode_simt"]:
+                or paged["paged_decode"] <= 0 or paged["paged_decode_simt"] \
+                or paged["paged_verify"] <= 0 or paged["paged_verify_simt"]:
             raise AssertionError(f"reference: the reduced f32 model's paged "
                                  f"launches {paged}: its prefill must run "
-                                 "on the CUDA cores alone, its decode on v2")
+                                 "on the CUDA cores alone, its decode and "
+                                 "verify on v2")
         print(f"reference: paged launches of the reduced f32 model by route "
               f"{paged}")
         _reset_dense_counters()
@@ -1881,6 +2075,8 @@ def main() -> int:
         profile_train()
     if "profile_dense" in phases:
         profile_dense()
+    if "decode_variants" in phases:
+        decode_variants()
     totals: dict = {}
     for phase, run in (("engine", check_engine),
                        ("dense_serve", check_dense_serve),

@@ -7,8 +7,10 @@ a text edit of the source that removes or changes one part of the work -
 with nvcc into ``build/paged_tc_variants/<variant>/``, and times every
 variant in this one process, on one card, at the kernels-phase shapes of
 ``chip_smoke.py`` (prefill: B 2, Hkv 8, G 2, 512-token chunks at 520 and
-1000, d 128, bf16, page 16; decode: B 8, kv up to 2048, split 5 on the
-FA-2 rail and unsplit).  Each time is the best of 5 CUDA-event windows
+1000, d 128, bf16, page 16; decode: B 8, kv up to 2048, split 5 and 8 on
+the FA-2 rail and unsplit; verify: B 8, K 5, split 8 on the FA-2 rail,
+one block a query head on the H-FA rail).  Each time is the best of 5
+CUDA-event windows
 of 50 back-to-back launches called straight through ctypes, so the host
 adds no gap.  The variants that remove work give wrong results: they
 exist only to be timed.
@@ -22,6 +24,13 @@ exist only to be timed.
   units1      one warpgroup (one query head) a block, 2-stage ring
   tiles4      the unsplit bf16 decode at G 2 in 4-tile steps (the source
               takes 8)
+  dc_ring3    a 3-step cp.async ring in the decode and verify (the source
+              has 2)
+  dc_rpt1     the FA-2 verify one row a thread (the source takes two)
+  dc_hfa_rpt2 the H-FA verify at one query head a block two rows a
+              thread (the source takes one)
+  dc_abs      the decode and verify walks cut into runs at tile indices
+              fixed by the table width, not by each slot's length
 
 Without a card, or without nvcc, it exits non-zero.
 """
@@ -69,6 +78,14 @@ VARIANTS = {
                RING2],
     "tiles4": [("  constexpr int kWideStep = sizeof(T) == 2 ? 8 : 4;",
                 "  constexpr int kWideStep = 4;")],
+    "dc_ring3": [("constexpr int kDcRing = 2;", "constexpr int kDcRing = 3;")],
+    "dc_rpt1": [("return launch_dc<T, D, false, kWide, 4, 2>(p, lut, B, s);",
+                 "return launch_dc<T, D, false, 2 * kWide, 4, 1>(p, lut, B, s);")],
+    "dc_hfa_rpt2": [(": launch_dc<T, D, true, kWide, 4, 1>(p, lut, B, s);",
+                     ": launch_dc<T, D, true, kWide, 4, 2>(p, lut, B, s);")],
+    "dc_abs": [("const int per = (n_tiles + p.splits - 1) / p.splits;",
+                "const int per = ((p.J * p.page + kDcTile - 1) / kDcTile + "
+                "p.splits - 1) / p.splits;")],
 }
 
 
@@ -86,8 +103,8 @@ def build(names: list[str]) -> dict:
             text = text.replace(old, new)
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        for header in ("hfa_rail.cuh", "tc_common.cuh"):
-            (d / header).write_text((CSRC / header).read_text())
+        for header in CSRC.glob("*.cuh"):
+            (d / header.name).write_text(header.read_text())
         (d / "k.cu").write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
@@ -100,7 +117,8 @@ def build(names: list[str]) -> dict:
             raise RuntimeError(f"variant {name}: nvcc failed:\n{err}")
         libs[name] = cuda_lib.bind(
             ctypes.CDLL(str(OUT / name / "lib.so")),
-            ("paged_prefill_fwd_tc", "paged_decode_fwd_v2"))
+            ("paged_prefill_fwd_tc", "paged_decode_fwd_v2",
+             "paged_verify_fwd_v2"))
     return libs
 
 
@@ -134,9 +152,17 @@ def shapes():
     dc = [rnd(8, hkv, g, d), kp, vp, pt, i32(kvl),
           torch.empty((8, hkv, g, d), device="cuda")] + [
         torch.empty((8, hkv, g), device="cuda") for _ in range(2)] + [
-        torch.empty(8 * hkv * 5 * g * (d + 2), device="cuda"),
+        torch.empty(8 * hkv * 8 * g * (d + 2), device="cuda"),
         torch.zeros(8 * hkv, dtype=torch.int32, device="cuda")]
-    return pf, dc, (hkv, g, d, page, j, pf[1].shape[0])
+    sl = rng.integers(1, 2048 - 5, 8)
+    cl = rng.integers(1, 6, 8)
+    sl[3], cl[3], cl[0] = 0, 0, 5
+    vf = [rnd(8, hkv, g, 5, d), kp, vp, pt, i32(sl), i32(cl),
+          torch.empty((8, hkv, g, 5, d), device="cuda")] + [
+        torch.empty((8, hkv, g, 5), device="cuda") for _ in range(2)] + [
+        torch.empty(8 * hkv * 8 * g * 5 * (d + 2), device="cuda"),
+        torch.zeros(8 * hkv * g, dtype=torch.int32, device="cuda")]
+    return pf, dc, vf, (hkv, g, d, page, j, pf[1].shape[0])
 
 
 def timed(fn, n: int = 50) -> float:
@@ -163,7 +189,7 @@ def main() -> int:
         return 1
     names = sys.argv[1:] or list(VARIANTS)
     libs = build(names)
-    pf, dc, (hkv, g, d, page, j, n_pages) = shapes()
+    pf, dc, vf, (hkv, g, d, page, j, n_pages) = shapes()
     lut = ctypes.cast(cuda_lib._LUT, ctypes.c_void_p)
     scale = ctypes.c_float(d ** -0.5)
 
@@ -186,11 +212,18 @@ def main() -> int:
             return lib.paged_decode_fwd_v2(*ptrs(dc), 8, hkv, g, d, j, page,
                                            splits, scale, hfa, 1, lut,
                                            stream())
+        def verify(hfa, splits, row_blocks, lib=lib):
+            return lib.paged_verify_fwd_v2(*ptrs(vf), 8, hkv, g, 5, d, j,
+                                           page, splits, row_blocks, scale,
+                                           hfa, 1, lut, stream())
         print(f"{name:12s} prefill ms fa2 {timed(lambda: prefill(0)):.4f} "
               f"hfa {timed(lambda: prefill(1)):.4f} | decode ms fa2 split 5 "
-              f"{timed(lambda: decode(0, 5)):.4f}, unsplit fa2 "
+              f"{timed(lambda: decode(0, 5)):.4f}, split 8 "
+              f"{timed(lambda: decode(0, 8)):.4f}, unsplit fa2 "
               f"{timed(lambda: decode(0, 1)):.4f} hfa "
-              f"{timed(lambda: decode(1, 1)):.4f}", flush=True)
+              f"{timed(lambda: decode(1, 1)):.4f} | verify ms fa2 split 8 "
+              f"{timed(lambda: verify(0, 8, 1)):.4f}, hfa {g} row blocks "
+              f"{timed(lambda: verify(1, 1, g)):.4f}", flush=True)
     return 0
 
 

@@ -36,13 +36,15 @@
 // What bounds it: the bytes of the live K/V pages (every page is read
 // once per 16-row tile, once per block from device memory and the rest
 // from L2).  It uses CUDA cores, plain loads and no split of the page
-// walk across blocks.  Verify always runs here; decode and bf16 prefill
-// at page 16 run the redesigned kernels of paged_attention_tc.cu
-// (paged_decode_fwd_v2, paged_prefill_fwd_tc), and this body stays for
-// f32 pools, d 32 / 96 and other page sizes (the rule is in
-// kernels/cuda_lib.py).  D is 32, 64, 96 or 128.  The scale is one
-// rounded multiply and l and acc are updated with explicit FMAs, so the
-// v2 decode, which repeats this order, is bit-equal to it.
+// walk across blocks.  Decode, verify with at most 16 rows a (slot, kv
+// head) and bf16 prefill at page 16 run the redesigned kernels of
+// paged_attention_tc.cu (paged_decode_fwd_v2, paged_verify_fwd_v2,
+// paged_prefill_fwd_tc); this body stays for verify with more rows and
+// for prefill with f32 pools, d 32 / 96 or other page sizes (the rules
+// are in kernels/cuda_lib.py), and paged_decode_fwd for the checks.  D is
+// 32, 64, 96 or 128.  The scale is one rounded multiply and l and acc are
+// updated with explicit FMAs, so the v2 decode and verify, which repeat
+// this order, are bit-equal to it.
 //
 // The H-FA rail (quant_rail, exp2_hfa_rail, recip_logdiv) comes from
 // hfa_rail.cuh, bit-equal to the plain torch versions.

@@ -1,13 +1,16 @@
-// Paged chunked prefill on Hopper's tensor cores and paged decode as a
-// bandwidth kernel (sm_90a), on the fa2 rail (exp, float divide later)
-// or the H-FA rail (FIX16 quantized exponentials, hfa_rail.cuh).
+// Paged chunked prefill on Hopper's tensor cores, and paged decode and
+// speculative verify as one bandwidth kernel (sm_90a), on the fa2 rail
+// (exp, float divide later) or the H-FA rail (FIX16 quantized
+// exponentials, hfa_rail.cuh).
 //
-// Replaces two Pallas TPU kernels of the reference package:
+// Replaces three Pallas TPU kernels of the reference package:
 //   src/repro/kernels/paged_prefill.py  _paged_prefill_kernel -> paged_prefill_fwd_tc
 //   src/repro/kernels/paged_decode.py   _paged_decode_kernel  -> paged_decode_fwd_v2
-// Both emit the unnormalized triplet (o~, m, l) per query row, as the
-// CUDA-core body of paged_attention.cu does, which stays for verify, for
-// f32 pools and d 32 / 96 in prefill, and for other page sizes.
+//   src/repro/kernels/paged_verify.py   _paged_verify_kernel  -> paged_verify_fwd_v2
+// All emit the unnormalized triplet (o~, m, l) per query row, as the
+// CUDA-core body of paged_attention.cu does, which stays for f32 pools
+// and d 32 / 96 in prefill, other page sizes in prefill, and verify with
+// more than 16 rows a (slot, kv head).
 //
 // ---------------------------------------------------------------- prefill
 // What it computes.  A chunk of L positions from start_pos, G query heads
@@ -58,39 +61,55 @@
 // saves, PERF.md).  l is summed in f32 from the unsplit p and rounded
 // twice, l alpha then + sum p, as the plain version.
 //
-// ----------------------------------------------------------------- decode
-// What it computes.  One query token per slot: the G rows of a (slot, kv
-// head) see kv < kv_lens[b].  It keeps the arithmetic order of the
-// CUDA-core kernel (paged_attention.cu) everywhere: 16-key tiles, each
-// score four interleaved fmaf chains over D then ((d0 + d1) + (d2 + d3))
-// times the scale, max and sum of p as xor butterflies over a tile's 16
-// lanes, P V as an fmaf chain over the tile's 16 keys and then
-// acc = fmaf(acc, alpha, pv), l = fmaf(l, alpha, sum p).  An unsplit walk
-// is therefore bit-equal to paged_decode_fwd on both rails.
+// ------------------------------------------------------ decode and verify
+// What they compute.  Verify scores K = 1 + spec_k tokens a slot: the
+// G K rows of a (slot, kv head), flattened kv-head major, where row r
+// sits at seq_lens[b] + r % K and sees kv <= seq_lens[b] + r % K and
+// kv < seq_lens[b] + chunk_lens[b] (a free slot, chunk_lens 0, sees
+// nothing: the neutral triplet).  Decode is verify with K = 1 at
+// seq_lens = kv_lens - 1, chunk_lens = 1: its G rows see kv < kv_lens[b].
+// So one body takes both, with a per-row causal limit min(base + r % K +
+// 1, limit), base and limit per slot as in paged_attention.cu's mode
+// switch.  It keeps the arithmetic order of the CUDA-core kernel
+// everywhere: 16-key tiles, each score four interleaved fmaf chains over
+// D then ((d0 + d1) + (d2 + d3)) times the scale, max and sum of p as xor
+// butterflies over a tile's 16 lanes, P V as an fmaf chain over the
+// tile's 16 keys and then acc = fmaf(acc, alpha, pv), l = fmaf(l, alpha,
+// sum p).  An unsplit walk is therefore bit-equal to paged_decode_fwd and
+// paged_verify_fwd on both rails: a tile a row cannot see leaves its
+// triplet unchanged bit for bit (alpha is exactly 1, p 0), so where a
+// block's walk stops - at the furthest position one of its rows sees -
+// does not matter.
 //
-// What bounds it: bytes.  One token does 2 flops per K/V byte; the least
-// time is the live K/V pages over 3.35 TB/s (8.6 us at B 8, Hkv 8, kv up to
-// 2048, d 128, bf16).
+// What bounds them: bytes.  One decode token does 2 flops per K/V byte,
+// a verify row the same, so even verify's 10 rows (G 2, K 5) do 20 flops
+// per byte, far below the card's ridge; the least time is the live K/V
+// pages over 3.35 TB/s (8.6 us for decode and 11.6 us for verify at
+// B 8, Hkv 8, kv up to 2048, d 128, bf16).
 //
-// Design.  Rows sized to G (not 16): a block of 64 G threads, thread
-// (row, key) scoring one key of a 4-tile (64-key) step, so at G 2 all four
-// warps score (the unsplit bf16 walk at G <= 2 takes 8-tile steps with
-// 128 G threads: one block an SM, twice the warps to hide a step's
-// latency).  The per-tile online update then runs in tile order over the
-// step's 4 tiles (the row's prefix max from shared memory), and threads
-// that own output columns apply acc = acc alpha_j + sum_k p v tile by tile.
-// Tiles arrive by cp.async (16 bytes a thread, rows padded by 16 bytes so
-// the score loads hit distinct banks) into a ring of two steps, so the
-// next 32 KB (d 128 bf16) load while a step computes.  On the FA-2 rail
-// the page walk is split across blocks into contiguous runs of tiles, so
-// that the grid fills the card; each split writes its triplet to a
-// workspace, and the last block of a (slot, kv head) to finish (an atomic
-// counter that wraps back to 0 as it counts that block) merges them by
-// Eq. 16: m = max m_s,
-// l = sum l_s exp(m_s - m), o = sum o_s exp(m_s - m), in split order.  A
-// split with no live key is the neutral triplet and merges to no NaN.  The
-// H-FA rail stays unsplit: a split moves the rescale points, and the
-// result would no longer be the reference's walk.
+// Design.  Rows sized to the work (not 16): a block takes RB of the G K
+// rows (RB <= 16), thread (rows, key) scoring one key of a 4-tile
+// (64-key) step for one row (RB <= 4, and RB <= 8 on the H-FA rail: 64
+// RB threads) or for two (more rows: 64 ceil(RB / 2) threads, each key
+// chunk read from shared memory once for both); the unsplit bf16 walk at RB <= 2 takes 8-tile steps
+// with 128 RB threads (one block an SM, twice the warps to hide a step's
+// latency).  The per-tile
+// online update then runs in tile order over the step's 4 tiles (the
+// row's prefix max from shared memory), and a thread that owns the
+// output column pair 2 key, 2 key + 1 of its rows applies acc = acc
+// alpha_j + sum_k p v tile by tile, reading V two columns and p four keys
+// a load.  Tiles arrive by cp.async (16 bytes a thread,
+// rows padded by 16 bytes so the score loads hit distinct banks) into a
+// ring of two steps, so the next 32 KB (d 128 bf16) load while a step
+// computes.  On the FA-2 rail the page walk is split across blocks into
+// contiguous runs of tiles, so that the grid fills the card, and the last
+// block of a (slot, kv head) to finish merges the runs by Eq. 16
+// (decode_common.cuh).  The H-FA rail stays unsplit: a split moves the
+// rescale points, and the result would no longer be the reference's
+// walk.  Its parallelism can come from the rows instead: row_blocks > 1
+// gives each block R / row_blocks of the rows (one query head's K rows,
+// say), every block walking the whole table - no row's arithmetic
+// changes, and the second read of a page comes from L2.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -98,6 +117,7 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "decode_common.cuh"
 #include "hfa_rail.cuh"
 #include "tc_common.cuh"
 
@@ -472,114 +492,111 @@ bool aligned16(const void* ptr) { return (reinterpret_cast<uintptr_t>(ptr) & 15)
 
 // ================================================================= decode
 constexpr int kDcTile = 16;                    // keys per tile: the rescale step
-constexpr int kDcMaxG = 16;                    // 64 G threads a block
-constexpr int kDcSmallG = 4;                   // G the register-rich variant takes
+constexpr int kDcMaxRows = 16;                 // query rows a block
+constexpr int kDcSmallRows = 4;                // rows the register-rich variant takes
 
+// Decode and verify, one body.  Row r of a (slot b, kv head h) - the
+// flattened (G, L) block, kv-head major - sits at local position r % L
+// and sees KV positions kv <= base + r % L and kv < limit:
+//   decode (L = 1, lens_b null): base = lens_a - 1, limit = lens_a
+//   verify (L = K):              base = lens_a, limit = lens_a + lens_b
 struct DcParams {
-  const void* q;        // (B, Hkv, G, D)
+  const void* q;        // (B, Hkv, R, D)
   const void* k;        // (P, page, Hkv, D)
   const void* v;
   const int* pt;        // (B, J)
-  const int* kv_lens;   // (B,)
-  float* o;             // (B, Hkv, G, D)
-  float* m;             // (B, Hkv, G)
+  const int* lens_a;    // (B,) decode: kv_lens; verify: seq_lens
+  const int* lens_b;    // (B,) verify: chunk_lens; null for decode
+  float* o;             // (B, Hkv, R, D)
+  float* m;             // (B, Hkv, R)
   float* l;
-  float* ws;            // (B Hkv, splits, G, D + 2) split triplets, splits > 1
-  unsigned* counters;   // (B Hkv) splits finished, 0 between launches
-  int G, J, page, hkv, splits;
+  float* ws;            // (B Hkv, splits, R, D + 2) run triplets, splits > 1
+  unsigned* counters;   // (B Hkv row_blocks) runs finished, 0 between launches
+  int R, L, RB, J, page, hkv, splits;   // RB: rows a block (R / row_blocks)
   float scale;
 };
 
 constexpr int kDcRing = 2;                     // steps in the cp.async ring
 
-// TILES: 16-key tiles a compute step takes, 16 TILES G threads a block: 4
-// for the split walk (whose blocks share an SM three at a time), 8 for the
-// unsplit bf16 walk at G <= 2 (one block an SM: twice the keys in flight
-// and twice the warps to hide the step's latency).
-template <typename T, int D, int TILES>
+// TILES: 16-key tiles a compute step takes; RPT: rows a thread takes.  A
+// block has 16 TILES ceil(RB / RPT) threads: TILES 4 for the split walk
+// (whose blocks share an SM), 8 for the unsplit bf16 walk at RB <= 2 (one
+// block an SM: twice the keys in flight and twice the warps to hide the
+// step's latency); RPT 2 above 4 rows on the FA-2 rail, so that each key
+// chunk and each V pair read from shared memory serves two rows, and on
+// the H-FA rail, whose longer rail per score wants the warps more, 1 up
+// to 8 rows and 2 above (the variants dc_rpt1 and dc_hfa_rpt2 of
+// paged_tc_variants.py, and PERF.md, have the times).
+template <typename T, int D, int TILES, int RPT>
 struct DcLayout {
   static constexpr int kRow = D * (int)sizeof(T) + 16;     // padded smem row, bytes
   static constexpr int kTileBytes = kDcTile * kRow;
   static constexpr int kStep = kDcTile * TILES;            // keys a step
   static constexpr int kRingBytes = kDcRing * TILES * kTileBytes;   // K or V
   static constexpr int kChunks = D * (int)sizeof(T) / 16;  // 16-byte copies per key row
+  __host__ __device__ static constexpr int rows(int rb) { return (rb + RPT - 1) / RPT * RPT; }
   // K ring, V ring, q (f32), p (f32), then per (row, tile) max, alpha, sum.
-  static constexpr int bytes(int G) {
-    return 2 * kRingBytes + G * D * 4 + G * kStep * 4 + 3 * G * TILES * 4;
+  static constexpr int bytes(int rb) {
+    return 2 * kRingBytes + rows(rb) * D * 4 + rows(rb) * kStep * 4 +
+           3 * rows(rb) * TILES * 4;
   }
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void widen8(const float* p, float* o) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  o[0] = a.x; o[1] = a.y; o[2] = a.z; o[3] = a.w;
-}
-// 16 bytes of a padded smem row as f32: 8 bf16 or 4 f32 values.
-__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
-    o[2 * i] = f.x;
-    o[2 * i + 1] = f.y;
-  }
-}
-__device__ __forceinline__ void widen16(const float* p, float* o) { widen8(p, o); }
-
-__device__ __forceinline__ float dc_f32(float x) { return x; }
-__device__ __forceinline__ float dc_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
 // MAXT: the block size the registers are budgeted for - 256 threads (up
-// to 255 registers a thread) for G <= 4, 1024 for larger G.
-template <typename T, int D, bool HFA, int MAXT, int TILES>
+// to 255 registers a thread) for RB <= 4, 512 (up to 128) for more rows.
+template <typename T, int D, bool HFA, int MAXT, int TILES, int RPT>
 __global__ void __launch_bounds__(MAXT) paged_decode_v2_kernel(const DcParams p, const Lut lut) {
-  using Lay = DcLayout<T, D, TILES>;
+  using Lay = DcLayout<T, D, TILES, RPT>;
   constexpr int kDcStep = Lay::kStep;
   constexpr int VPE = 16 / (int)sizeof(T);       // values per 16-byte load
-  constexpr int NCOL = (D + 63) / 64;            // output columns a thread owns
+  constexpr int kRowT = Lay::kRow / (int)sizeof(T);
   extern __shared__ __align__(16) uint8_t dc_smem[];
   uint8_t* k_ring = dc_smem;
   uint8_t* v_ring = k_ring + Lay::kRingBytes;
-  float* q_s = reinterpret_cast<float*>(v_ring + Lay::kRingBytes);   // [G][D]
-  float* p_s = q_s + p.G * D;                    // [G][16 TILES]
-  float* tmax = p_s + p.G * kDcStep;             // [G][TILES]
-  float* talpha = tmax + p.G * TILES;            // [G][TILES]
-  float* tsum = talpha + p.G * TILES;            // [G][TILES]
-  __shared__ int last_block;
+  const int rows = Lay::rows(p.RB);
+  float* q_s = reinterpret_cast<float*>(v_ring + Lay::kRingBytes);   // [rows][D]
+  float* p_s = q_s + rows * D;                   // [rows][16 TILES]
+  float* tmax = p_s + rows * kDcStep;            // [rows][TILES]
+  float* talpha = tmax + rows * TILES;           // [rows][TILES]
+  float* tsum = talpha + rows * TILES;           // [rows][TILES]
 
-  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int sp = blockIdx.x % p.splits, rb = blockIdx.x / p.splits;
+  const int h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, nthreads = blockDim.x;
-  const int r = tid / kDcStep, kk = tid % kDcStep;   // (row, key of the step)
+  // Thread (rows r0 .. r0 + RPT - 1 of the block, key kk of the step); in
+  // P V it owns the output column pair 2 kk, 2 kk + 1 of those rows.
+  const int r0 = tid / kDcStep * RPT, kk = tid % kDcStep;
   const int tj = kk / kDcTile, lane16 = kk % kDcTile;
-  const bool owner = kk < 64;   // owns output columns kk, kk + 64 of row r
+  const bool owner = 2 * kk < D;
   const size_t bh = (size_t)b * p.hkv + h;
+  const int row0 = rb * p.RB;                    // first row of the block
 
-  const int n_kv = max(0, min(p.kv_lens[b], p.J * p.page));
+  const int a = p.lens_a[b];
+  const int base = p.lens_b == nullptr ? a - 1 : a;
+  const int limit = p.lens_b == nullptr ? a : a + p.lens_b[b];
+  bool valid[RPT];
+  int qpos[RPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    valid[i] = r0 + i < p.RB;
+    qpos[i] = base + (row0 + r0 + i) % p.L;
+  }
+  // The furthest position a row of this block sees bounds the walk.
+  const int last = row0 + p.RB - 1;
+  const int max_l = (last / p.L != row0 / p.L) ? p.L - 1 : last % p.L;
+  const int n_kv = max(0, min(min(base + max_l + 1, limit), p.J * p.page));
   const int n_tiles = (n_kv + kDcTile - 1) / kDcTile;
   const int per = (n_tiles + p.splits - 1) / p.splits;
   const int t_begin = min(sp * per, n_tiles), t_end = min(t_begin + per, n_tiles);
   const int n_steps = (t_end - t_begin + TILES - 1) / TILES;
 
-  const T* qg = static_cast<const T*>(p.q) + bh * p.G * D;
-  for (int i = tid; i < p.G * D; i += nthreads) q_s[i] = dc_f32(qg[i]);
+  const T* qg = static_cast<const T*>(p.q) + (bh * p.R + row0) * D;
+  for (int i = tid; i < rows * D; i += nthreads) q_s[i] = i < p.RB * D ? dc_f32(qg[i]) : 0.f;
 
   const T* kpool = static_cast<const T*>(p.k);
   const T* vpool = static_cast<const T*>(p.v);
   const int* ptb = p.pt + (size_t)b * p.J;
-  const uint32_t k_base = smem_u32(k_ring), v_base = smem_u32(v_ring);
+  const uint32_t k_base = dc_smem_addr(k_ring), v_base = dc_smem_addr(v_ring);
   // cp.async of the tiles of step st into ring slot st % kDcRing; keys at
   // or past n_kv are zero-filled (their p is 0, and 0 * 0 adds nothing).
   auto load_step = [&](int st) {
@@ -590,18 +607,21 @@ __global__ void __launch_bounds__(MAXT) paged_decode_v2_kernel(const DcParams p,
       const int key = idx / Lay::kChunks, c = idx % Lay::kChunks;
       const int kv = tile0 * kDcTile + key;
       const bool live = kv < n_kv;
-      const size_t row = live ? (size_t)ptb[kv / p.page] * p.page + kv % p.page : 0;
-      const size_t off = (row * p.hkv + h) * D + c * VPE;
+      const size_t prow = live ? (size_t)ptb[kv / p.page] * p.page + kv % p.page : 0;
+      const size_t off = (prow * p.hkv + h) * D + c * VPE;
       const uint32_t dst = slot + key * Lay::kRow + c * 16;
       cp_async16(k_base + dst, kpool + off, live ? 16 : 0);
       cp_async16(v_base + dst, vpool + off, live ? 16 : 0);
     }
   };
 
-  float m_run = kNegInf, l_run = 0.f, acc[NCOL];
+  float m_run[RPT], l_run[RPT], acc[RPT][2];
 #pragma unroll
-  for (int c = 0; c < NCOL; ++c) acc[c] = 0.f;
-  const float* qr = q_s + r * D;
+  for (int i = 0; i < RPT; ++i) {
+    m_run[i] = kNegInf;
+    l_run[i] = 0.f;
+    acc[i][0] = acc[i][1] = 0.f;
+  }
   __syncthreads();   // q_s written
 
 #pragma unroll
@@ -617,175 +637,182 @@ __global__ void __launch_bounds__(MAXT) paged_decode_v2_kernel(const DcParams p,
     const int tile0 = t_begin + st * TILES;
     const int nt = min(TILES, t_end - tile0);
     const uint32_t slot = (uint32_t)(st % kDcRing) * TILES * Lay::kTileBytes;
-    // Scores: thread (r, kk) takes key kk of the step, as the CUDA-core
-    // kernel's lane does (four interleaved chains over D).
+    // Scores: thread (rows, kk) takes key kk of the step for each of its
+    // rows, as the CUDA-core kernel's lane does (four interleaved chains
+    // over D).
     const int kv = (tile0 + tj) * kDcTile + lane16;
-    const bool vis = tj < nt && kv < n_kv;
-    const T* kr = reinterpret_cast<const T*>(k_ring + slot + kk * Lay::kRow);
-    float d0 = 0.f, d1 = 0.f, d2 = 0.f, d3 = 0.f;
+    const bool key_live = tj < nt && kv < n_kv && kv < limit;
+    float dot[RPT];
+    dc_dots<T, D, RPT>(q_s + r0 * D, D,
+                       reinterpret_cast<const T*>(k_ring + slot + kk * Lay::kRow), dot);
+    float s[RPT];
+    bool vis[RPT];
 #pragma unroll
-    for (int i = 0; i < D; i += VPE) {
-      float kf[VPE], qf[VPE];
-      widen16(kr + i, kf);
+    for (int i = 0; i < RPT; ++i) {
+      vis[i] = valid[i] && key_live && kv <= qpos[i];
+      s[i] = vis[i] ? __fmul_rn(dot[i], p.scale) : kNegInf;
+      float mx = s[i];
 #pragma unroll
-      for (int u = 0; u < VPE; u += 4) widen8(qr + i + u, qf + u);
-#pragma unroll
-      for (int u = 0; u < VPE; u += 4) {
-        d0 = fmaf(qf[u], kf[u], d0);
-        d1 = fmaf(qf[u + 1], kf[u + 1], d1);
-        d2 = fmaf(qf[u + 2], kf[u + 2], d2);
-        d3 = fmaf(qf[u + 3], kf[u + 3], d3);
-      }
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      if (lane16 == 0) tmax[(r0 + i) * TILES + tj] = mx;
     }
-    const float s = vis ? __fmul_rn((d0 + d1) + (d2 + d3), p.scale) : kNegInf;
-    float mx = s;
-#pragma unroll
-    for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    if (lane16 == 0) tmax[r * TILES + tj] = mx;
     __syncthreads();
-    // The row's running max through the step's tiles, in order; this
-    // thread's tile takes m before it and m_new after it.
-    float m_prev = m_run, m_new = m_run;
-    for (int j = 0; j < nt; ++j) {
-      m_prev = m_new;
-      m_new = fmaxf(m_prev, tmax[r * TILES + j]);
-      if (j == tj) break;
-    }
-    float alpha, pv;
-    if (HFA) {
-      alpha = exp2_hfa_rail(quant_rail(fminf(m_prev - m_new, 0.f)), lut);
-      pv = exp2_hfa_rail(quant_rail(s - m_new), lut);
-    } else {
-      alpha = expf(fminf(m_prev - m_new, 0.f));
-      pv = expf(s - m_new);
-    }
-    pv = (vis && m_new != kNegInf) ? pv : 0.f;
-    float ps = pv;
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
-    p_s[r * kDcStep + kk] = pv;
-    if (lane16 == 0 && tj < nt) {
-      talpha[r * TILES + tj] = alpha;
-      tsum[r * TILES + tj] = ps;
+    for (int i = 0; i < RPT; ++i) {
+      const int r = r0 + i;
+      // The row's running max through the step's tiles, in order; this
+      // thread's tile takes m before it and m_new after it.
+      float m_prev = m_run[i], m_new = m_run[i];
+      for (int j = 0; j < nt; ++j) {
+        m_prev = m_new;
+        m_new = fmaxf(m_prev, tmax[r * TILES + j]);
+        if (j == tj) break;
+      }
+      float alpha, pv;
+      if (HFA) {
+        alpha = exp2_hfa_rail(quant_rail(fminf(m_prev - m_new, 0.f)), lut);
+        pv = exp2_hfa_rail(quant_rail(s[i] - m_new), lut);
+      } else {
+        alpha = expf(fminf(m_prev - m_new, 0.f));
+        pv = expf(s[i] - m_new);
+      }
+      pv = (vis[i] && m_new != kNegInf) ? pv : 0.f;
+      float ps = pv;
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      p_s[r * kDcStep + kk] = pv;
+      if (lane16 == 0 && tj < nt) {
+        talpha[r * TILES + tj] = alpha;
+        tsum[r * TILES + tj] = ps;
+      }
     }
     __syncthreads();
     // Each tile's sum_k p v (an fmaf chain over its 16 keys; the tiles'
     // chains are independent), then tile by tile acc = acc alpha_j + that
-    // sum, l = l alpha_j + sum p; m after the step's last tile.  Threads
-    // (row, kk) own output columns kk, kk + 64 of the row.
-    const float* pr = p_s + r * kDcStep;
-    float pvacc[TILES][NCOL];
+    // sum, l = l alpha_j + sum p; m after the step's last tile.  A V pair
+    // read once serves every row of the thread, four keys' p at a time.
+    float pvacc[TILES][RPT][2];
 #pragma unroll
     for (int j = 0; j < TILES; ++j) {
-      const T* vt = reinterpret_cast<const T*>(v_ring + slot + j * Lay::kTileBytes);
 #pragma unroll
-      for (int c = 0; c < NCOL; ++c) {
-        pvacc[j][c] = 0.f;
-        const int col = kk + 64 * c;
-        if (owner && j < nt && col < D) {
+      for (int i = 0; i < RPT; ++i) pvacc[j][i][0] = pvacc[j][i][1] = 0.f;
+      if (owner && j < nt) {
+        const T* vt = reinterpret_cast<const T*>(v_ring + slot + j * Lay::kTileBytes) + 2 * kk;
 #pragma unroll
-          for (int key = 0; key < kDcTile; ++key)
-            pvacc[j][c] = fmaf(pr[j * kDcTile + key],
-                               dc_f32(vt[key * (Lay::kRow / (int)sizeof(T)) + col]), pvacc[j][c]);
+        for (int k4 = 0; k4 < kDcTile; k4 += 4) {
+          float4 p4[RPT];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            p4[i] = *reinterpret_cast<const float4*>(p_s + (r0 + i) * kDcStep + j * kDcTile + k4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float2 vv = dc_pair(vt + (k4 + u) * kRowT);
+#pragma unroll
+            for (int i = 0; i < RPT; ++i) {
+              const float pk = u == 0 ? p4[i].x : u == 1 ? p4[i].y : u == 2 ? p4[i].z : p4[i].w;
+              pvacc[j][i][0] = fmaf(pk, vv.x, pvacc[j][i][0]);
+              pvacc[j][i][1] = fmaf(pk, vv.y, pvacc[j][i][1]);
+            }
+          }
         }
       }
     }
 #pragma unroll
     for (int j = 0; j < TILES; ++j) {
       if (j >= nt) break;
-      const float a = talpha[r * TILES + j];
 #pragma unroll
-      for (int c = 0; c < NCOL; ++c) acc[c] = fmaf(acc[c], a, pvacc[j][c]);
-      l_run = fmaf(l_run, a, tsum[r * TILES + j]);
-      m_run = fmaxf(m_run, tmax[r * TILES + j]);
+      for (int i = 0; i < RPT; ++i) {
+        const int r = r0 + i;
+        const float al = talpha[r * TILES + j];
+        acc[i][0] = fmaf(acc[i][0], al, pvacc[j][i][0]);
+        acc[i][1] = fmaf(acc[i][1], al, pvacc[j][i][1]);
+        l_run[i] = fmaf(l_run[i], al, tsum[r * TILES + j]);
+        m_run[i] = fmaxf(m_run[i], tmax[r * TILES + j]);
+      }
     }
     __syncthreads();   // step st consumed before its slot is refilled
   }
   cp_async_wait<0>();
 
-  const size_t row = bh * p.G + r;
+  const int cols[2] = {owner ? 2 * kk : -1, owner ? 2 * kk + 1 : -1};
+  const size_t stride = (size_t)p.R * (D + 2);
   if (p.splits == 1) {
 #pragma unroll
-    for (int c = 0; c < NCOL; ++c)
-      if (owner && kk + 64 * c < D) p.o[row * D + kk + 64 * c] = acc[c];
-    if (kk == 0) {
-      p.m[row] = m_run;
-      p.l[row] = l_run;
+    for (int i = 0; i < RPT; ++i) {
+      if (!valid[i]) continue;
+      const size_t orow = bh * p.R + row0 + r0 + i;
+      if (owner) *reinterpret_cast<float2*>(p.o + orow * D + 2 * kk) = make_float2(acc[i][0], acc[i][1]);
+      if (kk == 0) {
+        p.m[orow] = m_run[i];
+        p.l[orow] = l_run[i];
+      }
     }
     return;
   }
-  // Split walk: this block's triplet to the workspace; the last block of
-  // the (slot, kv head) merges all of them.
-  float* wsr = p.ws + ((bh * p.splits + sp) * p.G + r) * (D + 2);
+  // Split walk: this block's triplets to the workspace; the last block of
+  // the (slot, kv head, row block) merges all of them.
 #pragma unroll
-  for (int c = 0; c < NCOL; ++c)
-    if (owner && kk + 64 * c < D) wsr[kk + 64 * c] = acc[c];
-  if (kk == 0) {
-    wsr[D] = m_run;
-    wsr[D + 1] = l_run;
+  for (int i = 0; i < RPT; ++i) {
+    if (!valid[i]) continue;
+    float* wsr = p.ws + (bh * p.splits + sp) * stride + (size_t)(row0 + r0 + i) * (D + 2);
+    if (owner) {
+      wsr[2 * kk] = acc[i][0];
+      wsr[2 * kk + 1] = acc[i][1];
+    }
+    if (kk == 0) {
+      wsr[D] = m_run[i];
+      wsr[D + 1] = l_run[i];
+    }
   }
-  __threadfence();
-  __syncthreads();
-  // atomicInc wraps at splits - 1: the last block reads splits - 1 and
-  // leaves the counter at 0 for the next launch, with no reset to order.
-  if (tid == 0) last_block = atomicInc(&p.counters[bh], p.splits - 1) == p.splits - 1;
-  __syncthreads();
-  if (!last_block) return;
-  __threadfence();
-  const float* wsb = p.ws + bh * p.splits * p.G * (D + 2);
-  float mm = kNegInf;
-  for (int s2 = 0; s2 < p.splits; ++s2)
-    mm = fmaxf(mm, __ldcg(wsb + (s2 * p.G + r) * (D + 2) + D));
-  float ll = 0.f, oo[NCOL];
+  if (!dc_last_run(&p.counters[bh * (p.R / p.RB) + rb], p.splits)) return;
 #pragma unroll
-  for (int c = 0; c < NCOL; ++c) oo[c] = 0.f;
-  for (int s2 = 0; s2 < p.splits; ++s2) {
-    const float* w = wsb + (s2 * p.G + r) * (D + 2);
-    const float f = expf(fminf(__ldcg(w + D) - mm, 0.f));
-    ll = fmaf(__ldcg(w + D + 1), f, ll);
-#pragma unroll
-    for (int c = 0; c < NCOL; ++c)
-      if (owner && kk + 64 * c < D) oo[c] = fmaf(__ldcg(w + kk + 64 * c), f, oo[c]);
-  }
-#pragma unroll
-  for (int c = 0; c < NCOL; ++c)
-    if (owner && kk + 64 * c < D) p.o[row * D + kk + 64 * c] = oo[c];
-  if (kk == 0) {
-    p.m[row] = mm;
-    p.l[row] = ll;
+  for (int i = 0; i < RPT; ++i) {
+    if (!valid[i]) continue;
+    const size_t row = row0 + r0 + i, orow = bh * p.R + row;
+    float mm, ll, oo[2];
+    dc_merge(p.ws + bh * p.splits * stride + row * (D + 2), stride, p.splits, D, cols, mm, ll,
+             oo);
+    if (owner) *reinterpret_cast<float2*>(p.o + orow * D + 2 * kk) = make_float2(oo[0], oo[1]);
+    if (kk == 0) {
+      p.m[orow] = mm;
+      p.l[orow] = ll;
+    }
   }
 }
 
-template <typename T, int D, bool HFA, int MAXT, int TILES>
+template <typename T, int D, bool HFA, int MAXT, int TILES, int RPT>
 int launch_dc(const DcParams& p, const Lut& lut, int B, cudaStream_t s) {
-  using Lay = DcLayout<T, D, TILES>;
-  auto kernel = paged_decode_v2_kernel<T, D, HFA, MAXT, TILES>;
-  const int bytes = Lay::bytes(p.G);
+  using Lay = DcLayout<T, D, TILES, RPT>;
+  auto kernel = paged_decode_v2_kernel<T, D, HFA, MAXT, TILES, RPT>;
   static bool ready = false;   // the shared-memory attribute is set
   if (!ready) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::bytes(MAXT / Lay::kStep));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Lay::bytes(MAXT / Lay::kStep * RPT));
     if (err != cudaSuccess) return (int)err;
     ready = true;
   }
-  kernel<<<dim3(p.splits, p.hkv, B), Lay::kStep * p.G, bytes, s>>>(p, lut);
+  const int threads = Lay::kStep * ((p.RB + RPT - 1) / RPT);
+  kernel<<<dim3(p.splits * (p.R / p.RB), p.hkv, B), threads, Lay::bytes(p.RB), s>>>(p, lut);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_dc_rail(const DcParams& p, const Lut& lut, int B, int use_hfa, cudaStream_t s) {
-  constexpr int kSmall = 64 * kDcSmallG, kWide = 64 * kDcMaxG;
-  if (p.G > kDcSmallG)
-    return use_hfa ? launch_dc<T, D, true, kWide, 4>(p, lut, B, s)
-                   : launch_dc<T, D, false, kWide, 4>(p, lut, B, s);
-  // The unsplit bf16 walk at G <= 2 takes 8-tile steps (f32 rows would
+  constexpr int kSmall = 64 * kDcSmallRows, kWide = 64 * kDcMaxRows / 2;
+  if (p.RB > kDcSmallRows) {
+    if (!use_hfa) return launch_dc<T, D, false, kWide, 4, 2>(p, lut, B, s);
+    return p.RB > kWide / 64 ? launch_dc<T, D, true, kWide, 4, 2>(p, lut, B, s)
+                             : launch_dc<T, D, true, kWide, 4, 1>(p, lut, B, s);
+  }
+  // The unsplit bf16 walk at RB <= 2 takes 8-tile steps (f32 rows would
   // not fit twice the ring).
   constexpr int kWideStep = sizeof(T) == 2 ? 8 : 4;
-  if (p.splits == 1 && p.G <= 2)
-    return use_hfa ? launch_dc<T, D, true, kSmall, kWideStep>(p, lut, B, s)
-                   : launch_dc<T, D, false, kSmall, kWideStep>(p, lut, B, s);
-  return use_hfa ? launch_dc<T, D, true, kSmall, 4>(p, lut, B, s)
-                 : launch_dc<T, D, false, kSmall, 4>(p, lut, B, s);
+  if (p.splits == 1 && p.RB <= 2)
+    return use_hfa ? launch_dc<T, D, true, kSmall, kWideStep, 1>(p, lut, B, s)
+                   : launch_dc<T, D, false, kSmall, kWideStep, 1>(p, lut, B, s);
+  return use_hfa ? launch_dc<T, D, true, kSmall, 4, 1>(p, lut, B, s)
+                 : launch_dc<T, D, false, kSmall, 4, 1>(p, lut, B, s);
 }
 
 template <typename T>
@@ -798,8 +825,39 @@ int launch_dc_d(const DcParams& p, const Lut& lut, int B, int D, int use_hfa, cu
   }
 }
 
-static_assert(DcLayout<float, 128, 4>::bytes(kDcMaxG) <= 232448, "227 KB a block");
-static_assert(DcLayout<__nv_bfloat16, 128, 8>::bytes(2) <= 232448, "227 KB a block");
+static_assert(DcLayout<float, 128, 4, 2>::bytes(kDcMaxRows) <= 232448, "227 KB a block");
+static_assert(DcLayout<__nv_bfloat16, 128, 8, 1>::bytes(2) <= 232448, "227 KB a block");
+
+// The v2 walk of decode (lens_b null, L 1) or verify: checks, then launch.
+int run_dc(const void* q, const void* k, const void* v, const void* pt, const void* lens_a,
+           const void* lens_b, void* o, void* m, void* l, void* ws, void* counters, int B,
+           int hkv, int R, int L, int row_blocks, int D, int J, int page, int splits,
+           float scale, int use_hfa, int bf16, const void* lut_host, void* stream) {
+  if (B <= 0 || B > 65535 || hkv <= 0 || hkv > 65535 || R <= 0 || L <= 0 || row_blocks <= 0 ||
+      R % row_blocks != 0 || R / row_blocks > kDcMaxRows || J <= 0 || page <= 0 ||
+      splits <= 0 || (long long)splits * row_blocks > 65535 ||
+      (D != 32 && D != 64 && D != 96 && D != 128) || !aligned16(k) || !aligned16(v) ||
+      (splits > 1 && (use_hfa || ws == nullptr || counters == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  Lut lut;
+  memcpy(&lut, lut_host, sizeof(Lut));
+  DcParams p;
+  p.q = q; p.k = k; p.v = v;
+  p.pt = static_cast<const int*>(pt);
+  p.lens_a = static_cast<const int*>(lens_a);
+  p.lens_b = static_cast<const int*>(lens_b);
+  p.o = static_cast<float*>(o);
+  p.m = static_cast<float*>(m);
+  p.l = static_cast<float*>(l);
+  p.ws = static_cast<float*>(ws);
+  p.counters = static_cast<unsigned*>(counters);
+  p.R = R; p.L = L; p.RB = R / row_blocks;
+  p.J = J; p.page = page; p.hkv = hkv; p.splits = splits;
+  p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return bf16 ? launch_dc_d<__nv_bfloat16>(p, lut, B, D, use_hfa, s)
+              : launch_dc_d<float>(p, lut, B, D, use_hfa, s);
+}
 
 }  // namespace
 
@@ -844,34 +902,32 @@ extern "C" int paged_prefill_fwd_tc(const void* q, const void* k, const void* v,
 }
 
 // q (B, Hkv, G, D); pools (P, page, Hkv, D), bf16 (bf16 = 1) or f32,
-// contiguous; D is 32, 64, 96 or 128; G <= 16.  splits > 1 (FA-2 rail
-// only) splits each walk into that many runs of 16-key tiles, with ws
-// (B Hkv splits G (D + 2) f32) and counters (B Hkv uint32, zero, and left
-// zero) for the merge; launches that share counters run one at a time (one
-// stream).  o (B, Hkv, G, D), m and l (B, Hkv, G) f32.
+// contiguous, 16-byte aligned; D is 32, 64, 96 or 128; G <= 16.  splits >
+// 1 (FA-2 rail only) splits each walk into that many runs of 16-key
+// tiles, with ws (B Hkv splits G (D + 2) f32) and counters (B Hkv uint32,
+// zero, and left zero) for the merge; launches that share counters run
+// one at a time (one stream).  o (B, Hkv, G, D), m and l (B, Hkv, G) f32.
 extern "C" int paged_decode_fwd_v2(const void* q, const void* k, const void* v, const void* pt,
                                    const void* kv_lens, void* o, void* m, void* l, void* ws,
                                    void* counters, int B, int hkv, int G, int D, int J, int page,
                                    int splits, float scale, int use_hfa, int bf16,
                                    const void* lut_host, void* stream) {
-  if (B <= 0 || B > 65535 || hkv <= 0 || hkv > 65535 || G <= 0 || G > kDcMaxG || J <= 0 ||
-      page <= 0 || splits <= 0 || (D != 32 && D != 64 && D != 96 && D != 128) ||
-      (splits > 1 && (use_hfa || ws == nullptr || counters == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  Lut lut;
-  memcpy(&lut, lut_host, sizeof(Lut));
-  DcParams p;
-  p.q = q; p.k = k; p.v = v;
-  p.pt = static_cast<const int*>(pt);
-  p.kv_lens = static_cast<const int*>(kv_lens);
-  p.o = static_cast<float*>(o);
-  p.m = static_cast<float*>(m);
-  p.l = static_cast<float*>(l);
-  p.ws = static_cast<float*>(ws);
-  p.counters = static_cast<unsigned*>(counters);
-  p.G = G; p.J = J; p.page = page; p.hkv = hkv; p.splits = splits;
-  p.scale = scale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16 ? launch_dc_d<__nv_bfloat16>(p, lut, B, D, use_hfa, s)
-              : launch_dc_d<float>(p, lut, B, D, use_hfa, s);
+  return run_dc(q, k, v, pt, kv_lens, nullptr, o, m, l, ws, counters, B, hkv, G, 1, 1, D, J,
+                page, splits, scale, use_hfa, bf16, lut_host, stream);
+}
+
+// Verify: q (B, Hkv, G, K, D), the G K rows of a (slot, kv head) in
+// row_blocks blocks of G K / row_blocks rows (at most 16); row (g, i)
+// sees kv <= seq_lens[b] + i and kv < seq_lens[b] + chunk_lens[b].  ws
+// (B Hkv splits G K (D + 2) f32) and counters (B Hkv row_blocks uint32)
+// as for decode.  o (B, Hkv, G, K, D), m and l (B, Hkv, G, K) f32.
+extern "C" int paged_verify_fwd_v2(const void* q, const void* k, const void* v, const void* pt,
+                                   const void* seq_lens, const void* chunk_lens, void* o, void* m,
+                                   void* l, void* ws, void* counters, int B, int hkv, int G,
+                                   int K, int D, int J, int page, int splits, int row_blocks,
+                                   float scale, int use_hfa, int bf16, const void* lut_host,
+                                   void* stream) {
+  if (G <= 0 || K <= 0 || chunk_lens == nullptr) return (int)cudaErrorInvalidValue;
+  return run_dc(q, k, v, pt, seq_lens, chunk_lens, o, m, l, ws, counters, B, hkv, G * K, K,
+                row_blocks, D, J, page, splits, scale, use_hfa, bf16, lut_host, stream);
 }

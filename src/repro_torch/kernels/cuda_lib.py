@@ -3,8 +3,8 @@
 Every source under ``csrc/`` (``paged_attention.cu``,
 ``paged_attention_tc.cu``, ``dense_attention.cu``, ``dense_attention_tc.cu``,
 ``dense_attention_bwd_tc.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``,
-and the headers ``hfa_rail.cuh``, ``lns_rail.cuh`` and ``tc_common.cuh``
-they share) is
+and the headers ``hfa_rail.cuh``, ``lns_rail.cuh``, ``tc_common.cuh`` and
+``decode_common.cuh`` they share) is
 compiled by ``nvcc`` - one process per ``.cu`` file, all started
 together - and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
@@ -48,8 +48,10 @@ build_log = ""    # nvcc's stderr (ptxas register / spill report)
 # rail entry point of each source, for the bit-equality checks
 RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval",
                 "dense_tc": "dense_tc_rail_eval", "decode": "decode_rail_eval"}
-# Query heads per KV head the dense decode kernel takes.
+# Query heads per KV head the dense decode kernel takes, and its tile
+# (the reference's block_kv: the H-FA rail's rescale step).
 DECODE_MAX_G = 8
+DENSE_DECODE_TILE = 128
 # Query rows per block of the tensor-core forward; its grid takes at
 # most 65535 such tiles.
 DENSE_TC_ROWS = 128
@@ -68,14 +70,18 @@ TC_HEAD_DIMS = (64, 128)
 # the widest page table (it holds a slot's page ids in shared memory).
 PAGED_TC_PAGE = 16
 PAGED_TC_MAX_PAGES = 16384
-# Query heads per KV head the v2 paged decode takes (64 G threads a block).
-PAGED_DECODE_MAX_G = 16
+# Query rows a block of the v2 paged decode and verify takes (64 threads
+# a row): decode's G, verify's G K / row_blocks.
+PAGED_V2_MAX_ROWS = 16
 # Launches of the paged kernels by route.  prefill: "tc" the tensor-core
 # kernel (paged_prefill_fwd_tc), "simt" the CUDA-core one
 # (paged_prefill_fwd); decode: "v2" paged_decode_fwd_v2, "simt"
-# paged_decode_fwd (launched only by the checks).
+# paged_decode_fwd (launched only by the checks); verify: "v2"
+# paged_verify_fwd_v2, "simt" paged_verify_fwd (more than 16 rows a
+# (slot, kv head), and the checks).
 paged_launches = {"prefill": {"tc": 0, "simt": 0},
-                  "decode": {"v2": 0, "simt": 0}}
+                  "decode": {"v2": 0, "simt": 0},
+                  "verify": {"v2": 0, "simt": 0}}
 # Launches of the FA-2 backward by kernel: "tc" the tensor-core kernels
 # (bf16 inputs and cotangent), "simt" the CUDA-core ones (an f32
 # cotangent).
@@ -91,14 +97,15 @@ SIGNATURES = {
     "paged_verify_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P, _P],
     "paged_prefill_fwd_tc": [_P] * 9 + [_I] * 8 + [_F, _I, _P, _P],
     "paged_decode_fwd_v2": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "paged_verify_fwd_v2": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P, _P],
     "dense_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P],
     "dense_attn_fwd_tc": [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P],
     "dense_attn_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
     "dense_attn_dkv": [_P] * 8 + [_I] * 7 + [_F, _I, _P],
     "dense_attn_dq_tc": [_P] * 7 + [_I] * 7 + [_F, _P],
     "dense_attn_dkv_tc": [_P] * 8 + [_I] * 7 + [_F, _P],
-    "dense_decode_fwd": [_P] * 6 + [_I] * 5 + [_L] * 3 + [
-        _I, _F, _I, _I, _P, _P],
+    "dense_decode_fwd_v2": [_P] * 8 + [_I] * 5 + [_L] * 3 + [
+        _I, _I, _F, _I, _I, _P, _P],
     "hfa_datapath_fwd": [_P] * 4 + [_I] * 7 + [_F, _I, _P, _P],
     "lns_eval": [_P] * 12 + [_I, _P, _P],
     **{name: [_P] * 4 + [_I, _P, _P] for name in RAIL_ENTRIES.values()},
@@ -263,9 +270,9 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
                               int(use_hfa), int(q.dtype == torch.bfloat16),
                               ctypes.cast(_LUT, ctypes.c_void_p), _stream())
     check(err, entry)
-    kind = {"paged_decode_fwd": "decode", "paged_prefill_fwd": "prefill"}
-    if entry in kind:
-        paged_launches[kind[entry]]["simt"] += 1
+    kind = {"paged_decode_fwd": "decode", "paged_prefill_fwd": "prefill",
+            "paged_verify_fwd": "verify"}
+    paged_launches[kind[entry]]["simt"] += 1
     return o, m, l
 
 
@@ -313,27 +320,138 @@ def launch_paged_prefill(q, k_pages, v_pages, page_table, start_pos,
     return o, m, l
 
 
-# (device, stream) -> the v2 decode's split counters: launches on one
-# stream run in order, so no two share a counter at once.
+# (device, stream) -> the split counters of the v2 paged decode and
+# verify and of the dense decode (decode_common.cuh): launches on one
+# stream run in order, so no two share a counter at once, and each kernel
+# leaves them at zero.
 _counters: dict = {}
 _sm_count: dict = {}      # device -> streaming multiprocessors
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached)."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _sm_count[device]
+
+
+def split_runs(pairs: int, max_runs: int, sms: int,
+               blocks_per_sm: int = 2) -> int:
+    """Runs a split walk cuts each of ``pairs`` walks into: about enough
+    for ``blocks_per_sm`` blocks an SM, at most ``max_runs`` (one run a
+    step or tile of the longest walk), at least 1, and rounded so that
+    the longest walk's runs are all the same whole number of steps (9
+    runs of a 32-step walk would leave the last a part step: 8 runs of 4
+    steps instead)."""
+    max_runs = max(1, max_runs)
+    target = min(-(-blocks_per_sm * sms // pairs), max_runs)
+    per = -(-max_runs // target)
+    return -(-max_runs // per)
 
 
 def decode_splits(q: torch.Tensor, page_table: torch.Tensor, page: int,
                   use_hfa: bool) -> int:
     """Runs of the page walk the v2 decode splits each (slot, kv head)
-    into: on the FA-2 rail enough for two blocks per SM, at most one run
-    per 64-key step of the longest walk; 1 on the H-FA rail, whose
-    result depends on where the rescales fall."""
+    into: on the FA-2 rail about four blocks an SM (two waves of two; 8
+    runs took 0.022 ms where 5 took 0.028 at the kernels-phase shape,
+    ``chip_smoke.py decode_variants``), at most one run per 64-key step
+    of the longest walk; 1 on the H-FA rail, whose result depends on
+    where the rescales fall."""
     if use_hfa:
         return 1
-    dev = q.device
-    if dev not in _sm_count:
-        _sm_count[dev] = torch.cuda.get_device_properties(
-            dev).multi_processor_count
-    pairs = q.shape[0] * q.shape[1]
-    steps = -(-page_table.shape[1] * page // 64)
-    return max(1, min(-(-2 * _sm_count[dev] // pairs), steps))
+    return split_runs(q.shape[0] * q.shape[1],
+                      -(-page_table.shape[1] * page // 64),
+                      sm_count(q.device), blocks_per_sm=4)
+
+
+def paged_verify_route(g: int, k: int) -> str:
+    """Which kernel takes a paged verify of ``g`` query heads per KV head
+    and ``k`` positions a slot: "v2" (``paged_verify_fwd_v2``, the v2
+    decode's body) when the G K rows of a (slot, kv head) fit one of its
+    blocks (at most :data:`PAGED_V2_MAX_ROWS`), at any dtype, page size
+    and head dim; else "simt" (``paged_verify_fwd``, the CUDA cores)."""
+    return "v2" if g * k <= PAGED_V2_MAX_ROWS else "simt"
+
+
+def verify_row_blocks(g: int, k: int, use_hfa: bool) -> int:
+    """Blocks the v2 verify gives the G K rows of a (slot, kv head): on
+    the H-FA rail, whose walk stays unsplit, one per query head (K rows
+    each), so that the grid holds G times the blocks; 1 on the FA-2 rail,
+    whose walk is split instead."""
+    return g if use_hfa else 1
+
+
+def verify_splits(pairs: int, max_keys: int, use_hfa: bool,
+                  sms: int) -> int:
+    """Runs of the page walk the v2 verify splits each (slot, kv head)
+    into, for ``pairs`` (slot, kv head) walks of at most ``max_keys``
+    keys: on the FA-2 rail about four blocks of G K rows an SM, as the
+    decode (fewer runs left SMs idle behind the longest walks, more paid
+    for the merge: ``chip_smoke.py decode_variants``), at most one run per
+    64-key step; 1 on the H-FA rail."""
+    if use_hfa:
+        return 1
+    return split_runs(pairs, -(-max_keys // 64), sms, blocks_per_sm=4)
+
+
+def dense_decode_splits(pairs: int, kv_len: int, use_hfa: bool,
+                        sms: int) -> int:
+    """Runs the dense decode splits each of ``pairs`` (sequence, KV head)
+    walks of ``kv_len`` keys into: on the FA-2 rail about two blocks an
+    SM, at most one run per 128-key tile; 1 on the H-FA rail, whose
+    rescales fall every 128 keys from key 0."""
+    if use_hfa:
+        return 1
+    return split_runs(pairs, -(-max(kv_len, 0) // DENSE_DECODE_TILE), sms)
+
+
+def _split_buffers(device: torch.device, n_counters: int, ws_numel: int):
+    """(workspace, counters) of a split launch on the current stream: a
+    fresh f32 workspace and the stream's zeroed counters."""
+    ws = torch.empty(ws_numel, dtype=torch.float32, device=device)
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    cnt = _counters.get(key)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(n_counters, dtype=torch.int32, device=device)
+        _counters[key] = cnt
+    return ws, cnt
+
+
+def _launch_v2(entry: str, q, k_pages, v_pages, page_table, lens, *,
+               rows: int, row_blocks: int, splits: int, scale: float,
+               use_hfa: bool):
+    """One launch of the v2 paged decode or verify (``paged_attention_tc.cu``);
+    ``rows`` = G K rows a (slot, kv head)."""
+    _check_paged(entry, q, k_pages, v_pages, page_table, lens)
+    _require(all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages)),
+             f"{entry}: the pools must be 16-byte aligned (cp.async)")
+    b, hkv, d = q.shape[0], q.shape[1], q.shape[-1]
+    _require(row_blocks >= 1 and rows % row_blocks == 0
+             and rows // row_blocks <= PAGED_V2_MAX_ROWS,
+             f"{entry}: {rows} rows in {row_blocks} blocks, a block takes "
+             f"1..{PAGED_V2_MAX_ROWS}")
+    _require(splits >= 1 and not (use_hfa and splits > 1),
+             f"{entry}: {splits} splits (the H-FA rail runs unsplit)")
+    o, m, l = _triplet(q, q.shape[:-1])
+    if o.numel() == 0:
+        return o, m, l
+    ws = cnt = None
+    if splits > 1:
+        ws, cnt = _split_buffers(q.device, b * hkv * row_blocks,
+                                 b * hkv * splits * rows * (d + 2))
+    dims = [b, hkv, q.shape[2]] + ([q.shape[3]] if q.dim() == 5 else []) \
+        + [d, page_table.shape[1], k_pages.shape[1], splits] \
+        + ([row_blocks] if q.dim() == 5 else [])
+    err = getattr(library(), entry)(
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
+        *map(_ptr, lens), _ptr(o), _ptr(m), _ptr(l),
+        None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
+        *dims, ctypes.c_float(scale), int(use_hfa),
+        int(q.dtype == torch.bfloat16), ctypes.cast(_LUT, ctypes.c_void_p),
+        _stream())
+    check(err, entry)
+    return o, m, l
 
 
 def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
@@ -344,40 +462,46 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
     returns the f32 triplet o~ (B, Hkv, G, d), m and l (B, Hkv, G).
     ``splits`` (default :func:`decode_splits`) > 1 splits each page walk
     across blocks, FA-2 rail only; 1 is the unsplit walk."""
-    entry = "paged_decode_fwd_v2"
-    _check_paged(entry, q, k_pages, v_pages, page_table, [kv_lens])
-    b, hkv, g, d = q.shape
-    _require(1 <= g <= PAGED_DECODE_MAX_G,
-             f"{entry}: {g} query heads per KV head, the kernel takes "
-             f"1..{PAGED_DECODE_MAX_G}")
-    page = k_pages.shape[1]
+    _require(q.dim() == 4 and 1 <= q.shape[2] <= PAGED_V2_MAX_ROWS,
+             f"paged_decode_fwd_v2: q {tuple(q.shape)}: (B, Hkv, G, d) with "
+             f"1..{PAGED_V2_MAX_ROWS} query heads per KV head")
     if splits is None:
-        splits = decode_splits(q, page_table, page, use_hfa)
-    _require(splits >= 1 and not (use_hfa and splits > 1),
-             f"{entry}: {splits} splits (the H-FA rail runs unsplit)")
-    o, m, l = _triplet(q, q.shape[:-1])
-    if o.numel() == 0:
-        return o, m, l
-    ws = counters = None
-    if splits > 1:
-        ws = torch.empty(b * hkv * splits * g * (d + 2), dtype=torch.float32,
-                         device=q.device)
-        key = (q.device, torch.cuda.current_stream(q.device).cuda_stream)
-        cnt = _counters.get(key)
-        if cnt is None or cnt.numel() < b * hkv:
-            cnt = torch.zeros(b * hkv, dtype=torch.int32, device=q.device)
-            _counters[key] = cnt
-        counters = _ptr(cnt)
-        ws = _ptr(ws)
-    err = library().paged_decode_fwd_v2(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
-        _ptr(kv_lens), _ptr(o), _ptr(m), _ptr(l), ws, counters, b, hkv, g,
-        d, page_table.shape[1], page, splits, ctypes.c_float(scale),
-        int(use_hfa), int(q.dtype == torch.bfloat16),
-        ctypes.cast(_LUT, ctypes.c_void_p), _stream())
-    check(err, entry)
+        splits = decode_splits(q, page_table, k_pages.shape[1], use_hfa)
+    out = _launch_v2("paged_decode_fwd_v2", q, k_pages, v_pages, page_table,
+                     [kv_lens], rows=q.shape[2], row_blocks=1, splits=splits,
+                     scale=scale, use_hfa=use_hfa)
     paged_launches["decode"]["v2"] += 1
-    return o, m, l
+    return out
+
+
+def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
+                        chunk_lens, *, scale: float, use_hfa: bool,
+                        splits: int | None = None,
+                        row_blocks: int | None = None):
+    """Paged verify on the current stream, on the kernel
+    :func:`paged_verify_route` picks; counted in :data:`paged_launches`.
+    q (B, Hkv, G, K, d); returns the f32 triplet o~ (B, Hkv, G, K, d), m
+    and l (B, Hkv, G, K).  On the v2 route ``splits`` (default
+    :func:`verify_splits`; > 1 on the FA-2 rail only) and ``row_blocks``
+    (default :func:`verify_row_blocks`) shape the grid; 1 and 1 is one
+    unsplit walk a (slot, kv head)."""
+    b, hkv, g, kw = q.shape[:4]
+    if paged_verify_route(g, kw) == "simt":
+        return launch_paged("paged_verify_fwd", q, k_pages, v_pages,
+                            page_table, seq_lens, chunk_lens, scale=scale,
+                            use_hfa=use_hfa)
+    if row_blocks is None:
+        row_blocks = verify_row_blocks(g, kw, use_hfa)
+    if splits is None:
+        splits = verify_splits(b * hkv * row_blocks,
+                               page_table.shape[1] * k_pages.shape[1],
+                               use_hfa, sm_count(q.device))
+    out = _launch_v2("paged_verify_fwd_v2", q, k_pages, v_pages, page_table,
+                     [seq_lens, chunk_lens], rows=g * kw,
+                     row_blocks=row_blocks, splits=splits, scale=scale,
+                     use_hfa=use_hfa)
+    paged_launches["verify"]["v2"] += 1
+    return out
 
 
 def _check_dense(entry: str, q, k, v, *extra) -> None:
@@ -568,12 +692,15 @@ def rail_eval(x: torch.Tensor, source: str = "paged"):
 
 
 def launch_dense_decode(q, k, v, *, scale: float, kv_len: int,
-                        use_hfa: bool):
-    """Dense decode triplet on the current stream.  q (..., G, d)
-    contiguous; k, v (..., S, d) with the same one or two leading dims,
-    sharing strides, each key's d values contiguous (the ring is read
-    in place).  Returns o~ (..., G, d), m and l (..., G), f32."""
-    entry = "dense_decode_fwd"
+                        use_hfa: bool, splits: int | None = None):
+    """Dense decode triplet on the current stream (``dense_decode_fwd_v2``).
+    q (..., G, d) contiguous; k, v (..., S, d) with the same one or two
+    leading dims, sharing strides, each key's d values contiguous and
+    every stride and base 16-byte aligned (the ring is read in place by
+    cp.async).  ``splits`` (default :func:`dense_decode_splits`) > 1
+    splits each walk into runs of 128-key tiles, FA-2 rail only.
+    Returns o~ (..., G, d), m and l (..., G), f32."""
+    entry = "dense_decode_fwd_v2"
     _require(all(t.is_cuda and t.device == q.device for t in (k, v)),
              f"{entry}: every tensor must be on the same CUDA device")
     _require(q.dtype in (torch.bfloat16, torch.float32)
@@ -591,21 +718,36 @@ def launch_dense_decode(q, k, v, *, scale: float, kv_len: int,
     _require(1 <= q.shape[-2] <= DECODE_MAX_G,
              f"{entry}: {q.shape[-2]} query heads per KV head, the kernel "
              f"takes 1..{DECODE_MAX_G}")
+    size = k.element_size()
+    _require(all(t.data_ptr() % 16 == 0 for t in (k, v))
+             and all(st * size % 16 == 0 for st in k.stride()[:-1]),
+             f"{entry}: the ring's base and strides {k.stride()} must be "
+             f"16-byte aligned (cp.async of 16-byte chunks)")
     q = q.contiguous()
     lead = q.shape[:-2]
     n0, n1 = (1, lead[0]) if len(lead) == 1 else lead
     s0, s1 = (0, k.stride(0)) if len(lead) == 1 else (k.stride(0),
                                                       k.stride(1))
     g, d, s_len = q.shape[-2], q.shape[-1], k.shape[-2]
+    if splits is None:
+        splits = dense_decode_splits(n0 * n1, min(kv_len, s_len), use_hfa,
+                                     sm_count(q.device))
+    _require(splits >= 1 and not (use_hfa and splits > 1),
+             f"{entry}: {splits} splits (the H-FA rail runs unsplit)")
     o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     m = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     l = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, m, l
-    err = library().dense_decode_fwd(
-        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(m), _ptr(l), n0, n1, g,
-        s_len, d, s0, s1, k.stride(-2), int(kv_len), ctypes.c_float(scale),
-        int(use_hfa), int(q.dtype == torch.bfloat16),
+    ws = cnt = None
+    if splits > 1:
+        ws, cnt = _split_buffers(q.device, n0 * n1,
+                                 n0 * n1 * splits * g * (d + 2))
+    err = library().dense_decode_fwd_v2(
+        _ptr(q), _ptr(k), _ptr(v), _ptr(o), _ptr(m), _ptr(l),
+        None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
+        n0, n1, g, s_len, d, s0, s1, k.stride(-2), int(kv_len), splits,
+        ctypes.c_float(scale), int(use_hfa), int(q.dtype == torch.bfloat16),
         ctypes.cast(_LUT, ctypes.c_void_p), _stream())
     check(err, entry)
     return o, m, l

@@ -5,16 +5,19 @@
 ``decode_partial_pallas``): the G query heads that share one KV head
 against a contiguous cache, streamed in 128-key tiles with the Alg. 2
 online update and a ``kv_len`` mask, returning the unnormalized triplet
-(o~, m, l).  On a CUDA tensor it launches ``dense_decode_fwd`` of
+(o~, m, l).  On a CUDA tensor it launches ``dense_decode_fwd_v2`` of
 ``csrc/dense_decode.cu`` and counts the launch in :data:`launches`; on a
 CPU tensor it runs :func:`decode_partial_plain`.  One new token per
 (sequence, KV head) does 2 flops per K/V byte, so the kernel is bound by
 the bytes of the live K/V rows; it reads them in place from the
-serving ring, (B, S, Hkv, d) with its strides, and stops at the last
-tile that holds a key below ``kv_len``, where the reference pads and
-copies the ring per call.  On the hfa rail the result depends on where
-the online rescales fall (alpha and p are quantized per tile), so the
-kernel walks exactly the reference's 128-key tiles.
+serving ring, (B, S, Hkv, d) with its strides, through a cp.async ring,
+and stops at the last tile that holds a key below ``kv_len``, where the
+reference pads and copies the ring per call.  On the FA-2 rail it splits
+each walk across blocks into runs of whole tiles and merges them by Eq.
+16 in the kernel (``kernels/ref.py::dense_decode_split_model`` models
+it).  On the hfa rail the result depends on where the online rescales
+fall (alpha and p are quantized per tile), so the kernel walks exactly
+the reference's 128-key tiles, unsplit.
 
 Every paged attention kernel also returns the unnormalized triplet per
 query row.  ``merge_partials`` combines triplets with the log-domain

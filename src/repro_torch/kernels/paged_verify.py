@@ -11,13 +11,21 @@ yields (0, NEG_INF, 0).  With K = 1 it is the paged decode.
 
 ``paged_verify_partial`` replaces the Pallas kernel
 ``src/repro/kernels/paged_verify.py::_paged_verify_kernel`` (wrapper
-``paged_verify_partial_pallas``).  On a CUDA tensor it launches
-``paged_verify_fwd`` from ``csrc/paged_attention.cu`` and counts it in
-:data:`launches`; on a CPU tensor it runs the plain version, which is
-also the counterpart of the reference's ``paged_verify_partial_ref``.
-On the card it is bound by the bytes of the live K/V pages: G*K rows
-(10 at qwen3-1.7b with spec_k 4) fit one 16-row block per (slot, kv
-head), so each page is read once.
+``paged_verify_partial_pallas``).  On a CUDA tensor it launches the
+kernel ``cuda_lib.paged_verify_route`` picks and counts it in
+:data:`launches` (and in ``cuda_lib.paged_launches["verify"]``): with at
+most 16 rows a (slot, kv head) - G K, 10 at qwen3-1.7b with spec_k 4 -
+``paged_verify_fwd_v2`` of ``csrc/paged_attention_tc.cu``, the v2
+decode's body with a causal limit per row (a cp.async ring, the walk
+split across blocks on the FA-2 rail and merged by Eq. 16 in the
+kernel, the rows split across blocks on the H-FA rail); with more,
+``paged_verify_fwd`` of ``csrc/paged_attention.cu`` (the CUDA cores),
+which :func:`paged_verify_partial_simt` also launches for the checks.
+Unsplit, the two are bit-equal.  On a CPU tensor it runs the plain
+version, which is also the counterpart of the reference's
+``paged_verify_partial_ref``.  On the card it is bound by the bytes of
+the live K/V pages; ``kernels/ref.py::paged_verify_split_model`` models
+the split walk.
 """
 from __future__ import annotations
 
@@ -56,9 +64,20 @@ def paged_verify_partial(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_partial: no kernel for {q.device}")
     global launches
-    out = cuda_lib.launch_paged(
+    out = cuda_lib.launch_paged_verify(
+        q, k_pages, v_pages, page_table, seq_lens, chunk_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
+    launches += 1
+    return out
+
+
+def paged_verify_partial_simt(q, k_pages, v_pages, page_table, seq_lens,
+                              chunk_lens, *, scale=None, use_hfa=False):
+    """For the checks: the same triplet from the CUDA-core kernel
+    ``paged_verify_fwd`` (16-row blocks, plain loads), whatever the route
+    rule picks; counted in ``cuda_lib.paged_launches["verify"]["simt"]``,
+    not in :data:`launches`."""
+    return cuda_lib.launch_paged(
         "paged_verify_fwd", q, k_pages, v_pages, page_table, seq_lens,
         chunk_lens, scale=_default_scale(q.shape[-1], scale),
         use_hfa=use_hfa)
-    launches += 1
-    return out

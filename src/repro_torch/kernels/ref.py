@@ -14,11 +14,15 @@
 * ``ref_hfa_datapath`` - the bit-accurate ``core.hfa`` emulation.
 * ``paged_prefill_tc_model`` - a model of the tensor-core paged
   prefill's numerics (page by page, P as bf16 or bf16 hi + lo).
-* ``paged_decode_split_model`` - a model of the v2 paged decode's split
-  walk and its Eq. 16 merge.
+* ``paged_verify_split_model`` and ``paged_decode_split_model`` - models
+  of the v2 paged verify's and decode's split walk (per-row causal
+  limits, 16-key tiles) and its Eq. 16 merge.
+* ``dense_decode_split_model`` - the same for the dense decode's walk of
+  128-key tiles.
 
-The last two are for the tests only; the kernels' plain versions stay
-``paged_prefill_partial_plain`` and ``paged_decode_partial_plain``.
+The last four are for the tests only; the kernels' plain versions stay
+``paged_prefill_partial_plain``, ``paged_verify_partial_plain``,
+``paged_decode_partial_plain`` and ``decode_partial_plain``.
 """
 from __future__ import annotations
 
@@ -186,43 +190,119 @@ def paged_prefill_tc_model(q, k_pages, v_pages, page_table, start_pos,
     return acc, m, l
 
 
-DECODE_TILE = 16      # keys per tile of the v2 paged decode
+DECODE_TILE = 16      # keys per tile of the v2 paged decode and verify
+
+
+def _tile_walk(qf, kc, vc, mask, tile, scale, use_hfa):
+    """The online update ``tile`` keys at a time, in order: qf (..., R,
+    d) f32 against kc, vc (..., S, d) f32 (S a multiple of ``tile``),
+    scores times ``scale``, key s visible to row r where mask (..., R,
+    S).  Returns (o~, m, l)."""
+    m = torch.full(qf.shape[:-1], NEG_INF, dtype=torch.float32,
+                   device=qf.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros(qf.shape, dtype=torch.float32, device=qf.device)
+    for k0 in range(0, kc.shape[-2], tile):
+        mk = mask[..., k0:k0 + tile]
+        s = torch.einsum("...rd,...kd->...rk", qf,
+                         kc[..., k0:k0 + tile, :]) * scale
+        s = torch.where(mk, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, torch.amax(s, dim=-1))
+        dm = torch.minimum(m - m_new, torch.zeros_like(m))
+        if use_hfa:
+            alpha = bitmath.exp2_hfa_rail(bitmath.quant_rail(dm))
+            p = bitmath.exp2_hfa_rail(bitmath.quant_rail(s - m_new[..., None]))
+        else:
+            alpha = torch.exp(dm)
+            p = torch.exp(s - m_new[..., None])
+        p = torch.where(mk & (m_new != NEG_INF)[..., None], p,
+                        torch.zeros_like(p))
+        l = l * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "...rk,...kd->...rd", p, vc[..., k0:k0 + tile, :])
+        m = m_new
+    return acc, m, l
+
+
+def _runs(n_tiles: int, splits: int):
+    """The v2 kernels' cut of a walk of ``n_tiles`` tiles into ``splits``
+    contiguous runs of ceil(n_tiles / splits) tiles: [(t0, t1), ...]."""
+    per = -(-n_tiles // splits)
+    return [(min(sp * per, n_tiles), min(min(sp * per, n_tiles) + per,
+                                          n_tiles)) for sp in range(splits)]
+
+
+def paged_verify_split_model(q, k_pages, v_pages, page_table, seq_lens,
+                             chunk_lens, *, splits, scale=None,
+                             use_hfa=False):
+    """Model of ``paged_verify_fwd_v2``: row r of the G K rows of a
+    (slot, kv head) sees kv <= seq_lens[b] + r % K and kv < seq_lens[b] +
+    chunk_lens[b].  Slot b's walk of n = ceil(min(seq_lens[b] + K,
+    seq_lens[b] + chunk_lens[b], J page) / 16) tiles of 16 keys is cut
+    into ``splits`` contiguous runs of ceil(n / splits) tiles; each run's
+    triplet is the online update tile by tile (p in f32); the runs merge
+    by Eq. 16 (``merge_partials``).  A run with no tile is the neutral
+    triplet.  One split is the unsplit walk.  q (B, Hkv, G, K, d);
+    returns o~ (B, Hkv, G, K, d), m and l (B, Hkv, G, K)."""
+    b, hkv, g, kw, d = q.shape
+    scale = (1.0 / d ** 0.5) if scale is None else scale
+    j_max = page_table.shape[1] * k_pages.shape[1]
+    pad = (-j_max) % DECODE_TILE
+    kc, vc = (torch.nn.functional.pad(
+        gather_pages(x, page_table).transpose(1, 2).to(torch.float32),
+        (0, 0, 0, pad)) for x in (k_pages, v_pages))   # (B, Hkv, S, d)
+    qf = q.to(torch.float32).reshape(b, hkv, g * kw, d)
+    kv = torch.arange(j_max + pad, device=q.device)
+    outs = []
+    for bi in range(b):
+        sl, cl = int(seq_lens[bi]), int(chunk_lens[bi])
+        n_kv = max(0, min(sl + kw, sl + cl, j_max))
+        pos = sl + torch.arange(g * kw, device=q.device) % kw  # (R,)
+        mask = (kv[None] <= pos[:, None]) & (kv[None] < sl + cl) & \
+            (kv[None] < n_kv)
+        parts = []
+        for t0, t1 in _runs(-(-n_kv // DECODE_TILE), splits):
+            k0, k1 = t0 * DECODE_TILE, t1 * DECODE_TILE
+            parts.append(_tile_walk(qf[bi], kc[bi, :, k0:k1],
+                                    vc[bi, :, k0:k1], mask[:, k0:k1],
+                                    DECODE_TILE, scale, use_hfa))
+        outs.append(parts[0] if splits == 1 else merge_partials(
+            *(torch.stack(x) for x in zip(*parts)), use_hfa=use_hfa))
+    o, m, l = (torch.stack(x) for x in zip(*outs))
+    return (o.reshape(q.shape), m.reshape(q.shape[:-1]),
+            l.reshape(q.shape[:-1]))
 
 
 def paged_decode_split_model(q, k_pages, v_pages, page_table, kv_lens, *,
                              splits, scale=None, use_hfa=False):
-    """Model of ``paged_decode_fwd_v2``: slot b's walk of n = ceil(min(
-    kv_lens[b], J page) / 16) tiles of 16 keys is cut into ``splits``
-    contiguous runs of ceil(n / splits) tiles; each run's triplet is the
-    online update tile by tile (``decode_partial_plain`` with 16-key
-    tiles, p in f32); the runs merge by Eq. 16 (``merge_partials``).  A
-    run with no tile is the neutral triplet.  One split is the unsplit
-    walk.  q (B, Hkv, G, d); returns o~ (B, Hkv, G, d), m and l (B, Hkv,
-    G)."""
-    b, hkv, g, d = q.shape
-    j_max = page_table.shape[1] * k_pages.shape[1]
-    kc = gather_pages(k_pages, page_table).transpose(1, 2)    # (B, Hkv, S, d)
-    vc = gather_pages(v_pages, page_table).transpose(1, 2)
-    pad = (-j_max) % DECODE_TILE
-    kc = torch.nn.functional.pad(kc, (0, 0, 0, pad))
-    vc = torch.nn.functional.pad(vc, (0, 0, 0, pad))
-    outs = []
-    for bi in range(b):
-        n_kv = max(0, min(int(kv_lens[bi]), j_max))
-        n_tiles = -(-n_kv // DECODE_TILE)
-        per = -(-n_tiles // splits)
-        parts = []
-        for sp in range(splits):
-            t0 = min(sp * per, n_tiles)
-            t1 = min(t0 + per, n_tiles)
-            k0, k1 = t0 * DECODE_TILE, max(t1, t0 + 1) * DECODE_TILE
-            parts.append(decode_partial_plain(
-                q[bi], kc[bi, :, k0:k1], vc[bi, :, k0:k1], scale=scale,
-                block_kv=DECODE_TILE, kv_len=min(n_kv, t1 * DECODE_TILE) - k0,
-                use_hfa=use_hfa))
-        if splits == 1:
-            outs.append(parts[0])
-        else:
-            outs.append(merge_partials(*(torch.stack(x) for x in zip(*parts)),
-                                       use_hfa=use_hfa))
-    return tuple(torch.stack(x) for x in zip(*outs))
+    """Model of ``paged_decode_fwd_v2``: decode is verify with K = 1 at
+    seq_lens = kv_lens - 1 and chunk_lens = 1 (its G rows see kv <
+    kv_lens[b]), so :func:`paged_verify_split_model` of that.  q (B, Hkv,
+    G, d); returns o~ (B, Hkv, G, d), m and l (B, Hkv, G)."""
+    kvl = kv_lens.to(torch.int32)
+    o, m, l = paged_verify_split_model(
+        q[:, :, :, None], k_pages, v_pages, page_table, kvl - 1,
+        torch.ones_like(kvl), splits=splits, scale=scale, use_hfa=use_hfa)
+    return o[:, :, :, 0], m[..., 0], l[..., 0]
+
+
+def dense_decode_split_model(q, k, v, *, kv_len, splits, scale=None,
+                             use_hfa=False):
+    """Model of ``dense_decode_fwd_v2``: the walk of n = ceil(min(kv_len,
+    S) / 128) tiles of 128 keys (the reference's block_kv) is cut into
+    ``splits`` contiguous runs of ceil(n / splits) tiles; each run's
+    triplet is ``decode_partial_plain`` over its keys; the runs merge by
+    Eq. 16 (``merge_partials``).  A run with no tile is the neutral
+    triplet; one split is the unsplit walk.  q (..., G, d) against k, v
+    (..., S, d); returns o~ (..., G, d), m and l (..., G)."""
+    n_kv = max(0, min(int(kv_len), k.shape[-2]))
+    tile = 128
+    parts = [decode_partial_plain(
+        q, k[..., t0 * tile:t1 * tile, :], v[..., t0 * tile:t1 * tile, :],
+        scale=scale, block_kv=tile,
+        kv_len=min(n_kv, t1 * tile) - t0 * tile, use_hfa=use_hfa)
+        for t0, t1 in _runs(-(-n_kv // tile), splits)]
+    if splits == 1:
+        return parts[0]
+    return merge_partials(*(torch.stack(x) for x in zip(*parts)),
+                          use_hfa=use_hfa)

@@ -3,9 +3,9 @@ one).  Run them on the machine with the card:
 
   PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
-Each paged kernel, on both rails and on each route (decode: the v2
-kernel and the CUDA-core one; prefill: the tensor cores for bf16 at d 64
-/ 128 and the CUDA cores; verify), at d 32, 64, 96 and 128, and each
+Each paged kernel, on both rails and on each route (decode and verify:
+the v2 kernel and the CUDA-core one; prefill: the tensor cores for bf16
+at d 64 / 128 and the CUDA cores), at d 32, 64, 96 and 128, and each
 dense kernel (FA-2 forward,
 dq, dk/dv, H-FA forward - on f32 inputs the CUDA-core forward, on bf16
 the tensor-core one; the backward on the CUDA cores for an f32
@@ -16,11 +16,17 @@ CUDA tensors (tolerances as in chip_smoke.py), and the rail and LNS
 device functions of every source (the tensor-core forward's integer
 form too) bit for bit against the plain torch versions.  The dense
 kernels run at d 32 and 96 too (the tensor-core ones on inputs
-zero-padded to 64 and 128).  The v2 decode unsplit is bit-equal to the
-CUDA-core decode on both rails, and split within 1e-5 of it; the
-tensor-core prefill on a dyadic grid within 1e-5 of the CUDA-core one on
-the H-FA rail; the launch counters count by route; every entry refuses
-a head dim outside (32, 64, 96, 128).
+zero-padded to 64 and 128).  The v2 decode and verify unsplit are
+bit-equal to the CUDA-core decode and verify on both rails (verify in one
+block of its G K rows and in one block a query head), and split within
+1e-5 of it, the merge counters back at zero after each split launch; a
+verify of more than 16 rows goes to the CUDA cores; the dense decode
+(strided ring, split on the FA-2 rail) is held to its plain version, its
+split to its unsplit walk and its model, and on a dyadic grid the H-FA
+rail to the plain 128-key walk, and it refuses a misaligned ring; the
+tensor-core prefill on a dyadic grid is within 1e-5 of the CUDA-core one
+on the H-FA rail; the launch counters count by route; every entry
+refuses a head dim outside (32, 64, 96, 128).
 """
 
 import numpy as np
@@ -109,8 +115,9 @@ def _decode_split(q, kp, vp, pt, kv_lens, splits, use_hfa=False):
 @pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
 def test_kernel_matches_plain(cuda, kind, d, dtype, use_hfa, route):
     """Each paged kernel against its plain version: route "default" is
-    the wrapper's own (decode: v2; prefill: the tensor cores for bf16 at d
-    64 / 128, else the CUDA cores), "simt" the CUDA-core kernel."""
+    the wrapper's own (decode and verify: v2; prefill: the tensor cores
+    for bf16 at d 64 / 128, else the CUDA cores), "simt" the CUDA-core
+    kernel."""
     g, hkv, b = 2, 2, 3
     kp, vp, pt, gen = _paged_pools(cuda, dtype, d, b=b, hkv=hkv)
 
@@ -138,19 +145,20 @@ def test_kernel_matches_plain(cuda, kind, d, dtype, use_hfa, route):
     else:
         args = (rnd(b, hkv, g, 5, d), kp, vp, pt, i32([30, 0, 90]),
                 i32([5, 0, 2]))
-        fn, plain = pv.paged_verify_partial, pv.paged_verify_partial_plain
+        fn = pv.paged_verify_partial if route == "default" else \
+            pv.paged_verify_partial_simt
+        plain = pv.paged_verify_partial_plain
         live = [[1] * 5, [0] * 5, [1, 1, 0, 0, 0]]
-        key = None
+        key = ("verify", "v2" if route == "default" else "simt")
     before, mods = _paged_counts(), {m: m.launches for m in (pd, pp, pv)}
     ko, km, kl = fn(*args, use_hfa=use_hfa)
     po, pm, pl_ = plain(*args, use_hfa=use_hfa)
     torch.cuda.synchronize()
-    if key is not None:
-        before[key[0]][key[1]] += 1
+    before[key[0]][key[1]] += 1
     assert _paged_counts() == before
     # The wrappers count their own launches; the checks' forced routes not.
     counted = {"decode": pd, "prefill": pp, "verify": pv}[kind]
-    if kind != "verify" and route == "simt":
+    if route == "simt":
         counted = None
     assert {m: m.launches for m in mods} == {
         m: c + (m is counted) for m, c in mods.items()}
@@ -219,6 +227,92 @@ def test_decode_v2_split_matches_unsplit(cuda, d, dtype, splits):
     want = ref.paged_decode_split_model(*args, splits=splits)
     assert (decode_k.finalize_decode(o2, l2) - decode_k.finalize_decode(
         want[0], want[2])).abs().max().item() <= 1e-5
+
+
+def _verify_case(cuda, dtype, d, g=2, seed=None):
+    """Verify inputs at a walk long enough to split: B 4 (a free slot, a
+    slot shorter than one 64-key step, ragged chunks), Hkv 2, K 5, J 12
+    pages of 16."""
+    kp, vp, pt, gen = _paged_pools(cuda, dtype, d, b=4, j=12, seed=seed)
+    q = torch.randn((4, 2, g, 5, d), generator=gen, device=cuda).to(dtype)
+    return (q, kp, vp, pt, _i32(cuda, [150, 0, 185, 4]),
+            _i32(cuda, [5, 0, 3, 5]))
+
+
+def _verify_v2(q, kp, vp, pt, seq_lens, chunk_lens, splits, row_blocks,
+               use_hfa=False):
+    return cuda_lib.launch_paged_verify(
+        q, kp, vp, pt, seq_lens, chunk_lens, scale=q.shape[-1] ** -0.5,
+        use_hfa=use_hfa, splits=splits, row_blocks=row_blocks)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("g", [1, 2, 3])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_verify_v2_unsplit_bit_equal_to_simt(cuda, use_hfa, g, d, dtype):
+    """The v2 verify keeps the CUDA-core kernel's arithmetic order and a
+    causal limit per row, so its unsplit walk gives the same triplet bit
+    for bit on both rails - with all G K rows (5, 10, 15) in one block
+    and with one block a query head (the H-FA rail's grid)."""
+    args = _verify_case(cuda, dtype, d, g)
+    want = pv.paged_verify_partial_simt(*args, use_hfa=use_hfa)
+    for row_blocks in (1, g):
+        got = _verify_v2(*args, 1, row_blocks, use_hfa=use_hfa)
+        torch.cuda.synchronize()
+        for name, a, w in zip(("o", "m", "l"), got, want):
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32)), \
+                (name, row_blocks)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_verify_v2_split_matches_unsplit(cuda, d, dtype, splits):
+    """FA-2 rail: the verify walk split into runs and merged by Eq. 16 in
+    the kernel - within 1e-5 of the unsplit walk after finalize, m exact,
+    no NaN where a run holds no key, the counters left at zero (a second
+    launch agrees bit for bit), the free slot the neutral triplet, and
+    within 1e-5 of its plain model (kernels/ref.py)."""
+    args = _verify_case(cuda, dtype, d, seed=d + splits)
+    o1, m1, l1 = _verify_v2(*args, 1, 1)
+    o2, m2, l2 = _verify_v2(*args, splits, 1)
+    o3, m3, l3 = _verify_v2(*args, splits, 1)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o2).all() and torch.isfinite(l2).all()
+    assert torch.equal(m1, m2)
+    assert (decode_k.finalize_decode(o2, l2) -
+            decode_k.finalize_decode(o1, l1)).abs().max().item() <= 1e-5
+    assert torch.equal(o2, o3) and torch.equal(l2, l3)
+    assert all(int(c.count_nonzero()) == 0
+               for c in cuda_lib._counters.values())
+    assert torch.all(l2[1] == 0) and torch.all(o2[1] == 0) \
+        and torch.all(m2[1] == -1e30)
+    want = ref.paged_verify_split_model(*args, splits=splits)
+    live = (torch.arange(5, device=cuda)[None] < args[5][:, None])
+    mask = live[:, None, None].expand(m2.shape)
+    assert (decode_k.finalize_decode(o2, l2)[mask] - decode_k.finalize_decode(
+        want[0], want[2])[mask]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_verify_over_16_rows_goes_to_the_cuda_cores(cuda, use_hfa):
+    """G K = 20 rows: the route rule sends the verify to paged_verify_fwd,
+    counted as "simt", within the tolerances of its plain version."""
+    args = _verify_case(cuda, torch.bfloat16, 128, g=4)
+    assert cuda_lib.paged_verify_route(4, 5) == "simt"
+    before = _paged_counts()["verify"]
+    ko, km, kl = pv.paged_verify_partial(*args, use_hfa=use_hfa)
+    po, pm, pl_ = pv.paged_verify_partial_plain(*args, use_hfa=use_hfa)
+    torch.cuda.synchronize()
+    assert _paged_counts()["verify"] == {"v2": before["v2"],
+                                         "simt": before["simt"] + 1}
+    live = (torch.arange(5, device=cuda)[None] < args[5][:, None])
+    mask = live[:, None, None].expand(km.shape)
+    assert (km - pm)[mask].abs().max().item() <= 1e-3
+    err = (decode_k.finalize_decode(ko, kl, use_hfa=use_hfa) -
+           decode_k.finalize_decode(po, pl_, use_hfa=use_hfa))[mask]
+    assert err.abs().max().item() <= (1e-2 if use_hfa else 1e-3)
 
 
 @pytest.mark.parametrize("g", [1, 2, 4])
@@ -552,11 +646,12 @@ def _ring(cuda, dtype, d, b=3, s_len=300, hkv=2, g=2, seed=4):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [32, 64, 96, 128])
-@pytest.mark.parametrize("kv_len", [0, 1, 130, 300])
+@pytest.mark.parametrize("kv_len", [0, 1, 77, 130, 300])
 @pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
 def test_dense_decode_matches_plain(cuda, use_hfa, kv_len, d, dtype):
     """The kernel reads the ring in place (strided, S = 300 not a tile
-    multiple) against the plain version.  fa2: summation order only - the
+    multiple; split on the FA-2 rail as the wrapper's rule splits it)
+    against the plain version.  fa2: summation order only - the
     finalized output within 2e-5, o~ and l within 2e-5 of their scale
     (l sums up to ~50 here, where 2e-5 absolute is a few f32 ulps of a
     sum taken in another order), m within 2e-6.  hfa: the plain
@@ -581,6 +676,67 @@ def test_dense_decode_matches_plain(cuda, use_hfa, kv_len, d, dtype):
             assert (got - want).abs().max().item() <= 2e-5 * scale
     if kv_len == 0:
         assert torch.all(kl == 0) and torch.all(ko == 0)
+
+
+@pytest.mark.parametrize("splits", [2, 3, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_dense_decode_split_matches_unsplit(cuda, d, dtype, splits):
+    """FA-2 rail: the dense walk (kv_len 290: three 128-key tiles) split
+    into runs merged by Eq. 16 in the kernel - within 1e-5 of one walk
+    after finalize, m exact, no NaN where a run holds no tile (8 runs),
+    the counters left at zero, and within 1e-5 of its plain model."""
+    q, k, v = _ring(cuda, dtype, d, seed=d + splits)
+
+    def run(n):
+        return cuda_lib.launch_dense_decode(q, k, v, scale=d ** -0.5,
+                                            kv_len=290, use_hfa=False,
+                                            splits=n)
+    (o1, m1, l1), (o2, m2, l2), (o3, _, l3) = run(1), run(splits), run(splits)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o2).all() and torch.equal(m1, m2)
+    assert (decode_k.finalize_decode(o2, l2) -
+            decode_k.finalize_decode(o1, l1)).abs().max().item() <= 1e-5
+    assert torch.equal(o2, o3) and torch.equal(l2, l3)
+    assert all(int(c.count_nonzero()) == 0
+               for c in cuda_lib._counters.values())
+    want = ref.dense_decode_split_model(q, k, v, kv_len=290, splits=splits)
+    assert (decode_k.finalize_decode(o2, l2) - decode_k.finalize_decode(
+        want[0], want[2])).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+def test_dense_decode_hfa_dyadic_matches_plain(cuda, d):
+    """H-FA rail, q and the K ring on a dyadic grid (every score and
+    every tile's sum of p exact in any order): the kernel's unsplit walk
+    within 1e-5 of the plain 128-key walk after finalize, m equal."""
+    q, k, v = _ring(cuda, torch.bfloat16, d, seed=d)
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    qa = thfa.dyadic_bf16(q.shape, gen, cuda, bound=0.5)
+    ka = thfa.dyadic_bf16(k.transpose(1, 2).shape, gen, cuda,
+                          bound=0.5).transpose(1, 2)
+    got, want = (f(qa, ka, v, kv_len=290, use_hfa=True) for f in (
+        decode_k.decode_partial, decode_k.decode_partial_plain))
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1])
+    assert (decode_k.finalize_decode(got[0], got[2], use_hfa=True) -
+            decode_k.finalize_decode(want[0], want[2], use_hfa=True)
+            ).abs().max().item() <= 1e-5
+
+
+def test_dense_decode_refuses_a_misaligned_ring(cuda):
+    """cp.async copies 16-byte chunks: a ring whose base (8 bytes in) or
+    head stride (132 bytes) is not 16-byte aligned is refused before any
+    launch, never read another way."""
+    q = torch.zeros((3, 2, 2, 64), dtype=torch.bfloat16, device=cuda)
+    before = decode_k.launches
+    for width, lo in ((72, 4), (66, 0)):
+        ring = torch.zeros((3, 300, 2, width), dtype=torch.bfloat16,
+                           device=cuda)
+        kv = ring[..., lo:lo + 64].transpose(1, 2)
+        with pytest.raises(ValueError, match="16-byte aligned"):
+            decode_k.decode_partial(q, kv, kv)
+    assert decode_k.launches == before
 
 
 def test_decode_attention_on_the_ring(cuda):
