@@ -20,7 +20,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    the CUDA-core decode and verify bit for bit on both rails, and split
    be within 1e-5 (decode) and 2e-7 (verify) of unsplit; a verify of G K
    = 20 rows must take the CUDA-core route; the tensor-core prefill on a
-   dyadic grid within 1e-5 of the CUDA-core one.
+   dyadic grid within 1e-5 of the CUDA-core one.  On the H-FA rail at
+   pages 4, 3 and 32 decode, verify and prefill must each take the
+   CUDA-core body, which rescales once a page as the reference does, and
+   lie within 1e-5 of the per-page models on a dyadic grid, m equal; on
+   the FA-2 rail at page 4 decode and verify stay on v2.  The H-FA
+   decode and verify at pages 4, 16 and 32 are timed on the route they
+   take and on v2 unsplit, the route the H-FA rail took at every page
+   size before it rescaled once a page.
    One line per kernel: its time (events, and the device's own from
    torch.profiler), the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
@@ -47,10 +54,14 @@ Phases, in order; any failure exits non-zero and prints no result line:
    walk), beside SDPA on the same decode, and the per-element LNS
    datapath kernel at the dense-serve prefill shape (BH 128, L 512, d
    128, causal): bit for bit on inputs whose scores are exact (a
-   dyadic grid), and on random inputs every row whose bf16 scores the
-   kernel and the plain version form alike (the share that differ is
-   printed).  The LNS device functions must equal the plain ones bit
-   for bit over every bf16 pattern and rail value.  Last, every kernel
+   dyadic grid), and on random inputs every row bit for bit against the
+   plain walk fed the scores the kernel forms (``hfa_datapath_scores``;
+   the share of rows whose kernel scores differ from the einsum's is
+   printed), also at d 32, 64, 96 and 128, bf16 and f32; its device time
+   beside its bound (the LNS updates at the instructions of the
+   reference's definition).  The LNS device functions must equal the
+   plain ones bit for bit over every bf16 pattern and rail value, and the
+   correction table the plain exp2_neg over all 65,536 d.  Last, every kernel
    at d 96 (hfa-paper-mini's head dim, G 1) and d 32 (G 2), bf16 and f32,
    against its plain version.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
@@ -60,7 +71,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    hfa_datapath - and the same training loss and gradients; those f32
    runs must reach the dense forward and backward and the paged prefill
    through the CUDA-core kernels only, and the paged decode and verify
-   through v2.
+   (page 4) through v2 on the FA-2 rail and through the CUDA-core body on
+   the H-FA rail.
 4. Engine.  Full-width qwen3-1.7b (28 layers, random bf16 weights from
    seed 0) serves 16 requests sharing a 520-token system prompt through
    ``ServingEngine`` on both rails with spec_k 0 and 4.  Every request
@@ -138,6 +150,7 @@ from repro_torch.kernels import hfa_datapath as dp_k  # noqa: E402
 from repro_torch.kernels import paged_decode as pd  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp  # noqa: E402
 from repro_torch.kernels import paged_verify as pv  # noqa: E402
+from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.core import lns  # noqa: E402
 from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -503,7 +516,7 @@ def _check_paged_exact(cases) -> dict:
                       device="cuda").to(q.dtype)
     live = torch.tensor(cases["paged_verify"][1], device="cuda")
     mask = live[:, None, None].expand(q20.shape[:4])
-    assert cuda_lib.paged_verify_route(4, kw) == "simt"
+    assert cuda_lib.paged_verify_route(4, kw, 16, False) == "simt"
     for rail in ("fa2", "hfa"):
         use_hfa = rail == "hfa"
         before = dict(cuda_lib.paged_launches["verify"])
@@ -551,10 +564,165 @@ def _check_paged_exact(cases) -> dict:
     return out
 
 
+# Page sizes at which the H-FA rail's paged calls take the CUDA-core body,
+# which rescales once a page as the reference does: below 16 (4; 3, whose
+# tiles of 15 keys hold five pages) and above it (32: K and V of a page
+# in dynamic shared memory).
+PAGE_STEP_PAGES = (4, 3, 32)
+
+
+def check_paged_page_step() -> dict:
+    """The H-FA rail at page sizes other than 16 (PAGE_STEP_PAGES) at the
+    main path's widths (Hkv 8, G 2, d 128, bf16 pools, shuffled page
+    tables, a free slot): decode, verify (K 5) and prefill (a 128-token
+    chunk at 300) through the wrappers must each launch the CUDA-core
+    body once (paged_launches "simt") and, on a dyadic grid within +-0.5
+    (every score and every page's sum of p exact), lie within 1e-5 of the
+    per-page models (kernels/ref.py) after finalize, m bit for bit.  On
+    the FA-2 rail at page 4 decode and verify keep v2.  Returns the worst
+    errors."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    rng = np.random.default_rng(11)
+    b, hkv, g, d, keys = 4, 8, 2, 128, 640
+    out = {}
+    for page in PAGE_STEP_PAGES:
+        j = -(-keys // page)
+        n = b * j + 8
+        kp = hfa_k.dyadic_bf16((n, page, hkv, d), gen, "cuda", bound=0.5)
+        vp = torch.randn((n, page, hkv, d), generator=gen,
+                         device="cuda").to(torch.bfloat16)
+        pt = torch.tensor(rng.permutation(n)[:b * j].reshape(b, j),
+                          dtype=torch.int32, device="cuda")
+
+        def i32(a):
+            return torch.tensor(a, dtype=torch.int32, device="cuda")
+        kvl = i32([600, 0, 257, 33])
+        sl, cl = i32([590, 0, 250, 30]), i32([5, 0, 3, 5])
+        start, chunk = i32([300, 0, 0, 500]), i32([128, 0, 77, 100])
+        cases = {
+            "decode": ((hfa_k.dyadic_bf16((b, hkv, g, d), gen, "cuda",
+                                          bound=0.5), kp, vp, pt, kvl),
+                       pd.paged_decode_partial, ref.paged_decode_split_model,
+                       (kvl > 0)[:, None, None]),
+            "verify": ((hfa_k.dyadic_bf16((b, hkv, g, 5, d), gen, "cuda",
+                                          bound=0.5), kp, vp, pt, sl, cl),
+                       pv.paged_verify_partial, ref.paged_verify_split_model,
+                       (torch.arange(5, device="cuda")[None] <
+                        cl[:, None])[:, None, None]),
+            "prefill": ((hfa_k.dyadic_bf16((b, hkv, g, 128, d), gen, "cuda",
+                                           bound=0.5), kp, vp, pt, start,
+                         start + chunk),
+                        pp.paged_prefill_partial, ref.paged_prefill_model,
+                        (torch.arange(128, device="cuda")[None] <
+                         chunk[:, None])[:, None, None])}
+        for kind, (args, wrapper, model, live) in cases.items():
+            before = {k: dict(v) for k, v in cuda_lib.paged_launches.items()}
+            got = wrapper(*args, use_hfa=True)
+            torch.cuda.synchronize()
+            before[kind]["simt"] += 1
+            if cuda_lib.paged_launches != before:
+                raise AssertionError(f"page {page} {kind} [hfa]: launches "
+                                     f"{cuda_lib.paged_launches}, need one "
+                                     "more on the CUDA cores only")
+            kw = {} if kind == "prefill" else {"splits": 1}
+            want = model(*args, use_hfa=True, **kw)
+            mask = live.expand(got[1].shape)
+            go, wo = (decode_k.finalize_decode(o, l, use_hfa=True)[mask]
+                      for o, _, l in (got, want))
+            err = float((go - wo).abs().max())
+            same_m = torch.equal(got[1][mask], want[1][mask])
+            if not (err <= 1e-5 and same_m
+                    and bool(torch.isfinite(go).all())):
+                raise AssertionError(f"page {page} {kind} [hfa]: CUDA-core "
+                                     f"body vs the per-page model {err:.3g} "
+                                     f"(atol 1e-5), m equal {same_m}")
+            out[f"{kind}_{page}"] = err
+        if page == 4:
+            for kind in ("decode", "verify"):
+                args, wrapper = cases[kind][:2]
+                before = dict(cuda_lib.paged_launches[kind])
+                wrapper(*args, use_hfa=False)
+                if cuda_lib.paged_launches[kind] != {
+                        "v2": before["v2"] + 1, "simt": before["simt"]}:
+                    raise AssertionError(f"page 4 {kind} [fa2] left v2: "
+                                         f"{cuda_lib.paged_launches[kind]}")
+    print(f"check paged page step [hfa]: decode, verify, prefill at pages "
+          f"{PAGE_STEP_PAGES} on the CUDA-core body (one page a rescale) vs "
+          f"the per-page models on the dyadic grid: max |out err| "
+          f"{max(out.values()):.3g} (atol 1e-5), m equal; fa2 at page 4 "
+          f"stays on v2")
+    return out
+
+
+# Pages at which the H-FA decode and verify are timed on the route each
+# takes and on v2 (paged_attention_tc.cu, whose 16-key rescale the H-FA
+# rail took at every page size before it rescaled once a page).
+HFA_TIMED_PAGES = (4, 16, 32)
+
+
+def _repage(pool, pt, page: int, perm: np.ndarray) -> torch.Tensor:
+    """The keys a page-16 pool holds for the slots of ``pt``, in slot
+    order, cut into pages of ``page`` keys and stored at ``perm``."""
+    pages = pool[pt.long()].reshape(-1, page, *pool.shape[2:])
+    out = torch.empty_like(pages)
+    out[torch.as_tensor(perm, device=pool.device)] = pages
+    return out
+
+
+def time_hfa_page_routes(cases) -> dict:
+    """The cost of the H-FA page rule: at the kernels-phase decode and
+    verify shapes, the same slots' keys laid out at HFA_TIMED_PAGES, the
+    device and event ms of the wrapper (the route the rule picks: the
+    CUDA-core body at a page other than 16) beside v2 launched directly,
+    unsplit, one block a query head for verify - the kernel and grid the
+    H-FA rail took at every page size before the rule.  Timed only: at a
+    page other than 16, v2 on the H-FA rail is not the reference's walk."""
+    rng = np.random.default_rng(19)
+    out = {}
+    for kind, wrapper in (("decode", pd.paged_decode_partial),
+                          ("verify", pv.paged_verify_partial)):
+        q, kp16, vp16, pt16, *lens = cases[f"paged_{kind}"][0]
+        g, kw = q.shape[2], q.shape[3] if kind == "verify" else 1
+        for page in HFA_TIMED_PAGES:
+            perm = rng.permutation(pt16.numel() * kp16.shape[1] // page)
+            kp, vp = (_repage(x, pt16, page, perm) for x in (kp16, vp16))
+            pt = torch.tensor(perm.reshape(pt16.shape[0], -1),
+                              dtype=torch.int32, device="cuda")
+            route = (cuda_lib.paged_decode_route(page, True)
+                     if kind == "decode" else
+                     cuda_lib.paged_verify_route(g, kw, page, True))
+
+            def on_route(args=(q, kp, vp, pt, *lens)):
+                return wrapper(*args, use_hfa=True)
+
+            def on_v2(args=(q, kp, vp, pt, lens)):
+                return cuda_lib._launch_v2(
+                    f"paged_{kind}_fwd_v2", *args, rows=g * kw,
+                    row_blocks=cuda_lib.verify_row_blocks(g, kw, True)
+                    if kind == "verify" else 1, splits=1,
+                    scale=q.shape[-1] ** -0.5, use_hfa=True)
+            kname = ("paged_attention_kernel" if route == "simt" else
+                     "paged_decode_v2_kernel")
+            t = {"route": route, "ms": timed(on_route),
+                 "device_ms": device_ms(on_route, kname),
+                 "v2_ms": timed(on_v2),
+                 "v2_device_ms": device_ms(on_v2, "paged_decode_v2_kernel")}
+            out[f"{kind}_{page}"] = t
+            print(f"time hfa page rule [{kind}]: page {page}: route "
+                  f"{route} {t['device_ms']:.4f} ms device ({t['ms']:.4f} "
+                  f"events) | v2 unsplit {t['v2_device_ms']:.4f} "
+                  f"({t['v2_ms']:.4f}) | route / v2 device "
+                  f"{t['device_ms'] / t['v2_device_ms']:.2f}x")
+            del kp, vp
+    return out
+
+
 def check_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_cases(gen)
     exact = _check_paged_exact(cases)
+    check_paged_page_step()
+    time_hfa_page_routes(cases)
     rows = []
     measured = {}                 # kind -> (bound, bound_by, library_ms)
     for row_name, (name, src, _, kname) in PAGED_ROWS.items():
@@ -636,6 +804,7 @@ def check_kernels() -> list[dict]:
 # model that has it: 96 is hfa-paper-mini's d_head (32 query heads over
 # 32 KV heads, G 1); 32 at G 2.
 HEAD_DIM_CASES = {96: 1, 32: 2}
+HEAD_DIMS_ALL = (32, 64, 96, 128)
 
 
 def _paged_err(out, want, live, use_hfa):
@@ -1091,7 +1260,9 @@ def check_lns() -> None:
     """The LNS device functions of the datapath source against the plain
     torch LNS functions, bit for bit: lns_to_bf16 over every rail value
     (both signs), blinn_log2 over every bf16 pattern, lns_add over signed
-    pairs on a rail grid, quant_scorediff over a sweep of differences."""
+    pairs on a rail grid, quant_scorediff over a sweep of differences, and
+    the exp2_neg table (the kernel's Mitchell correction) against the
+    plain exp2_neg over all 65,536 d."""
     raw = torch.arange(-32768, 32768, dtype=torch.float32, device="cuda")
     grid = torch.cat([torch.arange(-1500., 1500., 2., device="cuda"),
                       torch.tensor([-32768., -32767., 32767., 0.],
@@ -1104,28 +1275,31 @@ def check_lns() -> None:
                             dtype=torch.int32) for _ in range(2))
     x = torch.linspace(-20.0, 1.0, n, device="cuda")
     bits = torch.arange(n, device="cuda", dtype=torch.int32) & 0xFFFF
-    sc, rc, quant, bsign, braw, _ = cuda_lib.lns_eval(sa, ra, sb, rb, x,
-                                                      bits)
+    sc, rc, quant, bsign, braw, _, corr = cuda_lib.lns_eval(sa, ra, sb, rb,
+                                                            x, bits)
     ws, wr = lns.lns_add(sa, ra, sb, rb)
     pat = (torch.where(bits >= 0x8000, bits - 0x10000, bits)
            .to(torch.int16).view(torch.bfloat16))
     bs, br = lns.blinn_log2(pat)
     bad = {"lns_add": int((sc != ws).sum() + (rc != wr).sum()),
            "quant_scorediff": int((quant != lns.quant_scorediff(x)).sum()),
-           "blinn_log2": int((bsign != bs).sum() + (braw != br).sum())}
+           "blinn_log2": int((bsign != bs).sum() + (braw != br).sum()),
+           "exp2_neg table": int((corr != lns.exp2_neg(bits.float())).sum())}
     for sign in (0, 1):
         sg = torch.full_like(raw, sign, dtype=torch.int32)
-        *_, packed = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)
+        packed = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)[5]
         bad[f"lns_to_bf16 sign {sign}"] = int(
             (packed.view(torch.int16)
              != lns.lns_to_bf16(sg, raw).view(torch.int16)).sum())
     if any(bad.values()):
         raise AssertionError(f"LNS device functions differ from the plain "
                              f"versions: {bad}")
+    assert n >= 1 << 16
     print(f"lns (datapath source): lns_add over {n} signed pairs, "
           f"quant_scorediff over {n} differences, blinn_log2 over every bf16 "
-          f"pattern, lns_to_bf16 over all 65536 rail values x 2 signs: "
-          f"bit-equal to the plain torch LNS")
+          f"pattern, lns_to_bf16 over all 65536 rail values x 2 signs, the "
+          f"exp2_neg table over every d in [0, 65535]: bit-equal to the plain "
+          f"torch LNS")
 
 
 # The dense-serve decode of qwen3-1.7b: batch 8 x 8 KV heads, 2 query
@@ -1253,17 +1427,29 @@ def check_decode_kernel() -> dict:
     return row
 
 
+# Instructions one LNS update takes in the reference's definition (the
+# two rescales of src/repro/kernels/hfa_datapath.py and lns_add of
+# src/repro/core/lns.py), each item at the fewest CUDA-core instructions
+# it needs: the two rescales (an add and a max each) 4, the max of the
+# operands 1, |diff| (min, subtract) 2, the correction as one lookup 1,
+# the add or subtract (the sign compare, the signed add) 2, the sign
+# select (compare, select) 2, the zero bypasses (two tests, two selects)
+# 4, the cancellation (test, select) 2, the clamp (min, max) 2.
+LNS_OPS_PER_UPDATE = 20
+
+
 def _datapath_bound(bh: int, ell: int, d: int) -> tuple[float, str, dict]:
     """Least time for the datapath's work: q, k, v read and the bf16
     output written once over the memory rate, against its operations -
     the QK products over the causal visible pairs at the bf16 tensor
-    peak plus one LNS update per (visible pair, column) at the f32
-    CUDA-core rate (they have no tensor-core form) - summed."""
+    peak plus LNS_OPS_PER_UPDATE instructions per LNS update (one per
+    visible pair and column of [l, o]) at the CUDA-core instruction rate
+    (they have no tensor-core form) - summed."""
     pairs = bh * ell * (ell + 1) / 2
     nbytes = 4 * bh * ell * d * 2
     updates = pairs * (d + 1)
     t_qk = 2 * d * pairs / BF16_FLOPS_PER_S * 1e3
-    t_lns = updates / F32_OPS_PER_S * 1e3
+    t_lns = updates * LNS_OPS_PER_UPDATE / CORE_OPS_PER_S * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = t_qk + t_lns
     parts = {"bytes_ms": t_bytes, "qk_ms": t_qk, "lns_ms": t_lns,
@@ -1272,13 +1458,40 @@ def _datapath_bound(bh: int, ell: int, d: int) -> tuple[float, str, dict]:
                                  "operations"), parts
 
 
+def _datapath_given_scores(q, k, v, **kw) -> tuple[int, float]:
+    """(rows of the kernel not bit-equal to the plain walk fed the
+    kernel's own scores, share of rows with a visible kernel score that
+    differs from the plain f32 einsum's)."""
+    got = dp_k.hfa_datapath(q, k, v, **kw)
+    s_kernel = dp_k.hfa_datapath_scores(q, k, **kw)
+    want = dp_k.hfa_datapath_from_scores(s_kernel, v, causal=kw["causal"],
+                                         kv_len=kw.get("kv_len"))
+    bad = int((got.view(torch.int16) != want.view(torch.int16)).any(-1)
+              .sum())
+    lq, lkv, d = q.shape[1], k.shape[1], q.shape[2]
+    s_plain = (torch.einsum("bqd,bkd->bqk", q.float(), k.float())
+               * d ** -0.5).to(torch.bfloat16)
+    kv_len = kw.get("kv_len") or lkv
+    vis = (torch.arange(lkv, device=q.device) < kv_len)[None].expand(lq, lkv)
+    if kw["causal"]:
+        vis = vis & torch.ones(lq, lkv, dtype=torch.bool,
+                               device=q.device).tril(lkv - lq)
+    differ = ((s_kernel != s_plain) & vis).any(-1)
+    if not bool(torch.isfinite(got.float()).all()):
+        bad = max(bad, 1)
+    return bad, float(differ.float().mean())
+
+
 def check_datapath_kernel() -> dict:
     """Kernel 9 at the dense-serve prefill shape against its plain
     version (the core.hfa emulation) on the same CUDA tensors: (a) bit
     for bit on a dyadic grid, where no summation order can change a
-    score; (b) on random normal inputs, every row whose bf16 scores the
-    kernel and the plain einsum form alike, with the share that differ
-    printed."""
+    score; (b) on random normal inputs, every row bit for bit against
+    the plain walk fed the scores the kernel forms (hfa_datapath_scores,
+    the same code), with no exception, and the share of rows whose
+    kernel scores differ from the plain einsum's printed; (c) the same
+    at d 32, 64, 96 and 128, bf16 and f32, causal and not, with a kv_len
+    mask, at BH 4, Lq 200, Lkv 260."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     bh, ell, d = DP_BH, DP_L, DP_D
 
@@ -1298,56 +1511,72 @@ def check_datapath_kernel() -> dict:
         raise AssertionError(f"hfa_datapath: {bad_a} of {got.numel()} output "
                              "bits differ from the plain version on exact "
                              "scores")
-    # (b) random normal inputs.
+    del qa, ka, va, got, want
+    # (b) random normal inputs, given the kernel's own scores.
     q, k, v = normal(), normal(), normal()
+    bad_b, differ_share = _datapath_given_scores(q, k, v, causal=True)
+    if bad_b:
+        raise AssertionError(f"hfa_datapath: {bad_b} rows differ from the "
+                             "plain walk fed the kernel's own scores")
+    # (c) every head dim, both dtypes, both masks.
+    worst_c = []
+    for dd in HEAD_DIMS_ALL:
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (False, True):
+                qc, kc, vc = (torch.randn((4, n, dd), generator=gen,
+                                          device="cuda").to(dtype)
+                              for n in (200, 260, 260))
+                bad_c, share = _datapath_given_scores(
+                    qc, kc, vc, causal=causal, kv_len=230)
+                worst_c.append(share)
+                if bad_c:
+                    raise AssertionError(
+                        f"hfa_datapath d {dd} {dtype} causal {causal}: "
+                        f"{bad_c} rows differ from the plain walk fed the "
+                        "kernel's own scores")
 
     def kernel():
         return dp_k.hfa_datapath(q, k, v, causal=True)
 
     def plain():
         return dp_k.hfa_datapath_plain(q, k, v, causal=True)
-    got, want = kernel(), plain()
-    s_kernel = dp_k.kernel_order_scores(q, k)
-    s_plain = (torch.einsum("bqd,bkd->bqk", q.float(), k.float())
-               * d ** -0.5).to(torch.bfloat16).float()
-    vis = torch.ones(ell, ell, dtype=torch.bool, device="cuda").tril()
-    agree = ((s_kernel == s_plain) | ~vis).all(-1)
-    same = (got.view(torch.int16) == want.view(torch.int16)).all(-1)
-    differ_share = 1.0 - float(agree.float().mean())
-    bad_b = int((agree & ~same).sum())
-    err = float((got.float() - want.float()).abs().max())
-    del s_kernel, s_plain
-    if bad_b or not bool(torch.isfinite(got.float()).all()):
-        raise AssertionError(f"hfa_datapath: {bad_b} rows with equal scores "
-                             "differ from the plain version")
+    err = float((kernel().float() - plain().float()).abs().max())
     ms = timed(kernel, reps=10, inner=2)
+    dev_ms = device_ms(kernel, "hfa_datapath_kernel", calls=10)
     plain_ms = timed(plain, reps=1, inner=1)
     bound_ms, bound_by, parts = _datapath_bound(bh, ell, d)
     row = {"name": "hfa_datapath", "route": "cuda", "source": DATAPATH_SRC,
            "replaces": REPLACES["hfa_datapath"], "max_abs_err": err,
-           "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-           "bound_by": bound_by, "library_ms": None,
+           "ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
            "rows_scores_differ": differ_share}
     print(f"kernel hfa_datapath (BH {bh}, L {ell}, d {d}, bf16, causal): "
-          f"kernel_ms {ms:.4f} | plain_ms {plain_ms:.4f} | library_ms none "
-          f"| bound_ms {bound_ms:.4f} ({bound_by}: QK {parts['qk_ms']:.4f} + "
-          f"{parts['lns_updates']:.3g} LNS updates at the f32 CUDA-core rate "
-          f"{parts['lns_ms']:.4f}; bytes {parts['bytes_ms']:.4f}) | (a) "
-          f"exact scores: all {got.numel()} output bits equal | (b) random: "
-          f"{differ_share:.4%} of rows have a bf16 score that differs, all "
-          f"{int(agree.sum())} rows whose scores agree are bit-equal, max "
-          f"|err| over all rows {err:.3g}")
+          f"kernel_ms {ms:.4f} (device {dev_ms:.4f}) | plain_ms "
+          f"{plain_ms:.4f} | library_ms none | bound_ms {bound_ms:.4f} "
+          f"({bound_by}: QK {parts['qk_ms']:.4f} + {parts['lns_updates']:.4g} "
+          f"LNS updates x {LNS_OPS_PER_UPDATE} instructions at "
+          f"{CORE_OPS_PER_S:.3g}/s {parts['lns_ms']:.4f}; bytes "
+          f"{parts['bytes_ms']:.4f}) | (a) exact scores: all output bits "
+          f"equal | (b) random: every row bit-equal to the plain walk fed "
+          f"the kernel's scores; {differ_share:.4%} of rows hold a kernel "
+          f"score that differs from the einsum's; max |err| vs the plain "
+          f"version {err:.3g} | (c) d {HEAD_DIMS_ALL}, bf16 and f32, causal "
+          f"and not, kv_len 230: every row bit-equal given its scores "
+          f"(rows whose scores differ: up to {max(worst_c):.2%})")
     return row
 
 
 # ------------------------------------------------------------- phase 3
-def check_small_reference() -> None:
+def check_small_reference() -> dict:
     """Reduced qwen3-1.7b in f32: kernels on the card vs plain versions
-    on the CPU, one chunked prefill, one decode and one verify step."""
+    on the CPU, one chunked prefill, one decode and one verify step, at
+    page 4.  Returns each rail's paged launches by route."""
     # fa2: f32 on both sides, summation order only.  hfa: the kernels
     # rescale online on the rail (see ATOL_OUT), which moves attention
     # outputs by up to ~1e-2 and the logits of this model by less.
+    counts = {}
     for rail, tol in (("fa2", 1e-4), ("hfa", 2e-2)):
+        _reset_paged_counters()
         cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
                                   attn_impl=rail)
         cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
@@ -1379,6 +1608,8 @@ def check_small_reference() -> None:
                                      f"(atol {tol})")
             print(f"reference: reduced qwen3-1.7b {meth} [{rail}] card "
                   f"kernels vs CPU plain: max |logit| diff {err:.3g}")
+        counts[rail] = _paged_counts()
+    return counts
 
 
 
@@ -2043,18 +2274,20 @@ def main() -> int:
         check_head_dims()
         print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
     if "reference" in phases:
-        _reset_paged_counters()
-        check_small_reference()
-        paged = _paged_counts()
-        if paged["paged_prefill_simt"] <= 0 or paged["paged_prefill"] \
-                or paged["paged_decode"] <= 0 or paged["paged_decode_simt"] \
-                or paged["paged_verify"] <= 0 or paged["paged_verify_simt"]:
-            raise AssertionError(f"reference: the reduced f32 model's paged "
-                                 f"launches {paged}: its prefill must run "
-                                 "on the CUDA cores alone, its decode and "
-                                 "verify on v2")
-        print(f"reference: paged launches of the reduced f32 model by route "
-              f"{paged}")
+        paged = check_small_reference()
+        # Page 4, f32: every prefill on the CUDA cores; decode and verify
+        # on v2 on the FA-2 rail, on the CUDA cores (a rescale a page) on
+        # the H-FA rail.
+        for rail, c in paged.items():
+            on = "simt" if rail == "hfa" else ""
+            need = {"paged_prefill_simt", f"paged_decode{on and '_simt'}",
+                    f"paged_verify{on and '_simt'}"}
+            if any((c[n] > 0) != (n in need) for n in c):
+                raise AssertionError(f"reference [{rail}]: the reduced f32 "
+                                     f"model's paged launches {c}, need "
+                                     f"exactly {sorted(need)}")
+        print(f"reference: paged launches of the reduced f32 model (page 4) "
+              f"by route {paged}")
         _reset_dense_counters()
         check_ring_reference()
         check_train_reference()

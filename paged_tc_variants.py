@@ -1,19 +1,21 @@
-"""Where the time of the redesigned paged kernels goes, on one NVIDIA GPU.
+"""Where the time of the redesigned kernels goes, on one NVIDIA GPU.
 
   python3 paged_tc_variants.py [variant ...]
 
-Builds variants of ``src/repro_torch/csrc/paged_attention_tc.cu`` - each
-a text edit of the source that removes or changes one part of the work -
-with nvcc into ``build/paged_tc_variants/<variant>/``, and times every
-variant in this one process, on one card, at the kernels-phase shapes of
-``chip_smoke.py`` (prefill: B 2, Hkv 8, G 2, 512-token chunks at 520 and
-1000, d 128, bf16, page 16; decode: B 8, kv up to 2048, split 5 and 8 on
-the FA-2 rail and unsplit; verify: B 8, K 5, split 8 on the FA-2 rail,
-one block a query head on the H-FA rail).  Each time is the best of 5
-CUDA-event windows
-of 50 back-to-back launches called straight through ctypes, so the host
-adds no gap.  The variants that remove work give wrong results: they
-exist only to be timed.
+Builds variants of ``src/repro_torch/csrc/paged_attention_tc.cu`` and of
+``src/repro_torch/csrc/hfa_datapath.cu`` - each a text edit of the source
+or of a header it includes that removes or changes one part of the work
+- with nvcc into ``build/paged_tc_variants/<variant>/``, and times every
+variant in this one process, on one card: the paged ones at the
+kernels-phase shapes of ``chip_smoke.py`` (prefill: B 2, Hkv 8, G 2,
+512-token chunks at 520 and 1000, d 128, bf16, page 16; decode: B 8, kv
+up to 2048, split 5 and 8 on the FA-2 rail and unsplit; verify: B 8, K
+5, split 8 on the FA-2 rail, one block a query head on the H-FA rail),
+the datapath (``dp_`` variants) at the dense-serve prefill shape (BH 128,
+L 512, d 128, bf16, causal).  Each time is the best of 5 CUDA-event
+windows of back-to-back launches (50 paged, 10 datapath) called straight
+through ctypes, so the host adds no gap.  The variants that remove work
+give wrong results: they exist only to be timed.
 
   base        the source as it is
   no_pv       no P V wgmma (the rescale stays)
@@ -31,6 +33,18 @@ exist only to be timed.
               thread (the source takes one)
   dc_abs      the decode and verify walks cut into runs at tile indices
               fixed by the table width, not by each slot's length
+  dp_base     the datapath source as it is (the correction from a
+              1,024-byte table at min(d, 1023), 16 rows a block, 4 a
+              thread, 32-key tiles)
+  dp_g7shift  the correction as g7[d & 127] >> (d >> 7) from the table's
+              first 128 bytes (32 words: no bank conflicts)
+  dp_arith    the correction computed: the reference's 8-segment PWL
+              with select chains, no table
+  dp_rows32   32 rows a block, 8 a thread
+  dp_rpt2     2 rows a thread (twice the threads)
+  dp_keys64   64-key tiles
+  dp_no_c     no column pass (the scores, V's LNS form and the row pass
+              alone)
 
 Without a card, or without nvcc, it exits non-zero.
 """
@@ -67,6 +81,29 @@ NO_RAIL = """#pragma unroll
       }
 """
 RING2 = ("constexpr int kPfStages = 4; ", "constexpr int kPfStages = 2; ")
+TAB = "  return tab[min(d, kCorrTab - 1)];\n"
+
+
+def _pwl_correction() -> str:
+    """exp2_neg(d) in integer arithmetic: the reference's PWL with its
+    Q1.15 coefficients as literals in select chains."""
+    from repro_torch.core import lns
+    lut = [int(x) for x in lns.pwl_lut16()]
+    body = ["  const int f7 = d & 127, seg = f7 >> 4;",
+            f"  int a = {lut[0]}, b = {lut[8]};"]
+    for i in range(1, 8):
+        body.append(f"  a = seg >= {i} ? {lut[i]} : a;")
+        body.append(f"  b = seg >= {i} ? {lut[8 + i]} : b;")
+    body.append("  return (((((a * f7) >> 7) + b) + 128) >> 8) >> "
+                "min(d >> 7, 8);")
+    return "\n".join(body) + "\n"
+
+
+COLUMN = ("    if (masked)\n      column_pass<D, true>(vl_s + c, w_s + g * kRpt, "
+          "nk, sa, ra, tab);\n    else\n      column_pass<D, false>(vl_s + c, "
+          "w_s + g * kRpt, nk, sa, ra, tab);\n")
+# Source of each variant: the datapath's start with dp_.
+DP_SRC, PAGED_SRC = "hfa_datapath.cu", "paged_attention_tc.cu"
 VARIANTS = {
     "base": [],
     "no_pv": [(PV, "")],
@@ -86,26 +123,38 @@ VARIANTS = {
     "dc_abs": [("const int per = (n_tiles + p.splits - 1) / p.splits;",
                 "const int per = ((p.J * p.page + kDcTile - 1) / kDcTile + "
                 "p.splits - 1) / p.splits;")],
+    "dp_base": [],
+    "dp_g7shift": [(TAB, "  return tab[d & 127] >> min(d >> 7, 8);\n")],
+    "dp_arith": [(TAB, None)],            # filled in from the LUT at build
+    "dp_rows32": [("constexpr int kRows = 16;", "constexpr int kRows = 32;"),
+                  ("constexpr int kRpt = 4;", "constexpr int kRpt = 8;")],
+    "dp_rpt2": [("constexpr int kRpt = 4;", "constexpr int kRpt = 2;")],
+    "dp_keys64": [("constexpr int kKeys = 32;", "constexpr int kKeys = 64;")],
+    "dp_no_c": [(COLUMN, "")],
 }
 
 
 def build(names: list[str]) -> dict:
-    """Build every variant in parallel; returns name -> loaded library."""
-    source = (CSRC / "paged_attention_tc.cu").read_text()
+    """Build every variant in parallel; returns name -> loaded library.
+    An edit applies to the source or to the headers that hold its text."""
     nvcc = cuda_lib._nvcc()
     procs = {}
     for name in names:
-        text = source
+        src = DP_SRC if name.startswith("dp_") else PAGED_SRC
+        files = {"k.cu": (CSRC / src).read_text()}
+        files.update({h.name: h.read_text() for h in CSRC.glob("*.cuh")})
         for old, new in VARIANTS[name]:
-            if old not in text:
-                raise RuntimeError(f"variant {name}: the source no longer "
-                                   f"holds {old.strip()[:60]!r}")
-            text = text.replace(old, new)
+            new = _pwl_correction() if new is None else new
+            hits = [f for f, text in files.items() if old in text]
+            if not hits:
+                raise RuntimeError(f"variant {name}: the sources no longer "
+                                   f"hold {old.strip()[:60]!r}")
+            for f in hits:
+                files[f] = files[f].replace(old, new)
         d = OUT / name
         d.mkdir(parents=True, exist_ok=True)
-        for header in CSRC.glob("*.cuh"):
-            (d / header.name).write_text(header.read_text())
-        (d / "k.cu").write_text(text)
+        for f, text in files.items():
+            (d / f).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
              str(d / "k.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -115,10 +164,11 @@ def build(names: list[str]) -> dict:
         _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"variant {name}: nvcc failed:\n{err}")
-        libs[name] = cuda_lib.bind(
-            ctypes.CDLL(str(OUT / name / "lib.so")),
-            ("paged_prefill_fwd_tc", "paged_decode_fwd_v2",
-             "paged_verify_fwd_v2"))
+        entries = (("hfa_datapath_fwd",) if name.startswith("dp_") else
+                   ("paged_prefill_fwd_tc", "paged_decode_fwd_v2",
+                    "paged_verify_fwd_v2"))
+        libs[name] = cuda_lib.bind(ctypes.CDLL(str(OUT / name / "lib.so")),
+                                   entries)
     return libs
 
 
@@ -165,6 +215,15 @@ def shapes():
     return pf, dc, vf, (hkv, g, d, page, j, pf[1].shape[0])
 
 
+def datapath_inputs():
+    """The dense-serve prefill's datapath inputs (seeded) and output."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((128, 512, 128), generator=gen,
+                           device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    return [q, k, v, torch.empty_like(q)]
+
+
 def timed(fn, n: int = 50) -> float:
     for _ in range(5):
         if fn() != 0:
@@ -202,7 +261,18 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     print(card)
+    dp = datapath_inputs()
+    corr = ctypes.cast(cuda_lib._CORR, ctypes.c_void_p)
     for name, lib in libs.items():
+        if name.startswith("dp_"):
+            def datapath(lib=lib):
+                return lib.hfa_datapath_fwd(*ptrs(dp), 128, 512, 512, 128,
+                                            512, 0, 1, scale, 1, corr,
+                                            stream())
+            print(f"{name:12s} datapath ms (BH 128, L 512, d 128, causal) "
+                  f"{timed(datapath, n=10):.4f}", flush=True)
+            continue
+
         def prefill(hfa, lib=lib):
             return lib.paged_prefill_fwd_tc(*ptrs(pf), 2, hkv, g, 512, d, j,
                                             page, n_pages, scale, hfa, lut,

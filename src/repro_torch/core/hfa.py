@@ -9,7 +9,8 @@ logarithmic domain of :mod:`repro_torch.core.lns`.
 * ``hfa_attention``     - H-FA attention for one KV span (one streaming
   FAU, Alg. 2 + Eq. 14).
 * ``hfa_partial``       - the FAU's partial state (m, sign, raw) without
-  the final LogDiv.
+  the final LogDiv; ``hfa_partial_scores`` the same walk fed given bf16
+  scores.
 * ``acc_merge``         - the log-domain ACC merge of two partials
   (Eq. 16).
 * ``hfa_blockparallel`` - Fig. 2: p parallel FAU blocks, cascaded ACC
@@ -74,14 +75,25 @@ def hfa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     d = q.shape[-1]
     scale_v = (1.0 / d ** 0.5) if scale is None else scale
-    batch_shape = tuple(q.shape[:-2]) + (q.shape[-2],)
-    state = init if init is not None else _empty_state(batch_shape, d,
-                                                       q.device)
     # Scores for the whole span in BF16 (the FP half of the datapath).
     s_all = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
                          k.to(torch.float32)) * scale_v
-    s_all = to_bf16(s_all).to(torch.float32)                # (..., Lq, Lkv)
-    valid_all = (torch.ones(s_all.shape, dtype=torch.bool, device=q.device)
+    return hfa_partial_scores(to_bf16(s_all).to(torch.float32), v,
+                              mask=mask, init=init)
+
+
+def hfa_partial_scores(s_all: torch.Tensor, v: torch.Tensor, *,
+                       mask: torch.Tensor | None = None,
+                       init: HFAPartial | None = None) -> HFAPartial:
+    """:func:`hfa_partial` fed the bf16-valued f32 scores s_all (..., Lq,
+    Lkv) - already scaled and rounded - in place of its QK^T; the same
+    walk.  Fed :func:`hfa_partial`'s own scores it returns the same state
+    bit for bit."""
+    d = v.shape[-1]
+    batch_shape = tuple(s_all.shape[:-1])
+    state = init if init is not None else _empty_state(batch_shape, d,
+                                                       v.device)
+    valid_all = (torch.ones(s_all.shape, dtype=torch.bool, device=v.device)
                  if mask is None else torch.broadcast_to(mask, s_all.shape))
     # V_i = [1, v_i] in LNS, for every key at once: (..., Lkv, d+1).
     vb = v.to(torch.bfloat16)
@@ -90,7 +102,7 @@ def hfa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sgn_v_all, raw_v_all = lns.lns_from_bf16(v_ext)
 
     m_prev, sgn_prev, raw_prev = state
-    for i in range(k.shape[-2]):
+    for i in range(s_all.shape[-1]):
         s_i = s_all[..., i]                                  # (..., Lq)
         valid_i = valid_all[..., i]
         m_new = torch.maximum(m_prev, s_i)

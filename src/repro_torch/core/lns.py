@@ -20,7 +20,9 @@ piecewise-linear LUT whose coefficients are fitted in numpy when this
 module is imported and quantized to Q1.15.  The fit is recomputed here
 exactly as the reference does it, so the table - and every value the
 rail produces - is bit-identical; the CUDA kernels receive the same 16
-numbers as a launch argument (see :func:`pwl_lut16`).
+numbers as a launch argument (see :func:`pwl_lut16`).  As a function of
+the integer D it is also a table of 1,024 bytes, 0 beyond
+(:func:`exp2_neg_table`), which the datapath kernel looks up.
 
 Rail values are float32 tensors holding log2|x| * 2^7; they stay
 integer-valued, so float32 is exact.
@@ -112,6 +114,19 @@ def exp2_neg(raw_d: torch.Tensor) -> torch.Tensor:
     return torch.floor(shifted)
 
 
+# exp2_neg(d) is floor(g(f) 2^-p) with p = d >> 7, f = d & 127 and g <= 128:
+# a function of the integer d alone, 0 for every d >= 1024 (p >= 8).
+EXP2_NEG_TABLE = 1024
+
+
+def exp2_neg_table() -> np.ndarray:
+    """exp2_neg(d) for d = 0 .. 1023 as uint8 (the last entry, and every
+    d beyond, is 0): the table the datapath kernel looks the Mitchell
+    correction up in, built from :func:`exp2_neg` itself."""
+    d = torch.arange(EXP2_NEG_TABLE, dtype=torch.float32)
+    return exp2_neg(d).numpy().astype(np.uint8)
+
+
 def clamp_rail(raw: torch.Tensor) -> torch.Tensor:
     """Saturate a rail value to the FIX16 range."""
     return torch.clamp(raw, FIX_MIN, FIX_MAX)
@@ -139,6 +154,13 @@ def blinn_log2(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 def lns_from_bf16(v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Float -> LNS: Blinn's trick is a Mitchell approximation (Eq. 18)."""
     return blinn_log2(v)
+
+
+def rail_rescale(raw: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """raw + q on the rail for q <= 0 and rail values raw: the reference's
+    saturated add that keeps a zero (LOG_ZERO) zero is max(raw + q,
+    LOG_ZERO) - the form the datapath kernel computes."""
+    return torch.clamp(raw + q, min=float(LOG_ZERO))
 
 
 def lns_add(sign_a: torch.Tensor, raw_a: torch.Tensor, sign_b: torch.Tensor,

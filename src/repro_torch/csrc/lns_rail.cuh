@@ -3,92 +3,97 @@
 // quant_scorediff, blinn_log2, exp2_neg, lns_add and lns_to_bf16 are
 // bit-equal to the plain torch versions in repro_torch/core/lns.py (the
 // reference's src/repro/core/lns.py in its default configuration).  Every
-// rail value is an integer held in an f32 (|x| < 2^17), so the adds,
-// subtracts, compares and the PWL's products are exact; the one rounding
-// step, the score difference times log2 e, is written with __fmul_rn and
-// rintf (half to even) as in hfa_rail.cuh.  2^-p and 2^I are ldexpf,
-// exact for the normal results they give here.
+// rail value is an integer of 16 bits, so the rail runs in int32 here,
+// where the reference holds the same integers in f32: every add, compare
+// and select gives the same integer.  The one rounding step, the score
+// difference times log2 e, is written with __fmul_rn and rounded half to
+// even (__float2int_rn) as in hfa_rail.cuh.
+//
+// exp2_neg (Eq. 19, the Mitchell correction) is a table: the reference
+// defines it as floor(g(f) 2^-p) with p = d >> 7, f = d & 127 and g an
+// integer of at most 128 (the 8-segment PWL 2^-f on the fraction rail),
+// so it depends on d alone and is 0 for every d >= 1024 (p >= 8).  The
+// host builds the 1,024 values from the plain version
+// (core/lns.py::exp2_neg_table) and passes them by value as a
+// CorrTable; a kernel copies them to shared memory.
 #pragma once
 
 #include <cuda_bf16.h>
 
 #include "hfa_rail.cuh"
 
-constexpr float kLogZero = -32768.0f;   // FIX16 minimum: log2(0)
-constexpr float kFixMax = 32767.0f;
+constexpr int kLogZero = -32768;   // FIX16 minimum: log2(0)
+constexpr int kFixMax = 32767;
+constexpr int kCorrTab = 1024;     // exp2_neg(d) for d < 1024; 0 beyond
 
-__device__ __forceinline__ float clamp_rail(float raw) {
-  return fminf(fmaxf(raw, kLogZero), kFixMax);
-}
+struct CorrTable {
+  unsigned char v[kCorrTab];
+};
+
+__device__ __forceinline__ int clamp_rail(int raw) { return min(max(raw, kLogZero), kFixMax); }
 
 // Eq. (14b/c): rail value of a non-positive natural-domain score
-// difference; unlike quant_rail the -0 of a rounded tiny value is kept,
-// as the reference keeps it (a rail -0 and +0 read the same everywhere).
-__device__ __forceinline__ float quant_scorediff(float x) {
+// difference (the reference keeps the -0 of a rounded tiny value; as an
+// integer it is 0, which no rail step tells apart).
+__device__ __forceinline__ int quant_scorediff(float x) {
   const float d = fminf(fmaxf(x, kClampNat), 0.0f);
-  return rintf(__fmul_rn(__fmul_rn(d, kLog2e), 128.0f));
+  return __float2int_rn(__fmul_rn(__fmul_rn(d, kLog2e), 128.0f));
 }
 
-// Eq. (18): bf16 bit pattern -> (sign, rail log2 magnitude).
-__device__ __forceinline__ void blinn_log2(unsigned bits, int& sign, float& raw) {
+// Eq. (18): bf16 bit pattern -> (sign, rail log2 magnitude).  A non-zero
+// magnitude gives a raw in [-16255, 16511], inside the rail.
+__device__ __forceinline__ void blinn_log2(unsigned bits, int& sign, int& raw) {
   sign = (bits >> 15) & 1;
   const int mag = bits & 0x7FFF;
-  raw = mag == 0 ? kLogZero : clamp_rail((float)(mag - (127 << 7)));
+  raw = mag == 0 ? kLogZero : mag - (127 << 7);
 }
 
-// Eq. (19): 2^-D for a non-negative rail D, on the fraction rail,
-// truncated: the PWL 2^-f of the fraction, shifted right by the integer.
-__device__ __forceinline__ float exp2_neg(float d, const Lut& lut) {
-  const float p = floorf(__fmul_rn(d, 0.0078125f));
-  const float f7 = __fsub_rn(d, __fmul_rn(p, 128.0f));
-  const float seg = fminf(fmaxf(floorf(__fmul_rn(f7, 0.0625f)), 0.0f), 7.0f);
-  const float a = lut8(seg, lut.a);
-  const float b = lut8(seg, lut.b);
-  const float g_q15 = __fadd_rn(floorf(__fmul_rn(__fmul_rn(a, f7), 0.0078125f)), b);
-  const float g7 = floorf(__fmul_rn(__fadd_rn(g_q15, 128.0f), 0.00390625f));
-  return floorf(ldexpf(g7, -(int)fminf(p, 60.0f)));
+// Eq. (19): 2^-d on the fraction rail, truncated, for a rail d >= 0.
+__device__ __forceinline__ int exp2_neg(int d, const unsigned char* tab) {
+  return tab[min(d, kCorrTab - 1)];
 }
+
+// raw + q on the rail for q <= 0: the reference's clamp(raw + q), with a
+// zero (LOG_ZERO) kept zero, is max(raw + q, LOG_ZERO) for every rail raw.
+__device__ __forceinline__ int rail_rescale(int raw, int q) { return max(raw + q, kLogZero); }
 
 // Eq. (10) + (17): signed LNS addition c = a + b with Mitchell's
 // log2(1 +- 2^-D) ~= +-2^-D; the larger magnitude gives the sign and a
 // tie goes to b; zero operands bypass; exact cancellation gives zero.
-__device__ __forceinline__ void lns_add(int sa, float ra, int sb, float rb, const Lut& lut,
-                                        int& sc, float& rc) {
+__device__ __forceinline__ void lns_add(int sa, int ra, int sb, int rb, const unsigned char* tab,
+                                        int& sc, int& rc) {
   const bool a_zero = ra <= kLogZero;
   const bool b_zero = rb <= kLogZero;
-  const float big = fmaxf(ra, rb);
-  const float d = fabsf(__fsub_rn(ra, rb));
+  const int big = max(ra, rb);
+  const int d = abs(ra - rb);
   const bool same = sa == sb;
-  const float corr = exp2_neg(d, lut);
-  rc = same ? __fadd_rn(big, corr) : __fsub_rn(big, corr);
-  sc = ra > rb ? sa : sb;
+  const int corr = exp2_neg(d, tab);
+  int r = same ? big + corr : big - corr;
+  int s = ra > rb ? sa : sb;
   if (a_zero) {
-    rc = rb;
-    sc = sb;
+    r = rb;
+    s = sb;
   }
   if (b_zero) {
-    rc = a_zero ? kLogZero : ra;
-    sc = a_zero ? 0 : sa;
+    r = a_zero ? kLogZero : ra;
+    s = a_zero ? 0 : sa;
   }
-  if (!same && d == 0.0f && !a_zero && !b_zero) {
-    rc = kLogZero;
-    sc = 0;
+  if (!same && d == 0 && !a_zero && !b_zero) {
+    r = kLogZero;
+    s = 0;
   }
-  rc = clamp_rail(rc);
-}
-
-// raw + q on the rail, saturated; a zero stays zero.
-__device__ __forceinline__ float rail_rescale(float raw, float q) {
-  return raw <= kLogZero ? kLogZero : clamp_rail(__fadd_rn(raw, q));
+  rc = clamp_rail(r);
+  sc = s;
 }
 
 // Eq. (22): (sign, rail) -> bf16 bits, |x| = 2^I (1 + F).  Underflow
 // (I <= -126, the reference's lowest binade included) flushes to zero,
 // overflow saturates to the largest finite bf16.
-__device__ __forceinline__ unsigned short lns_to_bf16(int sign, float raw) {
+__device__ __forceinline__ unsigned short lns_to_bf16(int sign, int raw_i) {
+  const float raw = (float)raw_i;
   const float ip = floorf(__fmul_rn(raw, 0.0078125f));
   const float fp = __fsub_rn(__fmul_rn(raw, 0.0078125f), ip);
-  const bool is_zero = raw <= kLogZero;
+  const bool is_zero = raw_i <= kLogZero;
   float mag;
   if (is_zero || ip + 127.0f <= 1.0f) {
     mag = 0.0f;

@@ -9,8 +9,10 @@
 //   src/repro/kernels/paged_verify.py   _paged_verify_kernel  -> paged_verify_fwd_v2
 // All emit the unnormalized triplet (o~, m, l) per query row, as the
 // CUDA-core body of paged_attention.cu does, which stays for f32 pools
-// and d 32 / 96 in prefill, other page sizes in prefill, and verify with
-// more than 16 rows a (slot, kv head).
+// and d 32 / 96 in prefill, other page sizes in prefill, verify with
+// more than 16 rows a (slot, kv head), and decode and verify on the H-FA
+// rail at a page size other than 16 (the reference rescales once a page;
+// these kernels' 16-key tiles are the pages at page 16 only).
 //
 // ---------------------------------------------------------------- prefill
 // What it computes.  A chunk of L positions from start_pos, G query heads

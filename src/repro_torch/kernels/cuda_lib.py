@@ -44,6 +44,9 @@ DENSE_KV_TILE = 128
 _lib = None
 # The 16 PWL LUT values, as a host array the entry points copy from.
 _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
+# exp2_neg(d) for d < 1024 (0 beyond), the datapath kernel's correction
+# table, as a host array its entry points copy from.
+_CORR = (ctypes.c_uint8 * lns.EXP2_NEG_TABLE)(*lns.exp2_neg_table().tolist())
 build_log = ""    # nvcc's stderr (ptxas register / spill report)
 # rail entry point of each source, for the bit-equality checks
 RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval",
@@ -73,12 +76,17 @@ PAGED_TC_MAX_PAGES = 16384
 # Query rows a block of the v2 paged decode and verify takes (64 threads
 # a row): decode's G, verify's G K / row_blocks.
 PAGED_V2_MAX_ROWS = 16
+# The largest page the H-FA rail takes: the CUDA-core paged body, which
+# takes every H-FA page size other than 16, rescales once a page (as the
+# reference does) and stages at most this many keys of a page.
+HFA_MAX_PAGE = 64
 # Launches of the paged kernels by route.  prefill: "tc" the tensor-core
 # kernel (paged_prefill_fwd_tc), "simt" the CUDA-core one
 # (paged_prefill_fwd); decode: "v2" paged_decode_fwd_v2, "simt"
-# paged_decode_fwd (launched only by the checks); verify: "v2"
-# paged_verify_fwd_v2, "simt" paged_verify_fwd (more than 16 rows a
-# (slot, kv head), and the checks).
+# paged_decode_fwd (the H-FA rail at a page size other than 16, and the
+# checks); verify: "v2" paged_verify_fwd_v2, "simt" paged_verify_fwd
+# (more than 16 rows a (slot, kv head), the H-FA rail at a page size
+# other than 16, and the checks).
 paged_launches = {"prefill": {"tc": 0, "simt": 0},
                   "decode": {"v2": 0, "simt": 0},
                   "verify": {"v2": 0, "simt": 0}}
@@ -107,7 +115,8 @@ SIGNATURES = {
     "dense_decode_fwd_v2": [_P] * 8 + [_I] * 5 + [_L] * 3 + [
         _I, _I, _F, _I, _I, _P, _P],
     "hfa_datapath_fwd": [_P] * 4 + [_I] * 7 + [_F, _I, _P, _P],
-    "lns_eval": [_P] * 12 + [_I, _P, _P],
+    "hfa_datapath_scores": [_P] * 3 + [_I] * 7 + [_F, _I, _P],
+    "lns_eval": [_P] * 13 + [_I, _P, _P],
     **{name: [_P] * 4 + [_I, _P, _P] for name in RAIL_ENTRIES.values()},
 }
 
@@ -242,6 +251,15 @@ def _triplet(q, lead):
     return o, m, torch.empty_like(m)
 
 
+def check_hfa_page(page: int, use_hfa: bool) -> None:
+    """Refuse an H-FA page above :data:`HFA_MAX_PAGE` (the engine checks
+    it when it is built on the card; the routes check it again)."""
+    _require(not use_hfa or page <= HFA_MAX_PAGE,
+             f"paged attention: page size {page} on the H-FA rail; the rail "
+             f"rescales once a page, as the reference does, and the paged "
+             f"kernels stage at most {HFA_MAX_PAGE} keys of a page")
+
+
 def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, page_table: torch.Tensor,
                  lens_a: torch.Tensor, lens_b: torch.Tensor | None, *,
@@ -250,12 +268,13 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
     (``paged_attention.cu``) on the current stream.
 
     q: (B, Hkv, G, L, d) in the pools' dtype; returns the f32 triplet
-    o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).  Decode and prefill
-    launches are counted in :data:`paged_launches` as "simt".
+    o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).  Every launch is
+    counted in :data:`paged_launches` as "simt".
     """
     b, hkv, g, ell, d = q.shape
     lens = [lens_a] + ([] if lens_b is None else [lens_b])
     _check_paged(entry, q, k_pages, v_pages, page_table, lens)
+    check_hfa_page(k_pages.shape[1], use_hfa)
     o, m, l = _triplet(q, q.shape[:-1])
     if o.numel() == 0:
         return o, m, l
@@ -277,12 +296,15 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_prefill_route(q: torch.Tensor, k_pages: torch.Tensor,
-                        page_table: torch.Tensor) -> str:
+                        page_table: torch.Tensor, *,
+                        use_hfa: bool = False) -> str:
     """Which kernel takes a paged prefill: "tc" (``paged_prefill_fwd_tc``,
     the tensor cores) for bf16 pools at d 64 or 128, page 16 and at most
     :data:`PAGED_TC_MAX_PAGES` pages a slot; "simt" (``paged_prefill_fwd``,
-    the CUDA cores) for everything else - f32 pools, d 32 or 96, other
-    page sizes."""
+    the CUDA cores, which on the H-FA rail rescales once a page) for
+    everything else - f32 pools, d 32 or 96, other page sizes.  An H-FA
+    page above :data:`HFA_MAX_PAGE` raises a ValueError."""
+    check_hfa_page(k_pages.shape[1], use_hfa)
     if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
             and k_pages.shape[1] == PAGED_TC_PAGE
             and page_table.shape[1] <= PAGED_TC_MAX_PAGES):
@@ -296,7 +318,8 @@ def launch_paged_prefill(q, k_pages, v_pages, page_table, start_pos,
     :func:`paged_prefill_route` picks; counted in :data:`paged_launches`.
     q (B, Hkv, G, L, d); returns the f32 triplet o~ (B, Hkv, G, L, d), m
     and l (B, Hkv, G, L)."""
-    if paged_prefill_route(q, k_pages, page_table) == "simt":
+    if paged_prefill_route(q, k_pages, page_table,
+                           use_hfa=use_hfa) == "simt":
         return launch_paged("paged_prefill_fwd", q, k_pages, v_pages,
                             page_table, start_pos, kv_lens, scale=scale,
                             use_hfa=use_hfa)
@@ -365,12 +388,29 @@ def decode_splits(q: torch.Tensor, page_table: torch.Tensor, page: int,
                       sm_count(q.device), blocks_per_sm=4)
 
 
-def paged_verify_route(g: int, k: int) -> str:
+def paged_decode_route(page: int, use_hfa: bool) -> str:
+    """Which kernel takes a paged decode at page size ``page``: "v2"
+    (``paged_decode_fwd_v2``) on the FA-2 rail at any page size and on the
+    H-FA rail at page 16, where its 16-key tiles are the pages; "simt"
+    (``paged_decode_fwd``, the CUDA cores, which rescale once a page as
+    the reference does) on the H-FA rail at any other page size.  An
+    H-FA page above :data:`HFA_MAX_PAGE` raises a ValueError."""
+    check_hfa_page(page, use_hfa)
+    return "simt" if use_hfa and page != PAGED_TC_PAGE else "v2"
+
+
+def paged_verify_route(g: int, k: int, page: int, use_hfa: bool) -> str:
     """Which kernel takes a paged verify of ``g`` query heads per KV head
-    and ``k`` positions a slot: "v2" (``paged_verify_fwd_v2``, the v2
-    decode's body) when the G K rows of a (slot, kv head) fit one of its
-    blocks (at most :data:`PAGED_V2_MAX_ROWS`), at any dtype, page size
-    and head dim; else "simt" (``paged_verify_fwd``, the CUDA cores)."""
+    and ``k`` positions a slot at page size ``page``: "v2"
+    (``paged_verify_fwd_v2``, the v2 decode's body) when the G K rows of a
+    (slot, kv head) fit one of its blocks (at most
+    :data:`PAGED_V2_MAX_ROWS`), at any dtype and head dim, on the FA-2
+    rail at any page size and on the H-FA rail at page 16; else "simt"
+    (``paged_verify_fwd``, the CUDA cores, which on the H-FA rail rescale
+    once a page).  An H-FA page above :data:`HFA_MAX_PAGE` raises a
+    ValueError."""
+    if paged_decode_route(page, use_hfa) == "simt":
+        return "simt"
     return "v2" if g * k <= PAGED_V2_MAX_ROWS else "simt"
 
 
@@ -457,11 +497,20 @@ def _launch_v2(entry: str, q, k_pages, v_pages, page_table, lens, *,
 def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
                         scale: float, use_hfa: bool,
                         splits: int | None = None):
-    """Paged decode on the current stream through ``paged_decode_fwd_v2``
-    (counted in :data:`paged_launches` as "v2").  q (B, Hkv, G, d);
-    returns the f32 triplet o~ (B, Hkv, G, d), m and l (B, Hkv, G).
-    ``splits`` (default :func:`decode_splits`) > 1 splits each page walk
-    across blocks, FA-2 rail only; 1 is the unsplit walk."""
+    """Paged decode on the current stream, on the kernel
+    :func:`paged_decode_route` picks; counted in :data:`paged_launches`.
+    q (B, Hkv, G, d); returns the f32 triplet o~ (B, Hkv, G, d), m and l
+    (B, Hkv, G).  On the v2 route ``splits`` (default
+    :func:`decode_splits`) > 1 splits each page walk across blocks, FA-2
+    rail only; 1 is the unsplit walk."""
+    if paged_decode_route(k_pages.shape[1], use_hfa) == "simt":
+        _require(q.dim() == 4 and splits in (None, 1),
+                 f"paged_decode_fwd: q {tuple(q.shape)} (B, Hkv, G, d), "
+                 f"{splits} splits (the CUDA-core walk is unsplit)")
+        o, m, l = launch_paged("paged_decode_fwd", q[:, :, :, None, :],
+                               k_pages, v_pages, page_table, kv_lens, None,
+                               scale=scale, use_hfa=use_hfa)
+        return o[:, :, :, 0], m[..., 0], l[..., 0]
     _require(q.dim() == 4 and 1 <= q.shape[2] <= PAGED_V2_MAX_ROWS,
              f"paged_decode_fwd_v2: q {tuple(q.shape)}: (B, Hkv, G, d) with "
              f"1..{PAGED_V2_MAX_ROWS} query heads per KV head")
@@ -486,7 +535,7 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
     (default :func:`verify_row_blocks`) shape the grid; 1 and 1 is one
     unsplit walk a (slot, kv head)."""
     b, hkv, g, kw = q.shape[:4]
-    if paged_verify_route(g, kw) == "simt":
+    if paged_verify_route(g, kw, k_pages.shape[1], use_hfa) == "simt":
         return launch_paged("paged_verify_fwd", q, k_pages, v_pages,
                             page_table, seq_lens, chunk_lens, scale=scale,
                             use_hfa=use_hfa)
@@ -753,25 +802,46 @@ def launch_dense_decode(q, k, v, *, scale: float, kv_len: int,
     return o, m, l
 
 
+def _check_datapath(entry, q, k, v) -> None:
+    _check_dense(entry, q, k, v)
+    _require(all(t.data_ptr() % 16 == 0 for t in (q, k, v)),
+             f"{entry}: q, k, v must be 16-byte aligned (cp.async)")
+
+
 def launch_hfa_datapath(q, k, v, *, causal: bool, scale: float,
                         kv_len: int, q_offset: int) -> torch.Tensor:
     """Per-element LNS H-FA on the current stream: (BH, Lq, d) bf16."""
-    _check_dense("hfa_datapath_fwd", q, k, v)
+    _check_datapath("hfa_datapath_fwd", q, k, v)
     out = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
     err = library().hfa_datapath_fwd(
         _ptr(q), _ptr(k), _ptr(v), _ptr(out),
         *_dims(q, k, kv_len, q_offset, causal), ctypes.c_float(scale),
-        int(q.dtype == torch.bfloat16), ctypes.cast(_LUT, ctypes.c_void_p),
+        int(q.dtype == torch.bfloat16), ctypes.cast(_CORR, ctypes.c_void_p),
         _stream())
     check(err, "hfa_datapath_fwd")
     return out
 
 
+def launch_hfa_datapath_scores(q, k, *, causal: bool, scale: float,
+                               kv_len: int, q_offset: int) -> torch.Tensor:
+    """The bf16 scores (BH, Lq, Lkv) ``hfa_datapath_fwd`` forms for the
+    same call, from the same code; zero where it forms none."""
+    _check_datapath("hfa_datapath_scores", q, k, k)
+    scores = torch.zeros((q.shape[0], q.shape[1], k.shape[1]),
+                         dtype=torch.bfloat16, device=q.device)
+    err = library().hfa_datapath_scores(
+        _ptr(q), _ptr(k), _ptr(scores), *_dims(q, k, kv_len, q_offset, causal),
+        ctypes.c_float(scale), int(q.dtype == torch.bfloat16), _stream())
+    check(err, "hfa_datapath_scores")
+    return scores
+
+
 def lns_eval(sign_a, raw_a, sign_b, raw_b, x, bits):
-    """The LNS device functions over n elements (CUDA tensors: int32
-    signs and bf16 bit patterns, f32 rail values and score differences):
-    (lns_add sign, lns_add raw, quant_scorediff(x), blinn_log2 sign,
-    blinn_log2 raw, lns_to_bf16(sign_a, raw_a))."""
+    """The LNS device functions of the datapath source over n elements
+    (CUDA tensors: int32 signs and bf16 bit patterns, f32 rail values and
+    score differences): (lns_add sign, lns_add raw, quant_scorediff(x),
+    blinn_log2 sign, blinn_log2 raw, lns_to_bf16(sign_a, raw_a),
+    exp2_neg(bits & 0xFFFF) from the correction table)."""
     ins = (sign_a, raw_a, sign_b, raw_b, x, bits)
     dts = (torch.int32, torch.float32, torch.int32, torch.float32,
            torch.float32, torch.int32)
@@ -783,8 +853,9 @@ def lns_eval(sign_a, raw_a, sign_b, raw_b, x, bits):
     outs = (torch.empty_like(sign_a), torch.empty_like(raw_a),
             torch.empty_like(x), torch.empty_like(bits),
             torch.empty_like(raw_a),
-            torch.empty(n, dtype=torch.int16, device=raw_a.device))
+            torch.empty(n, dtype=torch.int16, device=raw_a.device),
+            torch.empty_like(raw_a))
     err = library().lns_eval(*map(_ptr, ins), *map(_ptr, outs), n,
-                             ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+                             ctypes.cast(_CORR, ctypes.c_void_p), _stream())
     check(err, "lns_eval")
-    return outs[:5] + (outs[5].view(torch.bfloat16),)
+    return outs[:5] + (outs[5].view(torch.bfloat16), outs[6])

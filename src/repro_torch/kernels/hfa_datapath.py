@@ -14,11 +14,15 @@ On a CUDA tensor it launches ``hfa_datapath_fwd`` of
 ``csrc/hfa_datapath.cu`` and counts the launch in :data:`launches`; on a
 CPU tensor it runs :func:`hfa_datapath_plain`, the ``core.hfa``
 emulation (``kernels/ref.py::ref_hfa_datapath``).  The gate is exact:
-once the BF16 scores agree, every output bit agrees.  What bounds the
-kernel on the card is its LNS updates - one per (visible query-key
-pair, column), with no tensor-core form - so it runs them on the CUDA
-cores, one thread per (row, column), each row's scores staged in shared
-memory, and stops each causal row at its diagonal.
+given the kernel's own scores (:func:`hfa_datapath_scores`, the same
+score code), :func:`hfa_datapath_from_scores` gives every output bit.
+What bounds the kernel on the card is its LNS updates - one per
+(visible query-key pair, column), with no tensor-core form - so it runs
+them on the CUDA cores: a block owns 16 query rows of one (batch, head),
+streams their keys in tiles, converts each V tile to LNS once, forms the
+per-(row, key) score differences once in a pass with one thread a row,
+and gives each column thread four rows' independent chains; the Mitchell
+correction is a table lookup (``core/lns.py::exp2_neg_table``).
 """
 from __future__ import annotations
 
@@ -30,17 +34,33 @@ from repro_torch.kernels import cuda_lib
 launches = 0
 
 
+def _mask(lq: int, lkv: int, causal: bool, kv_len, device):
+    """(Lq, Lkv) keys visible to each row: j < kv_len and, if causal, j
+    <= i + Lkv - Lq."""
+    kv_ids = torch.arange(lkv, device=device)
+    mask = (kv_ids < (lkv if kv_len is None else int(kv_len)))[None, :]
+    if causal:
+        mask = mask & core_hfa.causal_mask(lq, kv_ids, lkv)
+    return mask
+
+
 def hfa_datapath_plain(q, k, v, *, causal=False, scale=None, kv_len=None):
     """The ``core.hfa`` emulation over (BH, Lq, d) x (BH, Lkv, d) with the
     kernel's masks (key j visible when j < kv_len and, if causal, j <= i
     + Lkv - Lq): (BH, Lq, d) bf16."""
-    lq, lkv = q.shape[-2], k.shape[-2]
-    kv_ids = torch.arange(lkv, device=q.device)
-    mask = (kv_ids < (lkv if kv_len is None else int(kv_len)))[None, :]
-    if causal:
-        mask = mask & core_hfa.causal_mask(lq, kv_ids, lkv)
+    mask = _mask(q.shape[-2], k.shape[-2], causal, kv_len, q.device)
     return core_hfa.logdiv(core_hfa.hfa_partial(q, k, v, scale=scale,
                                                 mask=mask))
+
+
+def hfa_datapath_from_scores(s, v, *, causal=False, kv_len=None):
+    """:func:`hfa_datapath_plain` fed bf16 scores s (BH, Lq, Lkv) -
+    already scaled and rounded, such as the ones the kernel forms - in
+    place of its QK^T: the same masks, walk and LogDiv.  Fed the plain
+    version's own scores it returns its output bit for bit."""
+    mask = _mask(s.shape[-2], s.shape[-1], causal, kv_len, s.device)
+    return core_hfa.logdiv(core_hfa.hfa_partial_scores(
+        s.to(torch.float32), v, mask=mask))
 
 
 def hfa_datapath(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -64,30 +84,17 @@ def hfa_datapath(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out
 
 
-def kernel_order_scores(q: torch.Tensor, k: torch.Tensor,
-                        scale: float | None = None,
-                        chunk: int = 8) -> torch.Tensor:
-    """The BF16 scores as the kernel forms them, for bf16 q (BH, Lq, d)
-    and k (BH, Lkv, d): lane l of a warp sums q[c] k[c] over c = l + 32 e
-    in order of e, then a butterfly of shuffles (xor 16, 8, 4, 2, 1) adds
-    the 32 lanes, then the scale and the rounding to bf16.  bf16 products
-    are exact in f32, so each fused multiply-add is one rounded add and
-    this reproduces the kernel's sums bit for bit.  (BH, Lq, Lkv) f32,
-    computed ``chunk`` slabs at a time; used to tell apart rows whose
-    scores the kernel and the plain version round differently."""
-    d = q.shape[-1]
-    scale_v = (1.0 / d ** 0.5) if scale is None else scale
-    lanes = torch.arange(32, device=q.device)
-    out = []
-    for b0 in range(0, q.shape[0], chunk):
-        qf = q[b0:b0 + chunk].to(torch.float32)
-        kf = k[b0:b0 + chunk].to(torch.float32)
-        x = None
-        for e in range(d // 32):
-            part = qf[:, :, None, 32 * e:32 * e + 32] * \
-                kf[:, None, :, 32 * e:32 * e + 32]
-            x = part if x is None else x + part
-        for off in (16, 8, 4, 2, 1):
-            x = x + x[..., lanes ^ off]
-        out.append((x[..., 0] * scale_v).to(torch.bfloat16).to(torch.float32))
-    return torch.cat(out)
+def hfa_datapath_scores(q: torch.Tensor, k: torch.Tensor, *,
+                        causal: bool = False, scale: float | None = None,
+                        kv_len: int | None = None) -> torch.Tensor:
+    """The bf16 scores (BH, Lq, Lkv) the kernel forms for the same call,
+    from the same code (``hfa_datapath_scores`` of the source; zero where
+    it forms none, past a row tile's last visible key), for the checks:
+    fed to :func:`hfa_datapath_from_scores` they give the kernel's output
+    bit for bit.  Card only; not counted in :data:`launches`."""
+    d, lq, lkv = q.shape[-1], q.shape[-2], k.shape[-2]
+    return cuda_lib.launch_hfa_datapath_scores(
+        q, k, causal=causal,
+        scale=(1.0 / d ** 0.5) if scale is None else scale,
+        kv_len=lkv if kv_len is None else int(kv_len), q_offset=lkv - lq)
+

@@ -6,10 +6,15 @@ table ``(B, pages_per_seq)``.
 
 ``paged_decode_partial`` replaces the Pallas kernel
 ``src/repro/kernels/paged_decode.py::_paged_decode_kernel`` (wrapper
-``paged_decode_partial_pallas``).  On a CUDA tensor it launches
-``paged_decode_fwd_v2`` of ``csrc/paged_attention_tc.cu`` and counts the
-launch in :data:`launches` (and in ``cuda_lib.paged_launches``); on a
-CPU tensor it runs :func:`paged_decode_partial_plain`.  What bounds the
+``paged_decode_partial_pallas``).  On a CUDA tensor it launches the
+kernel ``cuda_lib.paged_decode_route`` picks and counts the launch in
+:data:`launches` (and in ``cuda_lib.paged_launches``): on the FA-2 rail
+and on the H-FA rail at page 16, ``paged_decode_fwd_v2`` of
+``csrc/paged_attention_tc.cu``; on the H-FA rail at any other page size
+(up to 64), the CUDA-core ``paged_decode_fwd`` of
+``csrc/paged_attention.cu``, which rescales once a page as the
+reference does.  On a CPU tensor it runs
+:func:`paged_decode_partial_plain`.  What bounds the
 kernel on the card is the bytes of the live K/V pages it reads (one
 query token per slot does 2 flops per K/V byte, far below the card's
 ridge): it streams them through a cp.async ring, stops at

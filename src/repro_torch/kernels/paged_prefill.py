@@ -17,7 +17,8 @@ at d 64 or 128 and page 16 - the serving path - go to
 TMA-fed pages, the online update page by page, P as bf16 on the H-FA
 rail and as bf16 hi + lo on the FA-2 rail); everything else (f32 pools,
 d 32 or 96, other page sizes) to the CUDA-core ``paged_prefill_fwd`` of
-``csrc/paged_attention.cu``.  Each block stops at the last page its rows
+``csrc/paged_attention.cu``, which on the H-FA rail rescales once a page
+(up to page 64; a larger H-FA page is refused).  Each block stops at the last page its rows
 can see under the causal mask.  ``kernels/ref.py::paged_prefill_tc_model``
 is a plain model of the tensor-core kernel's numerics, for the tests.
 """

@@ -18,7 +18,9 @@ most 16 rows a (slot, kv head) - G K, 10 at qwen3-1.7b with spec_k 4 -
 ``paged_verify_fwd_v2`` of ``csrc/paged_attention_tc.cu``, the v2
 decode's body with a causal limit per row (a cp.async ring, the walk
 split across blocks on the FA-2 rail and merged by Eq. 16 in the
-kernel, the rows split across blocks on the H-FA rail); with more,
+kernel, the rows split across blocks on the H-FA rail); with more, or
+on the H-FA rail at a page size other than 16 (where the reference's
+once-a-page rescale is not the v2 kernel's 16-key tile),
 ``paged_verify_fwd`` of ``csrc/paged_attention.cu`` (the CUDA cores),
 which :func:`paged_verify_partial_simt` also launches for the checks.
 Unsplit, the two are bit-equal.  On a CPU tensor it runs the plain

@@ -14,13 +14,19 @@
 * ``ref_hfa_datapath`` - the bit-accurate ``core.hfa`` emulation.
 * ``paged_prefill_tc_model`` - a model of the tensor-core paged
   prefill's numerics (page by page, P as bf16 or bf16 hi + lo).
-* ``paged_verify_split_model`` and ``paged_decode_split_model`` - models
-  of the v2 paged verify's and decode's split walk (per-row causal
-  limits, 16-key tiles) and its Eq. 16 merge.
+* ``paged_walk_model`` - the paged kernels' walk (``paged_attention.cu``
+  and the v2 decode and verify): per-row causal limits, the online
+  update one rescale step at a time - 16 keys on the FA-2 rail, one page
+  on the H-FA rail, as the reference - and the split walk's Eq. 16
+  merge; ``paged_verify_split_model``, ``paged_decode_split_model`` and
+  ``paged_prefill_model`` are its verify, decode and prefill.
 * ``dense_decode_split_model`` - the same for the dense decode's walk of
   128-key tiles.
+* ``datapath_update_model`` - the per-element datapath kernel's column
+  update (``csrc/hfa_datapath.cu``): the rescales and lns_add with only
+  the cases its operands reach.
 
-The last four are for the tests only; the kernels' plain versions stay
+The models are for the tests only; the kernels' plain versions stay
 ``paged_prefill_partial_plain``, ``paged_verify_partial_plain``,
 ``paged_decode_partial_plain`` and ``decode_partial_plain``.
 """
@@ -29,7 +35,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import hfa as core_hfa
+from repro_torch.core import lns
 from repro_torch.core import reference
+from repro_torch.core.numerics import LOG_ZERO
 from repro_torch.kernels import bitmath
 from repro_torch.kernels.decode import decode_partial_plain, merge_partials
 from repro_torch.kernels.paged_decode import gather_pages
@@ -190,14 +198,23 @@ def paged_prefill_tc_model(q, k_pages, v_pages, page_table, start_pos,
     return acc, m, l
 
 
-DECODE_TILE = 16      # keys per tile of the v2 paged decode and verify
+DECODE_TILE = 16      # keys a rescale takes on the FA-2 rail (both walks)
+
+
+def paged_rescale_step(page: int, use_hfa: bool) -> int:
+    """Keys per online update of the paged kernels' walk: 16 on the FA-2
+    rail at any page size; the page on the H-FA rail, where the output
+    depends on where the rescales fall and the reference rescales once a
+    page."""
+    return page if use_hfa else DECODE_TILE
 
 
 def _tile_walk(qf, kc, vc, mask, tile, scale, use_hfa):
     """The online update ``tile`` keys at a time, in order: qf (..., R,
     d) f32 against kc, vc (..., S, d) f32 (S a multiple of ``tile``),
     scores times ``scale``, key s visible to row r where mask (..., R,
-    S).  Returns (o~, m, l)."""
+    S).  Returns (o~, m, l).  With ``tile`` the page it is the
+    reference's walk."""
     m = torch.full(qf.shape[:-1], NEG_INF, dtype=torch.float32,
                    device=qf.device)
     l = torch.zeros_like(m)
@@ -232,40 +249,41 @@ def _runs(n_tiles: int, splits: int):
                                           n_tiles)) for sp in range(splits)]
 
 
-def paged_verify_split_model(q, k_pages, v_pages, page_table, seq_lens,
-                             chunk_lens, *, splits, scale=None,
-                             use_hfa=False):
-    """Model of ``paged_verify_fwd_v2``: row r of the G K rows of a
-    (slot, kv head) sees kv <= seq_lens[b] + r % K and kv < seq_lens[b] +
-    chunk_lens[b].  Slot b's walk of n = ceil(min(seq_lens[b] + K,
-    seq_lens[b] + chunk_lens[b], J page) / 16) tiles of 16 keys is cut
-    into ``splits`` contiguous runs of ceil(n / splits) tiles; each run's
-    triplet is the online update tile by tile (p in f32); the runs merge
-    by Eq. 16 (``merge_partials``).  A run with no tile is the neutral
-    triplet.  One split is the unsplit walk.  q (B, Hkv, G, K, d);
-    returns o~ (B, Hkv, G, K, d), m and l (B, Hkv, G, K)."""
-    b, hkv, g, kw, d = q.shape
+def paged_walk_model(q, k_pages, v_pages, page_table, base, limit, *,
+                     splits=1, scale=None, use_hfa=False):
+    """Model of the paged kernels' walk: row r of the G L rows of a (slot,
+    kv head) sees kv <= base[b] + r % L and kv < limit[b].  Slot b's walk
+    of n = ceil(min(base[b] + L, limit[b], J page) / t) steps of t keys -
+    t = :func:`paged_rescale_step` (16 on the FA-2 rail, the page on the
+    H-FA rail) - is cut into ``splits`` contiguous runs of ceil(n /
+    splits) steps; each run's triplet is the online update step by step
+    (p in f32); the runs merge by Eq. 16 (``merge_partials``).  A run with
+    no step is the neutral triplet.  One split is the unsplit walk (the
+    only one the H-FA rail runs).  q (B, Hkv, G, L, d); returns o~ (B,
+    Hkv, G, L, d), m and l (B, Hkv, G, L)."""
+    b, hkv, g, ell, d = q.shape
     scale = (1.0 / d ** 0.5) if scale is None else scale
+    tile = paged_rescale_step(k_pages.shape[1], use_hfa)
     j_max = page_table.shape[1] * k_pages.shape[1]
-    pad = (-j_max) % DECODE_TILE
+    pad = (-j_max) % tile
     kc, vc = (torch.nn.functional.pad(
         gather_pages(x, page_table).transpose(1, 2).to(torch.float32),
         (0, 0, 0, pad)) for x in (k_pages, v_pages))   # (B, Hkv, S, d)
-    qf = q.to(torch.float32).reshape(b, hkv, g * kw, d)
+    qf = q.to(torch.float32).reshape(b, hkv, g * ell, d)
     kv = torch.arange(j_max + pad, device=q.device)
     outs = []
     for bi in range(b):
-        sl, cl = int(seq_lens[bi]), int(chunk_lens[bi])
-        n_kv = max(0, min(sl + kw, sl + cl, j_max))
-        pos = sl + torch.arange(g * kw, device=q.device) % kw  # (R,)
-        mask = (kv[None] <= pos[:, None]) & (kv[None] < sl + cl) & \
+        lo, hi = int(base[bi]), int(limit[bi])
+        n_kv = max(0, min(lo + ell, hi, j_max))
+        pos = lo + torch.arange(g * ell, device=q.device) % ell  # (R,)
+        mask = (kv[None] <= pos[:, None]) & (kv[None] < hi) & \
             (kv[None] < n_kv)
         parts = []
-        for t0, t1 in _runs(-(-n_kv // DECODE_TILE), splits):
-            k0, k1 = t0 * DECODE_TILE, t1 * DECODE_TILE
+        for t0, t1 in _runs(-(-n_kv // tile), splits):
+            k0, k1 = t0 * tile, t1 * tile
             parts.append(_tile_walk(qf[bi], kc[bi, :, k0:k1],
                                     vc[bi, :, k0:k1], mask[:, k0:k1],
-                                    DECODE_TILE, scale, use_hfa))
+                                    tile, scale, use_hfa))
         outs.append(parts[0] if splits == 1 else merge_partials(
             *(torch.stack(x) for x in zip(*parts)), use_hfa=use_hfa))
     o, m, l = (torch.stack(x) for x in zip(*outs))
@@ -273,17 +291,43 @@ def paged_verify_split_model(q, k_pages, v_pages, page_table, seq_lens,
             l.reshape(q.shape[:-1]))
 
 
+def paged_verify_split_model(q, k_pages, v_pages, page_table, seq_lens,
+                             chunk_lens, *, splits, scale=None,
+                             use_hfa=False):
+    """Model of ``paged_verify_fwd_v2`` and ``paged_verify_fwd``: row r of
+    the G K rows of a (slot, kv head) sees kv <= seq_lens[b] + r % K and
+    kv < seq_lens[b] + chunk_lens[b]; :func:`paged_walk_model` of that.
+    q (B, Hkv, G, K, d); returns o~ (B, Hkv, G, K, d), m and l (B, Hkv,
+    G, K)."""
+    sl = seq_lens.to(torch.int32)
+    return paged_walk_model(q, k_pages, v_pages, page_table, sl,
+                            sl + chunk_lens.to(torch.int32), splits=splits,
+                            scale=scale, use_hfa=use_hfa)
+
+
 def paged_decode_split_model(q, k_pages, v_pages, page_table, kv_lens, *,
                              splits, scale=None, use_hfa=False):
-    """Model of ``paged_decode_fwd_v2``: decode is verify with K = 1 at
-    seq_lens = kv_lens - 1 and chunk_lens = 1 (its G rows see kv <
-    kv_lens[b]), so :func:`paged_verify_split_model` of that.  q (B, Hkv,
-    G, d); returns o~ (B, Hkv, G, d), m and l (B, Hkv, G)."""
+    """Model of ``paged_decode_fwd_v2`` and ``paged_decode_fwd``: decode is
+    verify with K = 1 at seq_lens = kv_lens - 1 and chunk_lens = 1 (its G
+    rows see kv < kv_lens[b]), so :func:`paged_verify_split_model` of
+    that.  q (B, Hkv, G, d); returns o~ (B, Hkv, G, d), m and l (B, Hkv,
+    G)."""
     kvl = kv_lens.to(torch.int32)
     o, m, l = paged_verify_split_model(
         q[:, :, :, None], k_pages, v_pages, page_table, kvl - 1,
         torch.ones_like(kvl), splits=splits, scale=scale, use_hfa=use_hfa)
     return o[:, :, :, 0], m[..., 0], l[..., 0]
+
+
+def paged_prefill_model(q, k_pages, v_pages, page_table, start_pos,
+                        kv_lens, *, scale=None, use_hfa=False):
+    """Model of the CUDA-core ``paged_prefill_fwd``: row (g, l) sees kv <=
+    start_pos[b] + l and kv < kv_lens[b]; :func:`paged_walk_model` of that,
+    unsplit.  q (B, Hkv, G, L, d); returns as ``paged_prefill_partial``."""
+    return paged_walk_model(q, k_pages, v_pages, page_table,
+                            start_pos.to(torch.int32),
+                            kv_lens.to(torch.int32), scale=scale,
+                            use_hfa=use_hfa)
 
 
 def dense_decode_split_model(q, k, v, *, kv_len, splits, scale=None,
@@ -306,3 +350,32 @@ def dense_decode_split_model(q, k, v, *, kv_len, splits, scale=None,
         return parts[0]
     return merge_partials(*(torch.stack(x) for x in zip(*parts)),
                           use_hfa=use_hfa)
+
+
+def datapath_update_model(sign, raw, sign_v, raw_v, q_dm, q_ds):
+    """The kernel's column update of a live (row, key) (``fau_step`` and
+    ``fau_step_zero_v`` of ``csrc/hfa_datapath.cu``) in plain torch, for
+    the tests: A = max(raw + q_dm, LOG_ZERO); where raw_v is LOG_ZERO (v
+    = 0) the result is A, sign 0 if A is zero; else B = raw_v + q_ds and
+    lns_add with only the cancellation and the top clamp (the kernel
+    looks the correction up in ``lns.exp2_neg_table``, equal to
+    ``lns.exp2_neg`` on every d).  It equals the reference's rescales and
+    lns_add wherever raw_v is the Blinn log of a bf16 and q_dm, q_ds are
+    quantized score differences in [-2770, 0].  Returns (sign, raw)."""
+    a = lns.rail_rescale(raw, q_dm)
+    b = raw_v + q_ds
+    big = torch.maximum(a, b)
+    d = big - torch.minimum(a, b)
+    corr = lns.exp2_neg(d)
+    same = sign == sign_v
+    rc = torch.where(same, big + corr, big - corr)
+    sc = torch.where(a > b, sign, sign_v)
+    cancel = ~same & (d == 0)
+    rc = torch.where(cancel, torch.full_like(rc, float(LOG_ZERO)), rc)
+    sc = torch.where(cancel, torch.zeros_like(sc), sc)
+    rc = torch.clamp(rc, max=32767.0)
+    v_zero = raw_v <= LOG_ZERO
+    rc = torch.where(v_zero, a, rc)
+    sc = torch.where(v_zero, torch.where(a <= LOG_ZERO,
+                                         torch.zeros_like(sign), sign), sc)
+    return sc.to(torch.int32), rc

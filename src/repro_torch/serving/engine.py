@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.kernels import page_codec
+from repro_torch.kernels import cuda_lib, page_codec
 from repro_torch.kernels import paged_prefill as paged_pf_k
 from repro_torch.serving import sampler
 from repro_torch.serving.paged_cache import PagedKVCache
@@ -46,6 +46,18 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
         f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
 
 
+def check_page_size(page_size: int, impl: str,
+                    device: torch.device) -> None:
+    """Refuse a page size the engine cannot serve: below 1 anywhere, and
+    above ``cuda_lib.HFA_MAX_PAGE`` on the H-FA rail (an impl "hfa...")
+    on the card, whose paged kernels rescale once a page and stage at
+    most that many keys of one.  The plain path on the CPU takes it."""
+    if page_size < 1:
+        raise ValueError(f"page_size must be >= 1, got {page_size}")
+    if device.type == "cuda":
+        cuda_lib.check_hfa_page(page_size, impl.startswith("hfa"))
+
+
 class ServingEngine:
     def __init__(self, model, *, max_batch: int = 8, page_size: int = 16,
                  num_pages: int | None = None, max_seq: int | None = None,
@@ -57,8 +69,7 @@ class ServingEngine:
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}: move it with .to(device)")
-        if page_size < 1:
-            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        check_page_size(page_size, model.cfg.attn_impl, self.device)
         if mesh is not None:
             raise _not_ported("tensor-parallel serving (mesh)", 11)
         self.kv_codec = page_codec.get_codec(kv_codec).name

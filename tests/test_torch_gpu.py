@@ -300,7 +300,7 @@ def test_verify_over_16_rows_goes_to_the_cuda_cores(cuda, use_hfa):
     """G K = 20 rows: the route rule sends the verify to paged_verify_fwd,
     counted as "simt", within the tolerances of its plain version."""
     args = _verify_case(cuda, torch.bfloat16, 128, g=4)
-    assert cuda_lib.paged_verify_route(4, 5) == "simt"
+    assert cuda_lib.paged_verify_route(4, 5, 16, use_hfa) == "simt"
     before = _paged_counts()["verify"]
     ko, km, kl = pv.paged_verify_partial(*args, use_hfa=use_hfa)
     po, pm, pl_ = pv.paged_verify_partial_plain(*args, use_hfa=use_hfa)
@@ -349,6 +349,66 @@ def test_prefill_tc_dyadic_matches_simt(cuda, use_hfa, d, g):
     assert torch.equal(tc[1][mask], simt[1][mask])
     assert torch.all(tc[2][2] == 0) and torch.all(tc[0][2] == 0) \
         and torch.all(tc[1][2] == -1e30)
+
+
+@pytest.mark.parametrize("page", [3, 4, 32])
+@pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
+def test_hfa_paged_rescales_once_a_page(cuda, kind, page):
+    """On the H-FA rail at a page size other than 16 every paged call goes
+    to the CUDA-core body (counted as "simt"), which rescales once a page
+    as the reference does: on a dyadic grid within +-0.5 (every score and
+    every page's sum of p exact) within 1e-5 of the per-page model
+    (kernels/ref.py) after finalize, m bit for bit, bf16 pools at d 128
+    (page 32: K and V of a page in dynamic shared memory)."""
+    b, hkv, g, d = 3, 2, 2, 128
+    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, d, b=b,
+                                   j=-(-160 // page), hkv=hkv, page=page,
+                                   dyadic=True, seed=page)
+    i32 = lambda a: _i32(cuda, a)  # noqa: E731
+    if kind == "decode":
+        q = thfa.dyadic_bf16((b, hkv, g, d), gen, cuda, bound=0.5)
+        args = (q, kp, vp, pt, i32([150, 0, 37]))
+        want = ref.paged_decode_split_model(*args, splits=1, use_hfa=True)
+        live = torch.tensor([True, False, True], device=cuda)[:, None, None]
+    elif kind == "verify":
+        q = thfa.dyadic_bf16((b, hkv, g, 5, d), gen, cuda, bound=0.5)
+        args = (q, kp, vp, pt, i32([140, 0, 60]), i32([5, 0, 3]))
+        want = ref.paged_verify_split_model(*args, splits=1, use_hfa=True)
+        live = (torch.arange(5, device=cuda)[None] <
+                args[5][:, None])[:, None, None]
+    else:
+        q = thfa.dyadic_bf16((b, hkv, g, 40, d), gen, cuda, bound=0.5)
+        start, chunk = i32([0, 0, 101]), i32([40, 0, 17])
+        args = (q, kp, vp, pt, start, start + chunk)
+        want = ref.paged_prefill_model(*args, use_hfa=True)
+        live = (torch.arange(40, device=cuda)[None] <
+                chunk[:, None])[:, None, None]
+    before = _paged_counts()
+    got = {"decode": pd.paged_decode_partial, "verify":
+           pv.paged_verify_partial, "prefill": pp.paged_prefill_partial}[
+        kind](*args, use_hfa=True)
+    torch.cuda.synchronize()
+    before[kind]["simt"] += 1
+    assert _paged_counts() == before
+    mask = live.expand(got[1].shape)
+    out = decode_k.finalize_decode(got[0], got[2], use_hfa=True)[mask]
+    assert torch.isfinite(out).all()
+    assert (out - decode_k.finalize_decode(want[0], want[2], use_hfa=True)[
+        mask]).abs().max().item() <= 1e-5
+    assert torch.equal(got[1][mask], want[1][mask])
+    dead = ~live.reshape(b, -1).any(-1)
+    assert torch.all(got[2][dead] == 0) and torch.all(got[0][dead] == 0)
+
+
+def test_hfa_paged_page_above_64_is_refused(cuda):
+    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, 64, page=128)
+    q = torch.randn((3, 2, 2, 64), generator=gen, device=cuda).to(
+        torch.bfloat16)
+    before = _paged_counts()
+    with pytest.raises(ValueError, match="rescales once a page"):
+        pd.paged_decode_partial(q, kp, vp, pt, _i32(cuda, [5, 0, 9]),
+                                use_hfa=True)
+    assert _paged_counts() == before
 
 
 def test_paged_entries_refuse_other_head_dims(cuda):
@@ -784,16 +844,19 @@ def test_hfa_datapath_bit_exact_on_exact_scores(cuda, causal, shape, d):
 
 @pytest.mark.parametrize("causal", [False, True])
 def test_hfa_datapath_random_rows_with_equal_scores_agree(cuda, causal):
-    """Case (b): on random normal inputs every row whose bf16 scores the
-    kernel and the plain version form alike (``kernel_order_scores``
-    against the plain f32 einsum) has identical output bits."""
+    """Case (b): on random normal inputs every row is bit-equal to the
+    plain walk fed the kernel's own scores (``hfa_datapath_scores``), and
+    so every row whose bf16 scores the kernel and the plain f32 einsum
+    form alike is bit-equal to the plain version."""
     q, k, v = _dense_inputs(cuda, torch.bfloat16, 128, bh=4, lq=48, lkv=96,
                             seed=9)
     got = dp_k.hfa_datapath(q, k, v, causal=causal)
     want = dp_k.hfa_datapath_plain(q, k, v, causal=causal)
-    s_kernel = dp_k.kernel_order_scores(q, k)
+    s_kernel = dp_k.hfa_datapath_scores(q, k, causal=causal)
+    given = dp_k.hfa_datapath_from_scores(s_kernel, v, causal=causal)
+    assert torch.equal(got.view(torch.int16), given.view(torch.int16))
     s_plain = (torch.einsum("bqd,bkd->bqk", q.float(), k.float())
-               * 128 ** -0.5).to(torch.bfloat16).float()
+               * 128 ** -0.5).to(torch.bfloat16)
     vis = torch.ones_like(s_plain, dtype=torch.bool)
     if causal:
         vis = torch.ones(48, 96, dtype=torch.bool, device=cuda).tril(48)
@@ -801,6 +864,28 @@ def test_hfa_datapath_random_rows_with_equal_scores_agree(cuda, causal):
     same = (got.view(torch.int16) == want.view(torch.int16)).all(-1)
     assert torch.all(same[agree])
     assert agree.float().mean().item() > 0.5
+
+
+@pytest.mark.parametrize("kv_len", [None, 61])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("causal", [False, True])
+def test_hfa_datapath_bit_exact_given_its_scores(cuda, causal, d, dtype,
+                                                 kv_len):
+    """Every row of the kernel, bit for bit, against the plain walk fed
+    the scores the kernel forms (the same code, ``hfa_datapath_scores``),
+    on random normal inputs: 70 rows (four row tiles and a part one)
+    over 90 keys, so that causal rows stop inside tiles of 32 keys."""
+    q, k, v = _dense_inputs(cuda, dtype, d, bh=3, lq=70, lkv=90,
+                            seed=d + (kv_len or 0))
+    before = dp_k.launches
+    got = dp_k.hfa_datapath(q, k, v, causal=causal, kv_len=kv_len)
+    s = dp_k.hfa_datapath_scores(q, k, causal=causal, kv_len=kv_len)
+    want = dp_k.hfa_datapath_from_scores(s, v, causal=causal, kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert dp_k.launches == before + 1
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    assert torch.isfinite(got.float()).all()
 
 
 def test_lns_device_functions_bit_exact(cuda):
@@ -820,8 +905,11 @@ def test_lns_device_functions_bit_exact(cuda):
                             dtype=torch.int32) for _ in range(2))
     x = torch.linspace(-20.0, 1.0, n, device=cuda)
     bits = torch.arange(n, device=cuda, dtype=torch.int32) & 0xFFFF
-    sc, rc, quant, bsign, braw, packed = cuda_lib.lns_eval(sa, ra, sb, rb,
-                                                           x, bits)
+    sc, rc, quant, bsign, braw, packed, corr = cuda_lib.lns_eval(
+        sa, ra, sb, rb, x, bits)
+    # The correction table against exp2_neg over every d in [0, 65535].
+    assert n >= 1 << 16
+    assert torch.equal(corr, lns.exp2_neg(bits.float()))
     want_s, want_r = lns.lns_add(sa, ra, sb, rb)
     assert torch.equal(sc, want_s) and torch.equal(rc, want_r)
     assert torch.equal(quant, lns.quant_scorediff(x))
@@ -834,6 +922,6 @@ def test_lns_device_functions_bit_exact(cuda):
     # Every rail value through lns_to_bf16, both signs.
     for s in (0, 1):
         sg = torch.full_like(raw, s, dtype=torch.int32)
-        *_, got = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)
+        got = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)[5]
         assert torch.equal(got.view(torch.int16),
                            lns.lns_to_bf16(sg, raw).view(torch.int16))

@@ -14,13 +14,13 @@ interpret mode, on numpy inputs from a seed:
   more runs than the walk has tiles: on the FA-2 rail within 1e-5 of
   ``paged_verify_partial_pallas`` after finalize and m within 1e-6
   (exact on ``hfa.dyadic_bf16(bound=0.5)``, where every score is exact);
-  on the H-FA rail, unsplit as the kernel runs it, at page 16 (where
-  its 16-key tiles are the reference's pages) within 1e-5 on the dyadic
-  grid (every score and every page's sum of p exact, so no summation
-  order moves a rail step) and within a rail step (1e-2) on random
-  inputs; at page 4, where the rescale points differ, within a rail
-  step.  Rows past a slot's chunk are not compared; the free
-  slot's are the neutral triplet.
+  on the H-FA rail, unsplit as the kernel runs it, page by page as the
+  reference (at page 16 the v2 kernel's 16-key tiles are the pages; at
+  page 4 the CUDA-core body takes it) within 1e-5 on the dyadic grid
+  (every score and every page's sum of p exact, so no summation order
+  moves a rail step) and within a rail step (1e-2) on random inputs.
+  Rows past a slot's chunk are not compared; the free slot's are the
+  neutral triplet.
 * the dense decode model - the walk of 128-key tiles cut into runs and
   merged by Eq. 16 - against ``decode_partial_pallas`` with a ``kv_len``
   mask, the same tolerances; ``kv_len`` 0 is the neutral triplet.
@@ -112,17 +112,17 @@ def test_verify_model_hfa_dyadic_matches_reference(g, d):
 
 
 def test_verify_model_hfa_page_4_within_a_rail_step():
-    """At a page size other than 16 the H-FA rail's rescale points move:
-    the reference rescales every page, the port's paged kernels (the
-    CUDA-core one and v2 alike, and so their model) every 16 keys, so
-    on the dyadic grid the two differ by rail steps, not by summation
-    order.  Held here to the rail's tolerance (ROADMAP.md Queue 3 A5)."""
+    """At a page size other than 16 the H-FA rail still rescales where the
+    reference does: once a page.  The kernel that runs there (the
+    CUDA-core body, ``cuda_lib.paged_verify_route``) and so its model walk
+    page by page, so on the dyadic grid the model equals the Pallas
+    kernel as at page 16: within 1e-5 after finalize, m bit for bit."""
     got, want, tm, pm, _ = _verify(1, 96, 4, 1, True, True, seed=1)
     np.testing.assert_array_equal(tm, pm)
     diff = np.abs(got - want).max()
     print(f"hfa verify model at page 4 vs reference (dyadic grid): max "
           f"|diff| {diff:.3g}")
-    assert diff <= 1e-2
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
 
 
 def test_verify_model_hfa_random_within_a_rail_step():
@@ -186,11 +186,12 @@ def test_dense_decode_model_empty_walk_is_neutral(splits):
 
 
 def test_verify_route_rule():
-    assert cuda_lib.paged_verify_route(2, 5) == "v2"      # qwen3, spec_k 4
-    assert cuda_lib.paged_verify_route(1, 16) == "v2"
-    assert cuda_lib.paged_verify_route(16, 1) == "v2"
-    assert cuda_lib.paged_verify_route(4, 5) == "simt"
-    assert cuda_lib.paged_verify_route(1, 17) == "simt"
+    for use_hfa in (False, True):          # page 16: the same on both rails
+        assert cuda_lib.paged_verify_route(2, 5, 16, use_hfa) == "v2"
+        assert cuda_lib.paged_verify_route(1, 16, 16, use_hfa) == "v2"
+        assert cuda_lib.paged_verify_route(16, 1, 16, use_hfa) == "v2"
+        assert cuda_lib.paged_verify_route(4, 5, 16, use_hfa) == "simt"
+        assert cuda_lib.paged_verify_route(1, 17, 16, use_hfa) == "simt"
     # The H-FA rail splits the rows by query head, the FA-2 rail not.
     assert cuda_lib.verify_row_blocks(2, 5, True) == 2
     assert cuda_lib.verify_row_blocks(2, 5, False) == 1
