@@ -84,6 +84,24 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode
    walk unsplit prints how far its streams agree with the spec_k 4 and
    the split spec_k 0 runs.
+   Engine, sampled (``engine_sampled``).  The same model and workload
+   with seeded sampling (temperature 0.8, top-k 50, top-p 0.95,
+   repetition penalty 1.1, seed = rid), rid 0 an n=4 group, rid 1
+   best_of=3, rid 2 a beam-4 search returning 4 hypotheses, rid 3 with
+   logprobs, on both rails at spec_k 0, 4 and "auto": every request and
+   completion finishes with its 64 tokens, every logit is finite, the
+   cache invariants hold after every step, beam scores are ranked and
+   negative, every logprob is finite and <= 0, and every prefill (the
+   all-position logprob prefill included) runs on the tensor cores and
+   every decode and verify on v2.  A temperature-0.8 top_k=1 run must
+   equal a greedy run token for token; the whole-prompt prefill (no
+   start_pos) must run every layer on the tensor cores and give the
+   chunked prefill's last logits; JAX's threefry keys, bits, uniform
+   draws and randint on the card must equal the CPU's bit for bit; and
+   ``sample_tokens`` on a captured batch of card logits must choose the
+   CPU's tokens, a row whose choice sits within 1e-6 of the top-p
+   boundary excepted (counted).  Walls, tok/s, launches and the
+   sampler's time are printed.
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
    0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
    loop of ``serve --dense``: 8 prompts of 512 tokens from
@@ -151,6 +169,7 @@ from repro_torch.kernels import paged_decode as pd  # noqa: E402
 from repro_torch.kernels import paged_prefill as pp  # noqa: E402
 from repro_torch.kernels import paged_verify as pv  # noqa: E402
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.core import jax_random as jr  # noqa: E402
 from repro_torch.core import lns  # noqa: E402
 from repro_torch.data import DataPipeline  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
@@ -160,6 +179,8 @@ from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.runtime.trainer import (  # noqa: E402
     Trainer, TrainerConfig, make_train_step)
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import SamplingParams  # noqa: E402
+from repro_torch.serving import sampler  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory rate
 BF16_FLOPS_PER_S = 989e12      # H100 SXM dense bf16 tensor-core peak
@@ -1711,28 +1732,45 @@ def workload(vocab: int) -> list[Request]:
         for i in range(16)]
 
 
-def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
+def serve(model, reqs: list, spec_k, capture=None) -> tuple[dict, dict]:
+    """Serve ``reqs`` (one arrival a step) through ``ServingEngine`` at
+    full width (max_batch 8, page 16, prefill budget 512), the cache
+    invariants checked after every step and every logit checked finite.
+    ``capture(eng, logits)`` sees each decode and verify step's logits.
+    Returns (finished by rid, {"launches", "wall_s", "stats",
+    "all_logits_prefill": the prefill launches by route of the calls
+    with ``return_all_logits``})."""
     finite = torch.ones((), dtype=torch.bool, device="cuda")
+    all_logits = {"calls": 0, "tc": 0, "simt": 0}
+    holder = {}
     originals = {}
     for meth in ("paged_prefill", "paged_decode_step", "paged_verify_step"):
         orig = getattr(model, meth)
         originals[meth] = orig
 
-        def checked(*a, _orig=orig, **k):
+        def checked(*a, _orig=orig, _meth=meth, **k):
             nonlocal finite
+            before = dict(cuda_lib.paged_launches["prefill"])
             logits, layers = _orig(*a, **k)
             finite = finite & torch.isfinite(logits).all()
+            if k.get("return_all_logits"):
+                all_logits["calls"] += 1
+                for r in ("tc", "simt"):
+                    all_logits[r] += cuda_lib.paged_launches["prefill"][r] \
+                        - before[r]
+            if capture is not None and _meth != "paged_prefill":
+                capture(holder["eng"], logits)
             return logits, layers
         setattr(model, meth, checked)
     try:
         eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
                             prefill_budget=512, spec_k=spec_k)
+        holder["eng"] = eng
         cfg = model.cfg
         kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b
         if kv_bytes != cfg.n_layers * page_codec.bytes_per_token(
                 "fp", cfg.n_kv_heads, cfg.d_head, torch.bfloat16):
             raise AssertionError(f"pool holds {kv_bytes} B per token")
-        reqs = workload(cfg.vocab_size)
         _reset_paged_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1753,12 +1791,19 @@ def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
             model.__dict__.pop(meth, None)
     if not bool(finite):
         raise AssertionError("non-finite logits in the engine run")
-    streams = {f.rid: f.tokens for f in done}
+    return {f.rid: f for f in done}, {
+        "launches": launches, "wall_s": wall, "stats": dict(eng.stats),
+        "all_logits_prefill": all_logits}
+
+
+def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
+    reqs = workload(model.cfg.vocab_size)
+    done, info = serve(model, reqs, spec_k)
+    streams = {rid: f.tokens for rid, f in done.items()}
     if sorted(streams) != list(range(len(reqs))) or any(
             len(t) != 64 for t in streams.values()):
         raise AssertionError("not every request finished with 64 tokens")
-    return streams, {"launches": launches, "wall_s": wall,
-                     "stats": dict(eng.stats)}, wall
+    return streams, info, info["wall_s"]
 
 
 def _reset_paged_counters() -> None:
@@ -1837,6 +1882,310 @@ def check_engine() -> dict:
                   f"s; agrees with spec_k=4 on {_agreement(unsplit, runs[4])}"
                   f", with the split spec_k=0 run on "
                   f"{_agreement(unsplit, runs[0])}")
+        del model
+        torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------ phase 4b
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95, repetition_penalty=1.1)
+SAMPLED_SPEC_K = (0, 4, "auto")
+TOP_P_MARGIN = 1e-6
+
+
+def sampled_workload(vocab: int) -> list[Request]:
+    """The engine phase's 16 requests with seeded sampling (SAMPLED, seed
+    = rid): rid 0 an n=4 group, rid 1 best_of=3 (n=1), rid 2 a
+    beam_width=4 search returning 4 hypotheses (greedy: beam search is
+    deterministic), rid 3 with logprobs."""
+    out = []
+    for r in workload(vocab):
+        sp = SamplingParams(**SAMPLED, seed=r.rid)
+        kw = {0: dict(n=4), 1: dict(best_of=3),
+              2: dict(beam_width=4, n=4, sampling=None),
+              3: dict(logprobs=True)}.get(r.rid, {})
+        out.append(dataclasses.replace(r, **dict(dict(sampling=sp), **kw)))
+    return out
+
+
+def _check_sampled_run(done: dict, reqs: list, label: str) -> None:
+    """Every request finished with its tokens (each completion of a
+    group), beam scores ranked and negative, every logprob <= 0 and
+    finite."""
+    if sorted(done) != [r.rid for r in reqs]:
+        raise AssertionError(f"{label}: finished {sorted(done)}")
+    for r in reqs:
+        f = done[r.rid]
+        width = r.n if (r.beam_width or r.n > 1 or r.best_of) else 0
+        comps = f.completions or []
+        if len(comps) != width or any(len(c.tokens) != 64 for c in comps) \
+                or len(f.tokens) != 64:
+            raise AssertionError(f"{label}: rid {r.rid} finished with "
+                                 f"{len(f.tokens)} tokens, "
+                                 f"{len(comps)} completions")
+        scores = [c.score for c in comps]
+        if r.beam_width and (scores != sorted(scores, reverse=True)
+                             or not all(np.isfinite(x) and x < 0
+                                        for x in scores)):
+            raise AssertionError(f"{label}: beam scores {scores}")
+        if r.logprobs:
+            lps = [x for x in f.prompt_logprobs + f.token_logprobs
+                   if x is not None]
+            if len(f.token_logprobs) != 64 or f.prompt_logprobs[0] is not \
+                    None or not all(np.isfinite(x) and x <= 0 for x in lps):
+                raise AssertionError(f"{label}: logprobs rid {r.rid}")
+
+
+def check_threefry() -> None:
+    """JAX's threefry draws on the card equal the CPU's bit for bit: the
+    per-(seed, position) keys, the bits and the uniform draw of a
+    153,600-entry row, and randint; the gumbel noise (torch's log on each
+    device) is printed."""
+    v = get_config("qwen3-1.7b").padded_vocab
+    seeds = torch.tensor([0, 1, 7, 314, -1, -5, 2 ** 31 - 1, -2 ** 31])
+    pos = torch.tensor([0, 3, 520, 776, 1, 2047, 64, 9])
+    out = {}
+    for dev in ("cuda", "cpu"):
+        keys = jr.fold_in(jr.prng_keys(seeds.to(dev)), pos.to(dev))
+        out[dev] = (keys, jr.random_bits(keys, v),
+                    jr.uniform(keys, v, float(torch.finfo(
+                        torch.float32).tiny), 1.0).view(torch.int32),
+                    jr.randint(keys, (7,), 0, sampler.INT32_MAX),
+                    jr.gumbel(keys, v))
+    for name, a, b in zip(("keys", "bits", "uniform", "randint"),
+                          out["cuda"], out["cpu"]):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"threefry {name}: card and CPU differ")
+    gdiff = (out["cuda"][4].cpu() - out["cpu"][4]).abs().max().item()
+    print(f"engine_sampled: threefry keys, bits ({len(seeds)} x {v}), "
+          f"uniform and randint bit-equal card vs CPU; gumbel max |card - "
+          f"CPU| {gdiff:.3g}")
+
+
+def _top_p_gap(logits, top_k, top_p, temperature, presence, penalty):
+    """How far the mass strictly before each token (after penalty,
+    temperature and top-k, in the stable descending order, f64 on the
+    CPU) lies from its row's top_p: (B, V) in token order."""
+    lg = sampler.apply_repetition_penalty(logits.float(), presence, penalty)
+    t = temperature[:, None]
+    lg = sampler.apply_top_k(lg / torch.where(t > 0, t, torch.ones_like(t)),
+                             top_k).double()
+    order = torch.argsort(-lg, dim=-1, stable=True)
+    p = torch.softmax(torch.gather(lg, -1, order), dim=-1)
+    gap = (torch.cumsum(p, dim=-1) - p - top_p.double()[:, None]).abs()
+    return torch.empty_like(gap).scatter_(-1, order, gap)
+
+
+def check_sampler_card_vs_cpu(captured: dict) -> dict:
+    """``sample_tokens`` on one captured batch of card logits (a decode
+    step of the sampled spec_k 0 run, with its presence rows), on the
+    card and on the CPU, under three settings: the same tokens, except
+    on a row where either chosen token sits at the top-p boundary (the
+    mass before it within 1e-6 of top_p), which the exponentials' last
+    bits may move; such rows are counted.  Also the sampler's device
+    time at the decode (8 rows) and verify (40) shapes."""
+    lg = captured["logits"]
+    b = lg.shape[0]
+    settings = [SAMPLED, dict(temperature=1.0, top_k=0, top_p=0.9,
+                              repetition_penalty=1.0),
+                dict(temperature=0.6, top_k=5, top_p=1.0,
+                     repetition_penalty=1.3)]
+    near_rows = moved = 0
+    for i, sp in enumerate(settings):
+        args = dict(
+            presence=captured["presence"],
+            seeds=torch.arange(b, dtype=torch.int32) * 7 + i,
+            positions=torch.arange(b, dtype=torch.int32) + 600,
+            temperature=torch.full((b,), sp["temperature"]),
+            top_k=torch.full((b,), sp["top_k"], dtype=torch.int32),
+            top_p=torch.full((b,), sp["top_p"]),
+            repetition_penalty=torch.full((b,), sp["repetition_penalty"]))
+        card = sampler.sample_tokens(
+            lg, **{k: v.cuda() for k, v in args.items()}).cpu()
+        cpu = sampler.sample_tokens(lg.cpu(), **{
+            k: v.cpu() for k, v in args.items()})
+        gap = _top_p_gap(lg.cpu(), args["top_k"], args["top_p"],
+                         args["temperature"], args["presence"].cpu(),
+                         args["repetition_penalty"])
+        rows = torch.arange(b)
+        near = ((gap[rows, card.long()] < TOP_P_MARGIN)
+                | (gap[rows, cpu.long()] < TOP_P_MARGIN)) \
+            & (args["temperature"] > 0)
+        diff = card != cpu
+        near_rows += int(near.sum())
+        moved += int(diff.sum())
+        if (diff & ~near).any():
+            raise AssertionError(f"sampler card vs CPU, setting {sp}: rows "
+                                 f"{diff.nonzero().flatten().tolist()} "
+                                 f"differ away from a top-p boundary")
+    times, kernels = {}, {}
+    for rows in (b, 5 * b):
+        rep = lambda x: torch.repeat_interleave(  # noqa: E731
+            x.cuda(), rows // b, dim=0)
+        a = [rep(lg), rep(captured["presence"]),
+             rep(torch.arange(b, dtype=torch.int32)),
+             rep(torch.arange(b, dtype=torch.int32) + 600),
+             rep(torch.full((b,), 0.8)), rep(torch.full((b,), 50,
+                                                       dtype=torch.int32)),
+             rep(torch.full((b,), 0.95)), rep(torch.full((b,), 1.1))]
+        times[rows] = timed(lambda: sampler.sample_tokens(*a), reps=5,
+                            inner=2)
+        kernels[rows] = _kernel_breakdown(lambda: sampler.sample_tokens(*a))
+    for rows, (dev, n, top) in kernels.items():
+        print(f"engine_sampled: sample_tokens at {rows} rows: device "
+              f"{dev:.4f} ms in {n:.0f} kernels a call (torch.profiler); "
+              f"most time: {top}")
+    print(f"engine_sampled: sample_tokens on {b} captured card logit rows "
+          f"x {lg.shape[1]}, 3 settings: card and CPU choose the same "
+          f"tokens on every row whose choice is away from the top-p "
+          f"boundary; rows choosing a token within {TOP_P_MARGIN} of it: "
+          f"{near_rows}; rows that differ: {moved}; "
+          f"sampler {times[b]:.4f} ms at {b} rows, {times[5 * b]:.4f} ms at "
+          f"{5 * b} rows (events)")
+    return times
+
+
+def _kernel_breakdown(fn, calls: int = 5) -> tuple[float, float, list]:
+    """(device ms a call, kernels a call, the four kernels with the most
+    device time) of ``fn`` from one torch.profiler window; a window with
+    no device time recorded gives 0 ms."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    top = sorted(ev, key=us, reverse=True)[:4]
+    return (sum(us(e) for e in ev) / 1e3 / calls,
+            sum(e.count for e in ev) / calls,
+            [(e.key[:48], round(us(e) / 1e3 / calls, 4)) for e in top])
+
+
+def check_legacy_prefill(model) -> None:
+    """The whole-prompt prefill (no start_pos) at full width: every layer
+    on the tensor-core prefill, finite logits at every position, and the
+    last position's logits equal to the chunked prefill's from position 0
+    on the same tokens."""
+    cfg = model.cfg
+    reqs = workload(cfg.vocab_size)[:2]
+    ell = min(len(r.prompt) for r in reqs)
+    toks = torch.tensor([r.prompt[:ell] for r in reqs], device="cuda")
+    npg = -(-ell // 16)
+    pt = torch.arange(2 * npg, dtype=torch.int32,
+                      device="cuda").reshape(2, npg)
+    _reset_paged_counters()
+    logits, _ = model.paged_prefill(model.init_paged_cache(2 * npg, 16),
+                                    toks, pt)
+    la = _paged_counts()
+    last = torch.full((2,), ell - 1, dtype=torch.int32, device="cuda")
+    chunked, _ = model.paged_prefill(
+        model.init_paged_cache(2 * npg, 16), toks, pt, last_pos=last,
+        start_pos=torch.zeros_like(last))
+    torch.cuda.synchronize()
+    if la["paged_prefill"] != cfg.n_layers or any(
+            la[n] for n in la if n != "paged_prefill"):
+        raise AssertionError(f"legacy prefill launches {la}")
+    if tuple(logits.shape) != (2, ell, cfg.padded_vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError("legacy prefill logits")
+    # The layers run the same shapes both ways; only the LM head's GEMM
+    # (every position vs the last) may sum in another order: one bf16
+    # rounding of the largest logit at most.
+    last_lg = logits[:, -1].float()
+    diff = (last_lg - chunked[:, 0].float()).abs().max().item()
+    bound = 2.0 ** -7 * last_lg.abs().max().item()
+    if diff > bound:
+        raise AssertionError(f"legacy vs chunked prefill differ by {diff} "
+                             f"(bound {bound})")
+    print(f"engine_sampled [{cfg.attn_impl}]: whole-prompt prefill 2 x {ell}"
+          f": {la['paged_prefill']} launches, all on paged_prefill_fwd_tc; "
+          f"last logits within {diff:.3g} of the chunked prefill's (one "
+          f"bf16 rounding: {bound:.3g})")
+
+
+def check_engine_sampled() -> dict:
+    """Full-width qwen3-1.7b, both rails: the sampled workload at spec_k
+    0, 4 and "auto"; a greedy run and a temperature-0.8 top_k=1 run of
+    the engine phase's workload, which must agree token for token; the
+    whole-prompt prefill; threefry and the sampler card vs CPU.  Returns
+    the launches of the engine runs."""
+    check_threefry()
+    totals = {n: 0 for n in PAGED_ROWS}
+    for rail in ("fa2", "hfa"):
+        cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
+        model = LM(cfg, device="cuda").init(
+            torch.Generator(device="cuda").manual_seed(0))
+        reqs = sampled_workload(cfg.vocab_size)
+        captured = {}
+
+        def capture(eng, logits):
+            if not captured and not eng._all_greedy(range(eng.max_batch)):
+                captured["logits"] = logits[:, 0].detach().clone()
+                captured["presence"] = eng._presence.clone()
+
+        streams = {}
+        for spec_k in SAMPLED_SPEC_K:
+            done, info = serve(model, reqs, spec_k,
+                               capture if spec_k == 0 else None)
+            label = f"engine_sampled [{rail} spec_k={spec_k}]"
+            _check_sampled_run(done, reqs, label)
+            streams[spec_k] = {rid: f.tokens for rid, f in done.items()}
+            la, st, alp = info["launches"], info["stats"], \
+                info["all_logits_prefill"]
+            need = ["paged_prefill",
+                    "paged_decode" if spec_k == 0 else "paged_verify"]
+            simt = [n for n in PAGED_ROWS if n.endswith("_simt")]
+            if any(la[n] <= 0 for n in need) or any(la[n] for n in simt) \
+                    or alp["calls"] <= 0 or alp["tc"] != \
+                    alp["calls"] * cfg.n_layers or alp["simt"]:
+                raise AssertionError(f"{label}: launches {la}, all-position "
+                                     f"prefill {alp}")
+            for n in PAGED_ROWS:
+                totals[n] += la[n]
+            wall = info["wall_s"]
+            print(f"{label}: wall {wall:.3f} s, {st['steps']} steps, "
+                  f"{st['generated_tokens']} tokens "
+                  f"({st['generated_tokens'] / wall:.1f} tok/s), drafts "
+                  f"{st['draft_accepted']}/{st['draft_tokens']}, spec_k_last "
+                  f"{st['spec_k_last']}, groups {st['groups']}, forks "
+                  f"{st['forks']}, beam steps {st['beam_steps']}, "
+                  f"all-position prefills {alp['calls']} "
+                  f"({alp['tc']} launches on paged_prefill_fwd_tc), "
+                  f"launches {la}")
+            beam = done[2].completions
+            lps = [round(x, 3) for x in done[3].token_logprobs[:4]]
+            print(f"{label}: beam-4 scores "
+                  f"{[round(c.score, 4) for c in beam]}; rid 3 token "
+                  f"logprobs {lps}; best_of=3 branch "
+                  f"{done[1].completions[0].branch}")
+        for spec_k in SAMPLED_SPEC_K[1:]:
+            agree = _agreement(streams[0], streams[spec_k])
+            print(f"engine_sampled [{rail}]: spec_k={spec_k} vs spec_k=0 "
+                  f"streams agree on {agree}")
+        greedy, info_g, wall_g = run_engine(model, 0)
+        top1 = [dataclasses.replace(r, sampling=SamplingParams(
+            temperature=0.8, top_k=1, seed=r.rid))
+            for r in workload(cfg.vocab_size)]
+        done, info = serve(model, top1, 0)
+        same = {rid: f.tokens for rid, f in done.items()} == greedy
+        print(f"engine_sampled [{rail}]: greedy run wall {wall_g:.3f} s, "
+              f"temperature 0.8 top_k=1 run wall {info['wall_s']:.3f} s; "
+              f"streams equal: {same}")
+        if not same:
+            raise AssertionError(f"[{rail}] the top_k=1 run differs from the "
+                                 f"greedy run")
+        for la in (info_g["launches"], info["launches"]):
+            for n in PAGED_ROWS:
+                totals[n] += la[n]
+        check_legacy_prefill(model)
+        check_sampler_card_vs_cpu(captured)
         del model
         torch.cuda.empty_cache()
     return totals
@@ -2246,7 +2595,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     phases = sys.argv[1:] or ["kernels", "reference", "engine",
-                              "dense_serve", "train"]
+                              "engine_sampled", "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -2312,6 +2661,7 @@ def main() -> int:
         decode_variants()
     totals: dict = {}
     for phase, run in (("engine", check_engine),
+                       ("engine_sampled", check_engine_sampled),
                        ("dense_serve", check_dense_serve),
                        ("train", check_train)):
         if phase in phases:

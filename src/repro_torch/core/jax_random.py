@@ -1,22 +1,39 @@
-"""The reference's random weights, drawn in torch: JAX's threefry2x32
-PRNG (``jax_threefry_partitionable``, the default of the JAX release
-the reference runs on) with its ``PRNGKey``, ``split`` and ``normal``.
+"""JAX's threefry2x32 PRNG written in torch (``jax_threefry_partitionable``,
+the default of the JAX release the reference runs on): the reference's
+random weights and its seeded sampling streams, without importing JAX.
 
-A key is a (2,) uint32 pair held in an int64 tensor.  ``split(key, n)``
-hashes the counters 0..n-1 under the key; ``normal(key, shape, dtype)``
-hashes the counters 0..size-1, keeps the mantissa bits of a uniform
-draw in [nextafter(-1, 0), 1) and maps it through the same f32
-``erf_inv`` polynomial as XLA (M. Giles' single-precision
-approximation), times sqrt(2).  The key tree, the uniform draws and the
-bf16 rounding points are the reference's bit for bit; ``erf_inv`` uses
-torch's ``log1p`` and ``sqrt`` where XLA uses its own approximations,
-so an f32 weight can differ from the reference's by a few ulps (3 at
-most in the shapes checked by the tests).
+A key is a uint32 pair held in the last axis (size 2) of an int64
+tensor; the sampling functions take a batch of keys (N, 2) and draw one
+row each, on the keys' device, without a Python loop over rows.
 
-Used by :meth:`repro_torch.models.model.LM.init_reference`, so that a
-seed gives the port the reference's ``LM.init(PRNGKey(seed))`` weights
-without importing JAX.  Sampling with JAX's generators (``categorical``,
-``randint``, ``fold_in``) is not here (ROADMAP.md Queue 1 item 7).
+* ``prng_key`` / ``prng_keys``, ``split``, ``fold_in``: the key tree.
+  ``fold_in(key, data)`` hashes the counter pair (0, data) under the
+  key, as ``jax.random.fold_in`` does for 32-bit data.
+* ``random_bits``: 32 bits for the flat positions 0..n-1 of a draw (the
+  counter pair (0, j), the two output words XORed).
+* ``uniform``: those bits' top 23 as the mantissa of [1, 2), minus 1,
+  scaled to [minval, maxval) and floored at minval, in f32 (a span of 1
+  here, so the scale is exact).
+* ``gumbel`` (mode "low"): ``-log(-log(uniform(tiny, 1)))``;
+  ``categorical``: the argmax of gumbel noise plus the logits.
+* ``randint``: int32 in [minval, maxval) from two words a value (the two
+  halves of ``split(key)``), reduced as XLA reduces them in uint32.
+* ``normal``: the mantissa bits of a uniform draw in
+  [nextafter(-1, 0), 1) through the same f32 ``erf_inv`` polynomial as
+  XLA (M. Giles' single-precision approximation), times sqrt(2).
+
+The key tree, the bits, the uniform draws, ``randint`` and the bf16
+rounding points are the reference's bit for bit.  ``erf_inv`` and
+``gumbel`` use torch's ``log1p``, ``log`` and ``sqrt`` where XLA uses
+its own approximations, so an f32 weight can differ from the
+reference's by a few ulps (3 at most in the shapes checked by the
+tests), and a gumbel value likewise: a categorical draw then differs
+only where two candidates' noisy logits lie within those ulps.
+
+Used by :meth:`repro_torch.models.model.LM.init_reference` (a seed gives
+the reference's ``LM.init(PRNGKey(seed))`` weights) and by
+:mod:`repro_torch.serving.sampler` (the reference's per-request,
+per-position sampling keys).
 """
 from __future__ import annotations
 
@@ -38,14 +55,23 @@ _CHUNK = 1 << 24
 
 
 def prng_key(seed: int) -> torch.Tensor:
-    """``jax.random.PRNGKey(seed)`` for a non-negative 32-bit seed."""
+    """``jax.random.PRNGKey(seed)`` for a 32-bit seed (a negative one as
+    its uint32 pattern)."""
     return torch.tensor([0, int(seed) & _MASK], dtype=torch.int64)
+
+
+def prng_keys(seeds: torch.Tensor) -> torch.Tensor:
+    """``PRNGKey(uint32(seed))`` for every seed of an integer tensor:
+    keys of shape ``seeds.shape + (2,)`` on the seeds' device."""
+    lo = seeds.to(torch.int64) & _MASK
+    return torch.stack([torch.zeros_like(lo), lo], dim=-1)
 
 
 def _threefry(key: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor):
     """Threefry-2x32 (20 rounds) of the counter pairs (x1, x2) under
-    ``key``, on int64 tensors holding uint32 values."""
-    k1, k2 = int(key[0]), int(key[1])
+    ``key`` (..., 2), on int64 tensors holding uint32 values; the key's
+    leading axes broadcast against the counters'."""
+    k1, k2 = key[..., 0], key[..., 1]
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _MASK
     x2 = (x2 + ks[1]) & _MASK
@@ -66,11 +92,80 @@ def split(key: torch.Tensor, n: int) -> list[torch.Tensor]:
     return [torch.stack([b1[i], b2[i]]) for i in range(n)]
 
 
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in(key, data)`` for 32-bit data: keys (..., 2)
+    and data of the keys' leading shape (or a Python int)."""
+    lo = torch.as_tensor(data, dtype=torch.int64,
+                         device=key.device) & _MASK
+    b1, b2 = _threefry(key, torch.zeros_like(lo), lo)
+    return torch.stack([b1, b2], dim=-1)
+
+
 def _bits(key: torch.Tensor, start: int, n: int, device) -> torch.Tensor:
-    """32 random bits for the flat positions start..start+n-1 of a draw."""
+    """32 random bits for the flat positions start..start+n-1 of a draw;
+    a batch of keys (N, 2) gives (N, n)."""
     count = torch.arange(start, start + n, dtype=torch.int64, device=device)
-    b1, b2 = _threefry(key, count >> 32, count & _MASK)
+    b1, b2 = _threefry(key.to(device)[..., None, :], count >> 32,
+                       count & _MASK)
     return b1 ^ b2
+
+
+def random_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.bits(key, (n,), uint32)`` for each key of (N, 2):
+    (N, n) int64 holding the uint32 values."""
+    return _bits(keys, 0, n, keys.device)
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), float32, minval, maxval)`` for
+    each key of (N, 2): (N, n) f32.  The bounds are rounded to f32 first,
+    as the reference converts them.  Bit for bit where ``maxval -
+    minval`` rounds to 1 (the draws here: [0, 1) and [tiny, 1)); for other
+    spans XLA's CPU contracts the scale and shift into one FMA."""
+    fb = ((random_bits(keys, n) >> 9) | 0x3F800000).to(torch.int32)
+    u = fb.view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=keys.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=keys.device)
+    return torch.maximum(lo, u * (hi - lo) + lo)
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,), float32, mode="low")`` for each key
+    of (N, 2): ``-log(-log(u))`` of a uniform draw in [tiny, 1)."""
+    tiny = float(torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(uniform(keys, n, tiny, 1.0)))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """``jax.random.categorical(key, row)`` for each key of (N, 2) and
+    row of ``logits`` (N, V) f32: the argmax of gumbel noise plus the
+    logits (first index on a tie), (N,) int64."""
+    return torch.argmax(gumbel(keys, logits.shape[-1]) + logits, dim=-1)
+
+
+def randint(key: torch.Tensor, shape, minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` (int32) for a
+    key (2,) or a batch of keys (..., 2): two words a value, the higher
+    from ``split(key)[0]`` and the lower from ``split(key)[1]``, reduced
+    into the span with uint32 arithmetic as XLA does (the multiplier
+    2^32 mod span wraps).  Bounds inside the int32 range."""
+    n = math.prod(shape)
+    halves = []
+    for i in range(2):
+        ctr = torch.full(key.shape[:-1], i, dtype=torch.int64,
+                         device=key.device)
+        b1, b2 = _threefry(key, torch.zeros_like(ctr), ctr)
+        halves.append(_bits(torch.stack([b1, b2], dim=-1), 0, n,
+                            key.device))
+    span = max(maxval - minval, 1) & _MASK
+    mult = ((1 << 16) % span) ** 2 & _MASK
+    mult %= span
+    off = ((halves[0] % span) * mult & _MASK) + halves[1] % span
+    off = (off & _MASK) % span
+    return (minval + off).to(torch.int32).reshape(key.shape[:-1]
+                                                  + tuple(shape))
 
 
 def _erf_inv(x: torch.Tensor) -> torch.Tensor:

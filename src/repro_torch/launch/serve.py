@@ -1,19 +1,24 @@
-"""Serving entry point of the port: greedy continuous batching over paged
-KV on the card, or (``--dense``) the fixed-batch loop over a contiguous
-cache.
+"""Serving entry point of the port: continuous batching over paged KV on
+the card - greedy or seeded sampling, speculation, sequence groups and
+beam search, logprobs - or (``--dense``) the greedy fixed-batch loop over
+a contiguous cache.
 
   python -m repro_torch.launch.serve --arch qwen3-1.7b --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --reduced --device cpu --batch 2 --steps 4
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --reduced --device cpu --spec-k 4 --temperature 0.8 --top-p 0.95 \\
+      --seed 7
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --reduced --device cpu --dense
 
 Weights are random (nothing is downloaded): the reference's
-``LM.init(PRNGKey(seed))`` weights, drawn with JAX's generator written in
+``LM.init(PRNGKey(0))`` weights, drawn with JAX's generator written in
 torch (``LM.init_reference``).  Prompts are the reference's too,
 ``DataPipeline.for_config(cfg, prompt_len, batch)``; the paged path takes
-one new arrival per engine step.  So on the CPU both packages print the
-same ``sample:`` token ids for the same flags.
+one new arrival per engine step, request i sampling under seed
+``--seed + i``.  So on the CPU both packages print the same ``sample:``
+token ids for the same flags.
 ``--attn-impl`` takes the reference's impls: on the paged path any
 "hfa..." impl runs the FIX16 H-FA rail and LogDiv, anything else fa2
 (exp and a float divide); the dense path prefills through
@@ -33,16 +38,19 @@ import numpy as np
 IMPLS = ("exact", "fa2", "hfa", "fa2_pallas", "hfa_pallas", "hfa_datapath")
 
 
-def parse_prefill_budget(value: str | None) -> int | None:
+def parse_prefill_budget(value: str | None) -> int | str | None:
     """CLI form of the engine's ``prefill_budget``: "none"/"" -> None
-    (unbounded), else an int token budget."""
+    (unbounded), "adaptive" -> the per-step budget from the decode
+    batch's SLA headroom, else an int token budget."""
     if value is None or value.lower() in ("", "none"):
         return None
+    if value.lower() == "adaptive":
+        return "adaptive"
     try:
         return int(value)
     except ValueError:
         raise argparse.ArgumentTypeError(
-            f"expected an int or 'none', got {value!r}")
+            f"expected an int, 'none' or 'adaptive', got {value!r}")
 
 
 def main(argv=None):
@@ -65,32 +73,69 @@ def main(argv=None):
     ap.add_argument("--prefill-budget", type=parse_prefill_budget,
                     default=None,
                     help="prefill token budget per engine step (chunked "
-                         "prefill): an int or 'none' (unbounded, default)")
+                         "prefill): an int, 'none' (unbounded, the default) "
+                         "or 'adaptive' (from the decode batch's SLA "
+                         "headroom)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prefix page reuse")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="max prompt-lookup draft tokens verified per "
                          "decode step (0 = no speculation)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy argmax)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="top-k truncation (0 = disabled)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus truncation (1.0 = disabled)")
+    ap.add_argument("--repetition-penalty", type=float, default=1.0)
     ap.add_argument("--seed", type=int, default=0,
-                    help="seed of the random weights (the reference's "
-                         "PRNGKey(seed))")
+                    help="base sampling seed (request i uses seed + i)")
+    ap.add_argument("--n", type=int, default=1,
+                    help="parallel samples per request (one prefill fans "
+                         "n branches out over copy-on-write forks; branch "
+                         "b samples under branch_seed(seed, b))")
+    ap.add_argument("--best-of", type=int, default=None,
+                    help="branches sampled per request (>= n); the n best "
+                         "by length-normalized cumulative logprob are "
+                         "returned")
+    ap.add_argument("--beam-width", type=int, default=0,
+                    help="> 0: length-normalized beam search with this "
+                         "many beams (temperature must stay 0; returns the "
+                         "n best hypotheses)")
+    ap.add_argument("--length-penalty", type=float, default=1.0,
+                    help="score = cum_logprob / len**length_penalty "
+                         "(1.0 = mean logprob, 0 = raw sum)")
+    ap.add_argument("--logprobs", action="store_true",
+                    help="return per-token logprobs: prompt positions (the "
+                         "LM head at every prefill position) and every "
+                         "generated token")
     ap.add_argument("--dense", action="store_true",
                     help="fixed-batch greedy loop over a contiguous cache")
     args = ap.parse_args(argv)
+    if args.n < 1:
+        ap.error("--n must be >= 1")
+    if args.beam_width > 0 and args.temperature > 0:
+        ap.error("beam search is deterministic: --temperature must be 0")
+    if args.beam_width > 0 and args.best_of is not None:
+        ap.error("--best-of is a parallel-sampling knob, incompatible "
+                 "with --beam-width")
+    width = args.beam_width or (args.best_of or args.n)
+    if width > args.batch:
+        ap.error(f"group width {width} exceeds --batch {args.batch}")
 
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.data import DataPipeline
     from repro_torch.models.model import build_model
-    from repro_torch.serving import Request, ServingEngine
+    from repro_torch.serving import Request, SamplingParams, ServingEngine
 
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    model = build_model(cfg, device=args.device).init_reference(args.seed)
+    model = build_model(cfg, device=args.device).init_reference(0)
     pipe = DataPipeline.for_config(cfg, args.prompt_len, args.batch)
     if args.dense:
         _serve_dense(model, cfg, pipe.batch(0), args)
@@ -106,7 +151,16 @@ def main(argv=None):
                            prefix_caching=not args.no_prefix_cache,
                            spec_k=args.spec_k, device=args.device)
     arrivals = [(i, Request(rid=i, prompt=prompts[i].tolist(),
-                            max_new_tokens=args.steps))
+                            max_new_tokens=args.steps,
+                            sampling=SamplingParams(
+                                temperature=args.temperature,
+                                top_k=args.top_k, top_p=args.top_p,
+                                repetition_penalty=args.repetition_penalty,
+                                seed=args.seed + i),
+                            n=args.n, best_of=args.best_of,
+                            beam_width=args.beam_width,
+                            length_penalty=args.length_penalty,
+                            logprobs=args.logprobs))
                 for i in range(n_req)]
     t0 = time.perf_counter()
     finished = engine.run(arrivals)
@@ -126,12 +180,32 @@ def main(argv=None):
           f"{st['cached_prefill_tokens']} reused from prefix cache")
     print(f"generated {st['generated_tokens']} tokens in {dt:.2f} s "
           f"-> {st['generated_tokens'] / dt:.1f} tok/s")
-    print(f"kv pool {engine.pool_bytes()} B, {engine.bytes_per_token()} "
-          f"B/token")
+    print(f"kv codec {engine.kv_codec}: pool {engine.pool_bytes()} B, "
+          f"{engine.bytes_per_token()} B/token")
+    if args.logprobs:
+        fr = finished[0]
+        plp = [f"{x:+.2f}" if x is not None else "None"
+               for x in (fr.prompt_logprobs or [])[:6]]
+        tlp = [f"{x:+.2f}" for x in (fr.token_logprobs or [])[:6]]
+        print(f"logprobs rid {fr.rid}: prompt {plp} tokens {tlp}")
     if args.spec_k:
         rate = st["draft_accepted"] / max(st["draft_tokens"], 1)
+        tps = st["decode_tokens"] / max(st["decode_slot_steps"], 1)
         print(f"speculation: {st['draft_accepted']}/{st['draft_tokens']} "
-              f"drafts accepted ({rate:.0%}), {st['rollbacks']} rollbacks")
+              f"drafts accepted ({rate:.0%}), "
+              f"{tps:.2f} accepted tokens/step, "
+              f"{st['rollbacks']} rollbacks")
+    if st["groups"]:
+        kind = f"beam-{args.beam_width}" if args.beam_width \
+            else f"n={args.n}" + (f"/best-of-{args.best_of}"
+                                  if args.best_of else "")
+        print(f"sequence groups ({kind}): {st['groups']} groups, "
+              f"{st['forks']} COW forks (zero KV copied at fork)")
+        best = finished[0]
+        if best.completions:
+            for c in best.completions[:4]:
+                print(f"  rid {best.rid} branch {c.branch} "
+                      f"score {c.score:+.3f}: {c.tokens[:10]}")
     print("sample:", finished[0].tokens[:12])
 
 

@@ -217,10 +217,14 @@ def _paged_attention(q, k, v, cache, page_state, *, impl):
     Decode: append the token at seq_lens[b], then attend over each
     slot's pages.  Chunked prefill: scatter the chunk at start_pos[b]..
     (padding rows dropped), then attend causally against everything
-    written for the sequence.  The reference's legacy whole-prompt
-    prefill (no start_pos) and its tensor-parallel branch are not
-    ported; the engine never takes the first, and the second waits for
-    ROADMAP.md Queue 1 item 11.
+    written for the sequence.  Whole-prompt prefill (no start_pos): the
+    chunked prefill from position 0 with every row of the (B, L) input
+    real, so all L rows are written (the reference writes them all too)
+    and attention takes the same paged prefill kernel.  The reference
+    attends over the raw chunk instead: the same attention on the FA-2
+    rail, its dense walk on the H-FA rail (ROADMAP.md Queue 3 C5).  The
+    reference's tensor-parallel branch waits for ROADMAP.md Queue 1
+    item 11.
     """
     pt = page_state["page_table"]
     codec = page_codec.get_codec(page_state.get("codec"))
@@ -238,16 +242,17 @@ def _paged_attention(q, k, v, cache, page_state, *, impl):
         kv_lens = torch.where(sl > 0, sl + 1, torch.zeros_like(sl))
         out = kops.paged_decode_attention(
             q, pools["k_pages"], pools["v_pages"], pt, kv_lens, impl=impl)
-    elif "start_pos" in page_state:
-        sp = page_state["start_pos"]
-        cl = page_state["chunk_lens"]
+    else:
+        if "start_pos" in page_state:
+            sp = page_state["start_pos"]
+            cl = page_state["chunk_lens"]
+        else:
+            b, ell = q.shape[0], q.shape[1]
+            sp = torch.zeros((b,), dtype=torch.int32, device=q.device)
+            cl = torch.full((b,), ell, dtype=torch.int32, device=q.device)
         pools = page_codec.encode_write(paged_pf_k.write_chunk_kv, codec,
                                         cache, k, v, pt, sp, cl)
         out = kops.paged_prefill_attention(
             q, pools["k_pages"], pools["v_pages"], pt, sp, cl, impl=impl)
-    else:
-        raise NotImplementedError(
-            "legacy whole-prompt paged prefill is not ported: pass "
-            "start_pos and last_pos (chunked prefill)")
     return out, pools
 

@@ -14,8 +14,9 @@ Ported so far: dense GQA stacks with RoPE, RMSNorm and SwiGLU (the
 qwen3 family); the training forward ``apply`` and ``loss`` (masked
 next-token NLL in f32); the dense fixed-batch decode methods -
 ``init_cache``, ``prefill`` and ``decode_step`` over a contiguous ring;
-and the paged serving methods - ``init_paged_cache``, chunked
-``paged_prefill``, ``paged_decode_step`` and ``paged_verify_step``.  The
+and the paged serving methods - ``init_paged_cache``, ``paged_prefill``
+(chunked or whole-prompt, the LM head at the last position or at every
+one), ``paged_decode_step`` and ``paged_verify_step``.  The
 serving methods run under ``torch.no_grad()``.
 """
 from __future__ import annotations
@@ -216,32 +217,46 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def paged_prefill(self, layers, tokens, page_table, last_pos=None,
-                      start_pos=None, codec: str = "fp"):
-        """Chunked prefill into paged KV storage.
+                      start_pos=None, codec: str = "fp",
+                      return_all_logits: bool = False):
+        """Prefill into paged KV storage; tokens (B, L) rows padded to a
+        common L.
 
-        tokens (B, L) rows padded to a common L; row b is a chunk of
-        ``last_pos[b] + 1`` real tokens starting at absolute position
-        ``start_pos[b]``.  The chunk attends causally against all KV
-        already written for its sequence plus itself; padding rows are
-        never written.  The LM head runs only at ``last_pos``.  Returns
-        (logits (B, 1, V), layers) - the pools are updated in place.
+        Chunked (``start_pos`` given, which needs ``last_pos``): row b is
+        a chunk of ``last_pos[b] + 1`` real tokens starting at absolute
+        position ``start_pos[b]``; it attends causally against all KV
+        already written for its sequence plus itself, and padding rows
+        are never written.  Without ``start_pos``, the whole-prompt
+        fresh prefill at position 0: every row is written in full (a
+        padded tail is masked by the engine's ``seq_lens`` and
+        overwritten by later appends).
+
+        The LM head runs only at ``last_pos`` when it is given (logits
+        (B, 1, V)), else at every position (B, L, V); with
+        ``return_all_logits`` it runs at every position even when
+        ``last_pos`` is given - the prompt-logprobs path.  Returns
+        (logits, layers) - the pools are updated in place.
         """
-        if start_pos is None or last_pos is None:
-            raise NotImplementedError(
-                "only chunked paged prefill (start_pos and last_pos) is "
-                "ported")
         x = self._embed_in(tokens)
-        start_pos = start_pos.to(torch.int32)
-        positions = start_pos[:, None] + torch.arange(
-            tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
-        ps = {"page_table": page_table, "prefill": True, "codec": codec,
-              "start_pos": start_pos,
-              "chunk_lens": last_pos.to(torch.int32) + 1}
+        if start_pos is None:
+            positions = None
+            ps = {"page_table": page_table, "prefill": True, "codec": codec}
+        else:
+            if last_pos is None:
+                raise ValueError("chunked prefill needs last_pos")
+            start_pos = start_pos.to(torch.int32)
+            positions = start_pos[:, None] + torch.arange(
+                tokens.shape[1], dtype=torch.int32,
+                device=tokens.device)[None]
+            ps = {"page_table": page_table, "prefill": True, "codec": codec,
+                  "start_pos": start_pos,
+                  "chunk_lens": last_pos.to(torch.int32) + 1}
         x, layers = T.stack_apply(self.layers, x, self.cfg,
                                   positions=positions, caches=layers,
                                   page_state=ps)
-        rows = torch.arange(x.shape[0], device=x.device)
-        x = x[rows, last_pos.to(torch.int64)][:, None]
+        if last_pos is not None and not return_all_logits:
+            rows = torch.arange(x.shape[0], device=x.device)
+            x = x[rows, last_pos.to(torch.int64)][:, None]
         return self._finish(x), layers
 
     @torch.no_grad()

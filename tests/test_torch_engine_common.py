@@ -1,5 +1,6 @@
-"""Shared workload for the engine parity tests (test_torch_engine_fa2.py
-and test_torch_engine_hfa.py); this module holds no tests of its own.
+"""Shared workload for the engine parity tests (test_torch_engine_fa2.py,
+test_torch_engine_hfa.py, test_torch_engine_sampling.py and
+test_torch_engine_groups.py); this module holds no tests of its own.
 
 The reference's ``ServingEngine`` and the port's serve the same greedy
 shared-prefix workload on the reduced qwen3-1.7b (weights converted with
@@ -11,19 +12,23 @@ drafts are both accepted and rolled back.  The port's
 ``PagedKVCache.check_invariants()`` runs after every step.
 """
 import dataclasses
+import functools
 
 import numpy as np
+import pytest
+import torch
 
 import jax
 
 from repro.configs import get_config as jget_config
 from repro.models.model import build_model as jbuild
 from repro.serving import Request as JRequest
+from repro.serving import SamplingParams as JSamplingParams
 from repro.serving import ServingEngine as JEngine
 from repro_torch.configs import get_config
 from repro_torch.models import convert
 from repro_torch.models.model import LM
-from repro_torch.serving import Request, ServingEngine
+from repro_torch.serving import Request, SamplingParams, ServingEngine
 
 ENGINE_KW = dict(max_batch=3, page_size=4, max_seq=48, prefill_budget=6)
 # Long enough that greedy streams start repeating, so prompt-lookup
@@ -31,8 +36,23 @@ ENGINE_KW = dict(max_batch=3, page_size=4, max_seq=48, prefill_budget=6)
 NEW_TOKENS = 12
 
 
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One torch thread for a module of many small CPU ops: several test
+    processes share the machine, and their thread pools contending cost
+    far more than the threads save here.  The previous count comes back
+    after the module."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@functools.lru_cache(maxsize=None)
 def models(impl):
-    """(reference model, its params, port model) on one rail."""
+    """(reference model, its params, port model) on one rail, built once
+    a process (the reference model keeps its compiled steps, which every
+    engine over it shares; neither model is changed by serving)."""
     jcfg = dataclasses.replace(jget_config("qwen3-1.7b").reduced(),
                                attn_impl=impl)
     jm = jbuild(jcfg)
@@ -89,3 +109,88 @@ def check_engine_parity(models_, spec_k):
     if spec_k:
         assert stats["draft_accepted"] > 0 and stats["rollbacks"] > 0
     return stats
+
+
+def request_pair(rid, prompt, max_new_tokens, sampling=None, **kw):
+    """The same request for the reference engine and the port's:
+    ``sampling`` is a dict of SamplingParams fields (None = greedy)."""
+    jsp = None if sampling is None else JSamplingParams(**sampling)
+    tsp = None if sampling is None else SamplingParams(**sampling)
+    return (JRequest(rid=rid, prompt=list(prompt),
+                     max_new_tokens=max_new_tokens, sampling=jsp, **kw),
+            Request(rid=rid, prompt=list(prompt),
+                    max_new_tokens=max_new_tokens, sampling=tsp, **kw))
+
+
+def drive(eng, arrivals, between=None):
+    """``ServingEngine.run``'s loop with the cache invariants checked after
+    every step; ``between(step, eng)`` runs before each step.  Returns
+    the finished requests by rid."""
+    arrivals = sorted(arrivals, key=lambda a: a[0])
+    done, step = [], 0
+    while arrivals or eng.sched.has_work:
+        while arrivals and arrivals[0][0] <= step:
+            eng.submit(arrivals.pop(0)[1])
+        if between is not None:
+            between(step, eng)
+        done.extend(eng.step())
+        eng.cache.check_invariants()
+        step += 1
+    return {f.rid: f for f in done}
+
+
+def run_pair(models_, timed, between=None, setup=None, **engine_kw):
+    """Serve ``timed`` - [(arrival step, (reference request, port
+    request))] - on both engines built with ``engine_kw``; returns
+    (reference finished by rid, port finished by rid, reference engine,
+    port engine).  ``setup(eng)`` runs on each engine once it is built,
+    ``between(step, eng)`` before each step of both."""
+    jm, params, tm = models_
+    jeng = JEngine(jm, params, **engine_kw)
+    teng = ServingEngine(tm, device="cpu", **engine_kw)
+    for eng in (jeng, teng):
+        if setup is not None:
+            setup(eng)
+    want = drive(jeng, [(t, rq[0]) for t, rq in timed], between)
+    got = drive(teng, [(t, rq[1]) for t, rq in timed], between)
+    return want, got, jeng, teng
+
+
+# Logprobs and scores, port against reference.  fa2: the two summation
+# orders of f32 attention and softmax, within 1e-5.  hfa: quant_rail
+# rounds each score to a 1/128 step of the rail, so a score the two
+# einsum orders put an ulp apart across a step moves that key's weight
+# by a rail step (0.54%); with many scores a token some key does, and
+# the logprobs differ by up to 4.0e-4 on the CPU (the streams stay
+# equal).
+LP_TOL = {"fa2": 1e-5, "hfa": 1e-3}
+
+
+def assert_same_finished(want, got, lp_tol=1e-5):
+    """Tokens, reasons and completions equal; scores and logprobs within
+    ``lp_tol`` (None where the reference has None)."""
+    assert sorted(got) == sorted(want)
+    for rid, w in want.items():
+        g = got[rid]
+        assert (g.tokens, g.reason) == (w.tokens, w.reason), rid
+        assert g.accept_rate == w.accept_rate, rid
+        _close_lps(g.token_logprobs, w.token_logprobs, lp_tol)
+        _close_lps(g.prompt_logprobs, w.prompt_logprobs, lp_tol)
+        assert (g.completions is None) == (w.completions is None), rid
+        for gc, wc in zip(g.completions or [], w.completions or []):
+            assert (gc.tokens, gc.branch, gc.reason) == \
+                (wc.tokens, wc.branch, wc.reason), rid
+            assert abs(gc.score - wc.score) <= lp_tol, rid
+            _close_lps(gc.token_logprobs, wc.token_logprobs, lp_tol)
+        assert len(g.completions or []) == len(w.completions or [])
+
+
+def _close_lps(got, want, tol):
+    assert (got is None) == (want is None)
+    if want is None:
+        return
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert (a is None) == (b is None)
+        if b is not None:
+            assert abs(a - b) <= tol, (a, b)

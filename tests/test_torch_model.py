@@ -121,3 +121,55 @@ def test_paged_steps_match_reference(ref_params, impl):
         np.testing.assert_allclose(got[0], want[0], atol=1e-5)
         np.testing.assert_allclose(got, want,
                                    atol=1e-4 if impl == "fa2" else 2e-2)
+
+
+@pytest.mark.parametrize("impl", ["fa2", "hfa"])
+def test_paged_prefill_all_positions_and_whole_prompt(ref_params, impl):
+    """``return_all_logits`` (the prompt-logprobs prefill) and the
+    whole-prompt prefill (no start_pos) against the reference.  The
+    whole-prompt prefill runs kernel 2 from position 0; the reference's
+    attends over the raw chunk, which on fa2 is the same attention and on
+    hfa its dense H-FA (ROADMAP.md Queue 3 C5), so on hfa it is held to
+    the reference's chunked prefill from 0, the same paged walk."""
+    jm, tm = _pair(ref_params, impl)
+    rng = np.random.default_rng(23)
+    b, ell = 2, 7
+    toks = rng.integers(1, tm.cfg.vocab_size, (b, ell)).astype(np.int32)
+    pt = rng.permutation(NUM_PAGES)[:b * 3].reshape(b, 3).astype(np.int32)
+    jp = jax.tree.map(jnp.asarray, ref_params)
+    tol = _tols(impl)
+    last = np.array([ell - 1, 4], np.int32)
+    lg_j, _ = jm.paged_prefill(jp, jm.init_paged_cache(NUM_PAGES, PAGE),
+                               jnp.asarray(toks), jnp.asarray(pt),
+                               last_pos=jnp.asarray(last),
+                               start_pos=jnp.zeros((b,), jnp.int32),
+                               return_all_logits=True)
+    lg_t, _ = tm.paged_prefill(tm.init_paged_cache(NUM_PAGES, PAGE),
+                               torch.from_numpy(toks), torch.from_numpy(pt),
+                               last_pos=torch.from_numpy(last),
+                               start_pos=torch.zeros((b,), dtype=torch.int32),
+                               return_all_logits=True)
+    assert lg_t.shape == (b, ell, tm.cfg.padded_vocab)
+    # Row 1 is a 5-token chunk: its padded positions are garbage.
+    np.testing.assert_allclose(lg_t[0].numpy(), np.asarray(lg_j)[0],
+                               atol=tol)
+    np.testing.assert_allclose(lg_t[1, :5].numpy(), np.asarray(lg_j)[1, :5],
+                               atol=tol)
+    tl = tm.init_paged_cache(NUM_PAGES, PAGE)
+    whole, tl = tm.paged_prefill(tl, torch.from_numpy(toks),
+                                 torch.from_numpy(pt))
+    if impl == "fa2":
+        jl = jm.init_paged_cache(NUM_PAGES, PAGE)
+        want, jl = jm.paged_prefill(jp, jl, jnp.asarray(toks),
+                                    jnp.asarray(pt))
+        for key in ("k_pages", "v_pages"):
+            np.testing.assert_allclose(tl["l0"][key].numpy(),
+                                       np.asarray(jl["l0"][key]), atol=1e-4)
+    else:
+        want = lg_j
+    # Causal: row 1's first 5 positions are those of its 5-token chunk.
+    np.testing.assert_allclose(whole[0].numpy(), np.asarray(want)[0],
+                               atol=tol)
+    np.testing.assert_allclose(whole[1, :5].numpy(),
+                               np.asarray(want)[1, :5], atol=tol)
+    assert whole.shape == (b, ell, tm.cfg.padded_vocab)

@@ -2,7 +2,11 @@
 ``LM.init_reference(seed)`` draws (the reference's ``LM.init(PRNGKey(
 seed))``: f32 within 3 ulps - XLA's f32 erf_inv uses its own log1p -
 and bf16 bit for bit) and, for the same flags on the CPU, the same
-``sample:`` token ids, dense and paged."""
+``sample:`` token ids, dense and paged - greedy, and with seeded
+sampling and speculation, a sequence group, beam search and logprobs
+(the same ``speculation``, ``sequence groups``, completion and
+``logprobs rid`` lines too)."""
+import functools
 import sys
 
 import numpy as np
@@ -13,12 +17,16 @@ import jax.numpy as jnp
 import torch
 
 from repro.launch import serve as jserve
+from repro.models import model as jmodel
 from repro_torch.configs import get_config
 from repro_torch.core import jax_random as jr
 from repro_torch.launch import serve as tserve
 from repro_torch.models import convert
 from repro_torch.models.model import LM
 from test_torch_dense_serve import ref_params  # noqa: F401
+from test_torch_engine_common import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def test_init_reference_draws_the_reference_weights(ref_params):  # noqa: F811
@@ -46,12 +54,20 @@ def test_init_reference_draws_the_reference_weights(ref_params):  # noqa: F811
                                   np.asarray(want).view(np.int16))
 
 
-@pytest.mark.parametrize("dense", [True, False], ids=["dense", "paged"])
-def test_serve_cli_prints_the_reference_sample(dense, capsys):
-    """The two packages' serve entry points, same flags (the port on the
-    CPU): the same ``sample:`` token ids."""
-    flags = ["--arch", "qwen3-1.7b", "--reduced", "--batch", "2",
-             "--steps", "4"] + (["--dense"] if dense else [])
+@pytest.fixture(scope="module", autouse=True)
+def _one_reference_model_a_config():
+    """The reference entry point builds its model once a config in this
+    module, so its runs share the compiled serving steps the model keeps
+    (it holds no other state; each run draws its weights anew)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jmodel, "build_model",
+                   functools.lru_cache(maxsize=None)(jmodel.build_model))
+        yield
+
+
+def _cli_lines(flags, capsys, keep=("sample:",)):
+    """The lines starting with ``keep`` that each package's serve entry
+    point prints for ``flags`` (the port on the CPU)."""
     lines = {}
     for name in ("ref", "port"):
         if name == "ref":
@@ -63,5 +79,38 @@ def test_serve_cli_prints_the_reference_sample(dense, capsys):
         else:
             tserve.main(flags + ["--device", "cpu"])
         lines[name] = [ln for ln in capsys.readouterr().out.splitlines()
-                       if ln.startswith("sample:")]
-    assert lines["port"] == lines["ref"] and len(lines["ref"]) == 1
+                       if ln.startswith(keep)]
+    return lines["ref"], lines["port"]
+
+
+@pytest.mark.parametrize("dense", [True, False], ids=["dense", "paged"])
+def test_serve_cli_prints_the_reference_sample(dense, capsys):
+    """The two packages' serve entry points, same flags (the port on the
+    CPU): the same ``sample:`` token ids."""
+    flags = ["--arch", "qwen3-1.7b", "--reduced", "--batch", "2",
+             "--steps", "4"] + (["--dense"] if dense else [])
+    want, got = _cli_lines(flags, capsys)
+    assert got == want and len(want) == 1
+
+
+REQUEST_FLAGS = {
+    "spec_sampled": ["--spec-k", "4", "--temperature", "0.8", "--top-p",
+                     "0.95", "--seed", "7"],
+    "n4": ["--n", "4", "--temperature", "0.8", "--top-k", "8"],
+    "beam3": ["--beam-width", "3"],
+    "logprobs": ["--logprobs", "--temperature", "0.7",
+                 "--repetition-penalty", "1.2"],
+}
+
+
+@pytest.mark.parametrize("name", list(REQUEST_FLAGS))
+def test_serve_cli_request_flags_print_the_reference_lines(name, capsys):
+    """Sampling, speculation, groups, beam and logprobs flags: the same
+    sample, speculation, group, completion and logprobs lines."""
+    flags = ["--arch", "qwen3-1.7b", "--reduced", "--requests", "4",
+             "--steps", "5"] + REQUEST_FLAGS[name]
+    want, got = _cli_lines(flags, capsys, keep=(
+        "sample:", "speculation:", "sequence groups", "  rid",
+        "logprobs rid"))
+    assert got == want
+    assert len(want) > 1 and want[-1].startswith("sample:")
