@@ -21,13 +21,23 @@ Phases, in order; any failure exits non-zero and prints no result line:
    be within 1e-5 (decode) and 2e-7 (verify) of unsplit; a verify of G K
    = 20 rows must take the CUDA-core route; the tensor-core prefill on a
    dyadic grid within 1e-5 of the CUDA-core one.  On the H-FA rail at
-   pages 4, 3 and 32 decode, verify and prefill must each take the
-   CUDA-core body, which rescales once a page as the reference does, and
-   lie within 1e-5 of the per-page models on a dyadic grid, m equal; on
-   the FA-2 rail at page 4 decode and verify stay on v2.  The H-FA
-   decode and verify at pages 4, 16 and 32 are timed on the route they
-   take and on v2 unsplit, the route the H-FA rail took at every page
-   size before it rescaled once a page.
+   pages 4, 3, 32, 128 and 256 decode, verify and prefill must each take
+   the CUDA-core body, which rescales once a page as the reference does
+   (above page 16 a page staged 64 keys at a time), and lie within 1e-5
+   of the per-page models on a dyadic grid, m equal; on the FA-2 rail at
+   page 4 decode and verify stay on v2.  The H-FA decode and verify at
+   pages 4, 16, 32, 128 and 256 are timed on the route they take and on
+   v2 unsplit, the route the H-FA rail took at every page size before it
+   rescaled once a page.  The page codecs: every paged row again on
+   int8 and log16 pools (rows ``<row>_int8``, ``<row>_log16``), both
+   rails, against its plain version with the codec's decode (FA-2
+   within 1e-5, H-FA as the fp rows), each launch counted on its route
+   (int8 prefill on the CUDA cores, log16 prefill - a bf16 view - on the
+   tensor cores, decode and verify on v2); the int8 rows, built with
+   power-of-two scales, bit-equal to the same kernel on the bf16 pool of
+   their decoded values, and the int8 v2 decode and verify unsplit
+   bit-equal to the CUDA-core body; timed as the fp rows, bounded on the
+   codec's bytes (int8 d + 4 a row).
    One line per kernel: its time (events, and the device's own from
    torch.profiler), the plain version's, one
    ``F.scaled_dot_product_attention`` call on a pre-gathered dense view
@@ -64,9 +74,12 @@ Phases, in order; any failure exits non-zero and prints no result line:
    correction table the plain exp2_neg over all 65,536 d.  Last, every kernel
    at d 96 (hfa-paper-mini's head dim, G 1) and d 32 (G 2), bf16 and f32,
    against its plain version.
+   Pools: int8 data and scales and log16 bits encoded on the card equal
+   the CPU's bit for bit.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
    the same logits through the kernels on the card as through the plain
-   versions on the CPU - paged prefill, decode and verify, and the dense
+   versions on the CPU - paged prefill, decode and verify (on fp, int8
+   and log16 pools: an f32 q over int8 and over bf16 pools), and the dense
    ring's prefill and decode steps on fa2, hfa_pallas, hfa and
    hfa_datapath - and the same training loss and gradients; those f32
    runs must reach the dense forward and backward and the paged prefill
@@ -84,6 +97,13 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode
    walk unsplit prints how far its streams agree with the spec_k 4 and
    the split spec_k 0 runs.
+   Engine, codecs (``engine_codecs``).  The same model and workload with
+   ``kv_codec`` int8 at spec_k 0 and 4 and log16 at spec_k 0, both rails:
+   the pool's bytes a token must be the codec's; every int8 prefill runs
+   on the CUDA cores, every log16 prefill on the tensor cores, every
+   decode and verify on v2; log16's streams must equal the fp spec_k 0
+   run's token for token (at bf16 compute a log16 pool holds the K/V's
+   bf16 bits); int8's agreement with fp is printed, not asserted.
    Engine, sampled (``engine_sampled``).  The same model and workload
    with seeded sampling (temperature 0.8, top-k 50, top-p 0.95,
    repetition penalty 1.1, seed = rid), rid 0 an n=4 group, rid 1
@@ -141,6 +161,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import shutil
 import statistics
@@ -369,18 +390,20 @@ def kernel_cases(gen: torch.Generator):
     return cases
 
 
-def _bound(args, live, base, limit):
+def _bound(args, live, base, limit, row_bytes=None):
     """Least time for the same work: bytes (live K/V pages, q, triplet
     out) over the memory rate vs flops (QK and PV over visible keys)
-    over the bf16 peak."""
+    over the bf16 peak.  ``row_bytes``: stored bytes of one K or V row of
+    one KV head (default 2 d, bf16; the int8 codec's d + 4)."""
     q, kp = args[0], args[1]
     b, hkv, g = q.shape[:3]
     ell = 1 if q.dim() == 4 else q.shape[3]
     d, page = q.shape[-1], kp.shape[1]
+    row_bytes = 2 * d if row_bytes is None else row_bytes
     pos = base[:, None] + np.arange(ell)[None]              # (B, L)
     vis = np.clip(np.minimum(pos + 1, limit[:, None]), 0, None)
     n_kv = vis.max(axis=1)                                  # per slot
-    kv_bytes = int(np.sum(-(-n_kv // page))) * page * hkv * d * 2 * 2
+    kv_bytes = int(np.sum(-(-n_kv // page))) * page * hkv * row_bytes * 2
     io_bytes = q.numel() * 2 + b * hkv * g * ell * (d + 2) * 4
     flops = 4 * d * hkv * g * float(np.sum(vis * live))
     t_bytes = (kv_bytes + io_bytes) / HBM_BYTES_PER_S * 1e3
@@ -587,9 +610,9 @@ def _check_paged_exact(cases) -> dict:
 
 # Page sizes at which the H-FA rail's paged calls take the CUDA-core body,
 # which rescales once a page as the reference does: below 16 (4; 3, whose
-# tiles of 15 keys hold five pages) and above it (32: K and V of a page
-# in dynamic shared memory).
-PAGE_STEP_PAGES = (4, 3, 32)
+# tiles of 15 keys hold five pages) and above it (32, 128, 256: the page
+# kernel, a page staged 64 keys at a time, its scores in shared memory).
+PAGE_STEP_PAGES = (4, 3, 32, 128, 256)
 
 
 def check_paged_page_step() -> dict:
@@ -599,13 +622,14 @@ def check_paged_page_step() -> dict:
     chunk at 300) through the wrappers must each launch the CUDA-core
     body once (paged_launches "simt") and, on a dyadic grid within +-0.5
     (every score and every page's sum of p exact), lie within 1e-5 of the
-    per-page models (kernels/ref.py) after finalize, m bit for bit.  On
-    the FA-2 rail at page 4 decode and verify keep v2.  Returns the worst
-    errors."""
+    per-page models (kernels/ref.py) after finalize, m bit for bit (the
+    values of o~ and l that differ from the model at all are counted).
+    On the FA-2 rail at page 4 decode and verify keep v2.  Returns the
+    worst errors."""
     gen = torch.Generator(device="cuda").manual_seed(11)
     rng = np.random.default_rng(11)
     b, hkv, g, d, keys = 4, 8, 2, 128, 640
-    out = {}
+    out, bits = {}, {}
     for page in PAGE_STEP_PAGES:
         j = -(-keys // page)
         n = b * j + 8
@@ -652,6 +676,10 @@ def check_paged_page_step() -> dict:
                       for o, _, l in (got, want))
             err = float((go - wo).abs().max())
             same_m = torch.equal(got[1][mask], want[1][mask])
+            bits[f"{kind}_{page}"] = sum(
+                int((a[mask].view(torch.int32) != w[mask].view(torch.int32))
+                    .sum()) for a, w in ((got[0], want[0]),
+                                         (got[2], want[2])))
             if not (err <= 1e-5 and same_m
                     and bool(torch.isfinite(go).all())):
                 raise AssertionError(f"page {page} {kind} [hfa]: CUDA-core "
@@ -670,15 +698,16 @@ def check_paged_page_step() -> dict:
     print(f"check paged page step [hfa]: decode, verify, prefill at pages "
           f"{PAGE_STEP_PAGES} on the CUDA-core body (one page a rescale) vs "
           f"the per-page models on the dyadic grid: max |out err| "
-          f"{max(out.values()):.3g} (atol 1e-5), m equal; fa2 at page 4 "
-          f"stays on v2")
+          f"{max(out.values()):.3g} (atol 1e-5), m equal; o~ and l values "
+          f"that differ from the model at all: {bits}; fa2 at page 4 stays "
+          f"on v2")
     return out
 
 
 # Pages at which the H-FA decode and verify are timed on the route each
 # takes and on v2 (paged_attention_tc.cu, whose 16-key rescale the H-FA
 # rail took at every page size before it rescaled once a page).
-HFA_TIMED_PAGES = (4, 16, 32)
+HFA_TIMED_PAGES = (4, 16, 32, 128, 256)
 
 
 def _repage(pool, pt, page: int, perm: np.ndarray) -> torch.Tensor:
@@ -722,7 +751,9 @@ def time_hfa_page_routes(cases) -> dict:
                     row_blocks=cuda_lib.verify_row_blocks(g, kw, True)
                     if kind == "verify" else 1, splits=1,
                     scale=q.shape[-1] ** -0.5, use_hfa=True)
-            kname = ("paged_attention_kernel" if route == "simt" else
+            # The CUDA-core body's kernels: paged_attention_kernel, and
+            # above page 16 paged_attention_page_kernel.
+            kname = ("paged_attention" if route == "simt" else
                      "paged_decode_v2_kernel")
             t = {"route": route, "ms": timed(on_route),
                  "device_ms": device_ms(on_route, kname),
@@ -738,12 +769,233 @@ def time_hfa_page_routes(cases) -> dict:
     return out
 
 
+CODECS = ("int8", "log16")
+# The codec rows: (base row, codec) -> each paged row on int8 and log16
+# pools.  The route row of an int8 prefill is the CUDA-core kernel: the
+# tensor cores take bf16 pools only.
+CODEC_ROWS = {f"{row}_{c}": (row, c) for c in CODECS for row in PAGED_ROWS}
+# FA-2: the codec rows against their plain versions (the same decoded
+# values, summation order only); H-FA: as the fp rows (ATOL_OUT).
+ATOL_CODEC = {"fa2": 1e-5, "hfa": ATOL_OUT["hfa"]}
+
+
+V2_CODEC_SRC = "src/repro_torch/csrc/paged_decode_v2_codec.cu"
+
+
+def codec_row(row: str):
+    """(kind, source, route key, trace name) of a paged row, codec rows
+    included: the v2 kernel on int8 pools is instantiated in its own
+    source."""
+    base, codec = CODEC_ROWS.get(row, (row, None))
+    if base == "paged_prefill" and codec == "int8":
+        return PAGED_ROWS["paged_prefill_simt"]
+    kind, src, key, kname = PAGED_ROWS[base]
+    if codec == "int8" and src == PAGED_TC_SRC and kind != "paged_prefill":
+        src = V2_CODEC_SRC
+    return kind, src, key, kname
+
+
+def dyadic_int8_bf16(shape, gen: torch.Generator) -> torch.Tensor:
+    """bf16 rows whose int8 encoding is exact: each row is n 2^-j with n
+    in [-127, 127], one |n| = 127, j in 7..10 per row (values within +-1)
+    - so every scale (absmax / 127) is the power of two 2^-j, every value
+    has at most 7 significant bits (exact in bf16), and decode (n * 2^-j)
+    gives the row back bit for bit."""
+    n = torch.randint(-127, 128, shape, generator=gen, device="cuda")
+    n[..., 0] = 127 * (2 * torch.randint(0, 2, shape[:-1], generator=gen,
+                                         device="cuda") - 1)
+    j = torch.randint(7, 11, shape[:-1] + (1,), generator=gen, device="cuda")
+    return (n.to(torch.float32) * torch.exp2(-j.to(torch.float32))).to(
+        torch.bfloat16)
+
+
+def _codec_fn(row: str, codec: str, pools: dict):
+    """(kernel call, plain version) of a codec row, the encoded pools
+    bound: each takes the case's (q, pt, *lens) around the pools."""
+    base = CODEC_ROWS[row][0]
+    wrapper, plain = _paged_fns(base)
+    kw = dict(codec=codec, k_scales=pools["ks"], v_scales=pools["vs"])
+    if base == "paged_prefill_simt":
+        def wrapper(q, kd, vd, pt, *lens, use_hfa=False):
+            kp, vp, ks, vs = pd.kernel_pools(codec, kd, vd, pools["ks"],
+                                             pools["vs"])
+            return cuda_lib.launch_paged(
+                "paged_prefill_fwd", q, kp, vp, pt, *lens,
+                scale=q.shape[-1] ** -0.5, use_hfa=use_hfa, k_scales=ks,
+                v_scales=vs)
+        return wrapper, lambda *a, **k: plain(*a, **k, **kw)
+    return (lambda *a, **k: wrapper(*a, **k, **kw),
+            lambda *a, **k: plain(*a, **k, **kw))
+
+
+def check_codec_kernels(cases) -> list[dict]:
+    """Each paged row on int8 and log16 pools at the kernels-phase
+    shapes, both rails: (a) against its plain version with the codec's
+    decode (FA-2 within 1e-5, H-FA within the fp rows' ATOL_OUT); (b) the
+    int8 rows, whose K and V are built so that every scale is a power of
+    two (``dyadic_int8_bf16``), bit-equal to the same kernel on the bf16
+    pool of the decoded values - the tile decode is exact - and the v2
+    decode and verify (unsplit) bit-equal to the CUDA-core ones; (c) the
+    routes: int8 prefill on the CUDA cores, log16 prefill (a bf16 view) on
+    the tensor cores, decode and verify on v2.  Times as the fp rows,
+    bounds on the codec's bytes (int8: d + 4 a row, log16: 2 d)."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    pools = {}          # (kind, codec) -> encoded pools and the bf16 view
+    for name in ("paged_decode", "paged_verify", "paged_prefill"):
+        args = cases[name][0]
+        for codec in CODECS:
+            c = page_codec.get_codec(codec)
+            if codec == "int8":
+                kv = [dyadic_int8_bf16(tuple(args[1].shape), gen)
+                      for _ in range(2)]
+            else:
+                kv = [args[1], args[2]]
+            (kd, ks), (vd, vs) = (c.encode(x) for x in kv)
+            if codec == "int8" and not all(torch.equal(
+                    c.decode(d_, s_).to(torch.bfloat16), x)
+                    for d_, s_, x in ((kd, ks, kv[0]), (vd, vs, kv[1]))):
+                raise AssertionError("int8 pools on power-of-two scales do "
+                                     "not decode to their values exactly")
+            pools[(name, codec)] = dict(kd=kd, vd=vd, ks=ks, vs=vs,
+                                        kp=kv[0], vp=kv[1])
+    rows = []
+    for row, (base, codec) in CODEC_ROWS.items():
+        kind, src, key, kname = codec_row(row)
+        args, live, base_pos, limit = cases[kind]
+        pl = pools[(kind, codec)]
+        cargs = (args[0], pl["kd"], pl["vd"], *args[3:])
+        fn, plain = _codec_fn(row, codec, pl)
+        entry = {"name": row, "route": "cuda", "source": src,
+                 "replaces": REPLACES[base], "codec": codec}
+        for rail in ("fa2", "hfa"):
+            use_hfa = rail == "hfa"
+            before = {k: dict(v) for k, v in cuda_lib.paged_launches.items()}
+            got = fn(*cargs, use_hfa=use_hfa)
+            torch.cuda.synchronize()
+            before[key[0]][key[1]] += 1
+            if cuda_lib.paged_launches != before:
+                raise AssertionError(f"{row}[{rail}]: launches "
+                                     f"{cuda_lib.paged_launches}, need one "
+                                     f"more on {key}")
+            want = plain(*cargs, use_hfa=use_hfa)
+            shape = got[0].shape[:3] + ((1,) if got[0].dim() == 4
+                                        else got[0].shape[3:4])
+            mask = torch.tensor(np.broadcast_to(live[:, None, None, :],
+                                                shape), device="cuda")
+            ko, po = (decode_k.finalize_decode(o, l, use_hfa=use_hfa)
+                      .reshape(*shape, -1) for o, _, l in (got, want))
+            err = float((ko - po)[mask].abs().max())
+            err_m = float((got[1].reshape(shape) - want[1].reshape(shape))[
+                mask].abs().max())
+            if not (torch.isfinite(ko[mask]).all() and err <= ATOL_CODEC[rail]
+                    and err_m <= ATOL_M):
+                raise AssertionError(f"{row}[{rail}] disagrees with its plain "
+                                     f"version: max |out| err {err:.3g} (atol "
+                                     f"{ATOL_CODEC[rail]}), m {err_m:.3g}")
+            if codec == "int8":
+                # The same kernel on the bf16 pool of the decoded values.
+                same = "paged_prefill_simt" if base == "paged_prefill" \
+                    else base
+                ref_out = _paged_fns(same)[0](args[0], pl["kp"], pl["vp"],
+                                              *args[3:], use_hfa=use_hfa)
+                torch.cuda.synchronize()
+                bad = _bits_differ(got, ref_out)
+                if bad:
+                    raise AssertionError(f"{row}[{rail}]: {bad} values differ "
+                                         "from the bf16 pool of the decoded "
+                                         "values")
+            def call(use_hfa=use_hfa):
+                return fn(*cargs, use_hfa=use_hfa)
+            entry[f"{rail}_ms"] = timed(call)
+            entry[f"{rail}_device_ms"] = device_ms(call, kname)
+            entry[f"{rail}_plain_ms"] = timed(
+                lambda: plain(*cargs, use_hfa=use_hfa), reps=5, inner=2)
+            entry[f"{rail}_max_abs_err"] = err
+        d = args[0].shape[-1]
+        lib = _sdpa(args, kind)
+        entry.update(
+            ms=entry["fa2_ms"], plain_ms=entry["fa2_plain_ms"],
+            device_ms=entry["fa2_device_ms"],
+            max_abs_err=max(entry["fa2_max_abs_err"],
+                            entry["hfa_max_abs_err"]),
+            library_ms=timed(lib), library_device_ms=device_ms(lib))
+        entry["bound_ms"], entry["bound_by"] = _bound(
+            args, live, base_pos, limit,
+            row_bytes=d + 4 if codec == "int8" else 2 * d)
+        print(f"kernel {row} ({src.rsplit('/', 1)[1]}, {codec} pools): "
+              f"kernel_ms fa2 {entry['fa2_ms']:.4f} hfa {entry['hfa_ms']:.4f} "
+              f"(device {entry['fa2_device_ms']:.4f} / "
+              f"{entry['hfa_device_ms']:.4f}) | plain_ms fa2 "
+              f"{entry['fa2_plain_ms']:.4f} hfa {entry['hfa_plain_ms']:.4f} | "
+              f"library_ms {entry['library_ms']:.4f} (SDPA on bf16 pools; "
+              f"device {entry['library_device_ms']:.4f}) | bound_ms "
+              f"{entry['bound_ms']:.4f} ({entry['bound_by']}) | max_abs_err "
+              f"fa2 {entry['fa2_max_abs_err']:.3g} hfa "
+              f"{entry['hfa_max_abs_err']:.3g}"
+              + (" | bit-equal to the bf16 pool of its decoded values"
+                 if codec == "int8" else ""))
+        rows.append(entry)
+    # The int8 tile decode in v2 is the CUDA-core body's, unsplit.
+    for kind in ("paged_decode", "paged_verify"):
+        args = cases[kind][0]
+        pl = pools[(kind, "int8")]
+        kw = dict(scale=args[0].shape[-1] ** -0.5, splits=1,
+                  k_scales=pl["ks"], v_scales=pl["vs"])
+        mod = pd if kind == "paged_decode" else pv
+        for rail in ("fa2", "hfa"):
+            use_hfa = rail == "hfa"
+            cargs = (args[0], pl["kd"], pl["vd"], *args[3:])
+            if kind == "paged_decode":
+                got = cuda_lib.launch_paged_decode(*cargs, use_hfa=use_hfa,
+                                                   **kw)
+            else:
+                got = cuda_lib.launch_paged_verify(*cargs, use_hfa=use_hfa,
+                                                   row_blocks=1, **kw)
+            want = getattr(mod, f"{kind}_partial_simt")(
+                *cargs, use_hfa=use_hfa, codec="int8", k_scales=pl["ks"],
+                v_scales=pl["vs"])
+            torch.cuda.synchronize()
+            bad = _bits_differ(got, want)
+            if bad:
+                raise AssertionError(f"{kind} int8 [{rail}]: v2 unsplit "
+                                     f"differs from the CUDA-core body in "
+                                     f"{bad} values")
+    print("check codecs: int8 rows (power-of-two scales) bit-equal to the "
+          "same kernels on the bf16 pools of their decoded values, both "
+          "rails; int8 v2 decode and verify unsplit bit-equal to the "
+          "CUDA-core body; every codec row within its plain version")
+    return rows
+
+
+def check_pools() -> None:
+    """The codecs' encode on the card against the CPU's, bit for bit, at
+    the engine's K/V shapes (a 512-token chunk of 8 slots, Hkv 8, d 128),
+    bf16 and f32, with an all-zero row and bf16 subnormals."""
+    gen = torch.Generator().manual_seed(17)
+    x = torch.randn((8, 512, 8, 128), generator=gen)
+    x[1, 2] = 0.0
+    x[2, 3, 0, :16] = 1e-39
+    for dt in (torch.bfloat16, torch.float32):
+        for codec in CODECS:
+            c = page_codec.get_codec(codec)
+            (cd, cs), (gd, gs) = (c.encode(x.to(dt).to(dev))
+                                  for dev in ("cpu", "cuda"))
+            same = torch.equal(gd.cpu(), cd) and (cs is None or torch.equal(
+                gs.cpu().view(torch.int32), cs.view(torch.int32)))
+            if not same:
+                raise AssertionError(f"pools: {codec} encode of {dt} differs "
+                                     "between the card and the CPU")
+    print("pools: int8 data and scales and log16 bits encoded on the card "
+          "equal the CPU's bit for bit (bf16 and f32 K/V, 8 x 512 x 8 x 128)")
+
+
 def check_kernels() -> list[dict]:
     gen = torch.Generator(device="cuda").manual_seed(0)
     cases = kernel_cases(gen)
     exact = _check_paged_exact(cases)
     check_paged_page_step()
     time_hfa_page_routes(cases)
+    codec_rows = check_codec_kernels(cases)
     rows = []
     measured = {}                 # kind -> (bound, bound_by, library_ms)
     for row_name, (name, src, _, kname) in PAGED_ROWS.items():
@@ -818,7 +1070,7 @@ def check_kernels() -> list[dict]:
               f"fa2 {entry['fa2_max_abs_err']:.3g} hfa "
               f"{entry['hfa_max_abs_err']:.3g}")
         rows.append(entry)
-    return rows
+    return rows + codec_rows
 
 
 # Head dims every kernel takes beside 64 and 128, each with the G of a
@@ -1594,7 +1846,11 @@ def check_small_reference() -> dict:
     page 4.  Returns each rail's paged launches by route."""
     # fa2: f32 on both sides, summation order only.  hfa: the kernels
     # rescale online on the rail (see ATOL_OUT), which moves attention
-    # outputs by up to ~1e-2 and the logits of this model by less.
+    # outputs by up to ~1e-2 and the logits of this model by less.  The
+    # int8 and log16 pools quantize each K/V value: a value the card and
+    # the CPU compute a few f32 ulps apart next to a rounding boundary
+    # lands a quantization step apart (int8: its row's absmax / 127;
+    # log16: a bf16 ulp), which moved fa2's logits by 3.9e-4 (PR 21).
     counts = {}
     for rail, tol in (("fa2", 1e-4), ("hfa", 2e-2)):
         _reset_paged_counters()
@@ -1614,22 +1870,31 @@ def check_small_reference() -> dict:
                  ("paged_verify_step", (toks[:, 1:6], pt,
                                         np.array([41, 32], np.int32),
                                         np.array([5, 5], np.int32)), {}))
-        caches = {m: m.init_paged_cache(40, 4) for m in (cpu, gpu)}
-        for meth, args, kw in calls:
-            out = {}
-            for m in (cpu, gpu):
-                dev = m.device
-                t = [torch.tensor(a, device=dev) for a in args]
-                k = {key: torch.tensor(v, device=dev) for key, v in kw.items()}
-                out[dev.type], caches[m] = getattr(m, meth)(caches[m], *t, **k)
-            err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
-            if not err <= tol:
-                raise AssertionError(f"reduced model {meth}[{rail}]: card vs "
-                                     f"CPU logits differ by {err:.3g} "
-                                     f"(atol {tol})")
-            print(f"reference: reduced qwen3-1.7b {meth} [{rail}] card "
-                  f"kernels vs CPU plain: max |logit| diff {err:.3g}")
-        counts[rail] = _paged_counts()
+        # fp, then int8 (f32 q over int8 pools) and log16 (f32 q over the
+        # pools' bf16 view); the route counts are the fp run's.
+        for codec in ("fp",) + CODECS:
+            caches = {m: m.init_paged_cache(40, 4, codec=codec)
+                      for m in (cpu, gpu)}
+            for meth, args, kw in calls:
+                out = {}
+                for m in (cpu, gpu):
+                    dev = m.device
+                    t = [torch.tensor(a, device=dev) for a in args]
+                    k = {key: torch.tensor(v, device=dev)
+                         for key, v in kw.items()}
+                    out[dev.type], caches[m] = getattr(m, meth)(
+                        caches[m], *t, codec=codec, **k)
+                err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
+                atol = tol if codec == "fp" else max(tol, 5e-3)
+                if not err <= atol:
+                    raise AssertionError(f"reduced model {meth}[{rail} "
+                                         f"{codec}]: card vs CPU logits "
+                                         f"differ by {err:.3g} (atol {atol})")
+                print(f"reference: reduced qwen3-1.7b {meth} [{rail} {codec}]"
+                      f" card kernels vs CPU plain: max |logit| diff "
+                      f"{err:.3g}")
+            if codec == "fp":
+                counts[rail] = _paged_counts()
     return counts
 
 
@@ -1732,10 +1997,12 @@ def workload(vocab: int) -> list[Request]:
         for i in range(16)]
 
 
-def serve(model, reqs: list, spec_k, capture=None) -> tuple[dict, dict]:
+def serve(model, reqs: list, spec_k, capture=None,
+          kv_codec: str = "fp") -> tuple[dict, dict]:
     """Serve ``reqs`` (one arrival a step) through ``ServingEngine`` at
-    full width (max_batch 8, page 16, prefill budget 512), the cache
-    invariants checked after every step and every logit checked finite.
+    full width (max_batch 8, page 16, prefill budget 512, pools of
+    ``kv_codec``), the cache invariants checked after every step and
+    every logit checked finite.
     ``capture(eng, logits)`` sees each decode and verify step's logits.
     Returns (finished by rid, {"launches", "wall_s", "stats",
     "all_logits_prefill": the prefill launches by route of the calls
@@ -1764,13 +2031,15 @@ def serve(model, reqs: list, spec_k, capture=None) -> tuple[dict, dict]:
         setattr(model, meth, checked)
     try:
         eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
-                            prefill_budget=512, spec_k=spec_k)
+                            prefill_budget=512, spec_k=spec_k,
+                            kv_codec=kv_codec)
         holder["eng"] = eng
         cfg = model.cfg
-        kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b
+        kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b (fp)
         if kv_bytes != cfg.n_layers * page_codec.bytes_per_token(
-                "fp", cfg.n_kv_heads, cfg.d_head, torch.bfloat16):
-            raise AssertionError(f"pool holds {kv_bytes} B per token")
+                kv_codec, cfg.n_kv_heads, cfg.d_head, torch.bfloat16):
+            raise AssertionError(f"{kv_codec} pool holds {kv_bytes} B per "
+                                 "token")
         _reset_paged_counters()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1793,12 +2062,14 @@ def serve(model, reqs: list, spec_k, capture=None) -> tuple[dict, dict]:
         raise AssertionError("non-finite logits in the engine run")
     return {f.rid: f for f in done}, {
         "launches": launches, "wall_s": wall, "stats": dict(eng.stats),
-        "all_logits_prefill": all_logits}
+        "all_logits_prefill": all_logits, "pool_bytes": eng.pool_bytes(),
+        "bytes_per_token": kv_bytes}
 
 
-def run_engine(model, spec_k: int) -> tuple[dict, dict, float]:
+def run_engine(model, spec_k: int,
+               kv_codec: str = "fp") -> tuple[dict, dict, float]:
     reqs = workload(model.cfg.vocab_size)
-    done, info = serve(model, reqs, spec_k)
+    done, info = serve(model, reqs, spec_k, kv_codec=kv_codec)
     streams = {rid: f.tokens for rid, f in done.items()}
     if sorted(streams) != list(range(len(reqs))) or any(
             len(t) != 64 for t in streams.values()):
@@ -1828,8 +2099,30 @@ def _agreement(a: dict, b: dict) -> str:
     return f"{agree}/{total} tokens, {same}/{len(a)} whole streams"
 
 
-def check_engine() -> dict:
-    totals = {n: 0 for n in PAGED_ROWS}
+# The codec runs of the engine_codecs phase: (codec, spec_k).
+CODEC_RUNS = (("int8", 0), ("int8", 4), ("log16", 0))
+
+
+def _check_codec_launches(rail, codec, spec_k, la) -> None:
+    """The route counts of a codec run: every int8 prefill on the CUDA
+    cores (the tensor cores take bf16 pools), every log16 prefill (a bf16
+    view) on the tensor cores; every decode (spec_k 0) or verify (spec_k
+    4) on v2; nothing else."""
+    pf = "paged_prefill_simt" if codec == "int8" else "paged_prefill"
+    step = "paged_decode" if spec_k == 0 else "paged_verify"
+    if any((la[n] > 0) != (n in (pf, step)) for n in la):
+        raise AssertionError(f"engine [{rail} {codec} spec_k={spec_k}]: "
+                             f"launches {la}, need exactly {pf} and {step}")
+
+
+def check_engine(fp_runs: bool = True, codecs: bool = False) -> dict:
+    """The engine phase (``fp_runs``: fp pools at spec_k 0 and 4, and the
+    FA-2 unsplit witness) and the engine_codecs phase (``codecs``: int8 at
+    spec_k 0 and 4 and log16 at spec_k 0 on the same model, log16's
+    streams equal to the fp spec_k 0 run's token for token - at bf16
+    compute a log16 pool holds the bf16 K/V bits - and int8's agreement
+    with fp printed), both rails.  Returns the launches by row."""
+    totals = {n: 0 for n in list(PAGED_ROWS) + list(CODEC_ROWS)}
     for rail in ("fa2", "hfa"):
         cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
         t0 = time.perf_counter()
@@ -1841,7 +2134,7 @@ def check_engine() -> dict:
               f"layers, {n_params} parameters, init "
               f"{time.perf_counter() - t0:.1f} s")
         runs = {}
-        for spec_k in (0, 4):
+        for spec_k in ((0, 4) if fp_runs else (0,)):
             streams, info, wall = run_engine(model, spec_k)
             runs[spec_k] = streams
             la = info["launches"]
@@ -1855,8 +2148,9 @@ def check_engine() -> dict:
                 raise AssertionError(f"[{rail} spec_k={spec_k}] launches "
                                      f"{la}: need {need} > 0 and none of "
                                      f"{simt}")
-            for n in PAGED_ROWS:
-                totals[n] += la[n]
+            if fp_runs:
+                for n in PAGED_ROWS:
+                    totals[n] += la[n]
             st = info["stats"]
             print(f"engine [{rail} spec_k={spec_k}]: wall {wall:.3f} s, "
                   f"{st['steps']} steps, {st['generated_tokens']} tokens "
@@ -1865,9 +2159,10 @@ def check_engine() -> dict:
                   f"{st['cached_prefill_tokens']} cached, drafts "
                   f"{st['draft_accepted']}/{st['draft_tokens']}, launches "
                   f"{la}")
-        print(f"engine [{rail}]: spec_k=4 vs spec_k=0 streams agree on "
-              f"{_agreement(runs[0], runs[4])}")
-        if rail == "fa2":
+        if fp_runs:
+            print(f"engine [{rail}]: spec_k=4 vs spec_k=0 streams agree on "
+                  f"{_agreement(runs[0], runs[4])}")
+        if fp_runs and rail == "fa2":
             # Witness for the split decode: spec_k 0 again with every
             # decode walk unsplit (v2 then bit-equal to paged_decode_fwd),
             # against spec_k 4 (which decodes through verify) and the
@@ -1882,6 +2177,27 @@ def check_engine() -> dict:
                   f"s; agrees with spec_k=4 on {_agreement(unsplit, runs[4])}"
                   f", with the split spec_k=0 run on "
                   f"{_agreement(unsplit, runs[0])}")
+        for codec, spec_k in (CODEC_RUNS if codecs else ()):
+            streams, info, wall = run_engine(model, spec_k, kv_codec=codec)
+            la = info["launches"]
+            _check_codec_launches(rail, codec, spec_k, la)
+            for row, (base, c) in CODEC_ROWS.items():
+                if c == codec:      # int8's prefill route: the CUDA cores
+                    totals[row] += la["paged_prefill_simt" if (
+                        base, c) == ("paged_prefill", "int8") else base]
+            st = info["stats"]
+            agree = _agreement(streams, runs[0]) if spec_k == 0 else \
+                _agreement(streams, runs.get(4, runs[0]))
+            print(f"engine_codecs [{rail} {codec} spec_k={spec_k}]: wall "
+                  f"{wall:.3f} s, {st['generated_tokens']} tokens "
+                  f"({st['generated_tokens'] / wall:.1f} tok/s), drafts "
+                  f"{st['draft_accepted']}/{st['draft_tokens']}, pool "
+                  f"{info['pool_bytes']} B ({info['bytes_per_token']} B a "
+                  f"token), launches {la}; streams agree with fp spec_k="
+                  f"{spec_k if spec_k in runs else 0} on {agree}")
+            if codec == "log16" and streams != runs[0]:
+                raise AssertionError(f"engine_codecs [{rail}]: the log16 "
+                                     f"streams differ from fp's: {agree}")
         del model
         torch.cuda.empty_cache()
     return totals
@@ -2594,8 +2910,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card only",
               file=sys.stderr)
         return 1
-    phases = sys.argv[1:] or ["kernels", "reference", "engine",
-                              "engine_sampled", "dense_serve", "train"]
+    phases = sys.argv[1:] or ["kernels", "pools", "reference", "engine",
+                              "engine_codecs", "engine_sampled",
+                              "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -2603,7 +2920,8 @@ def main() -> int:
     t0 = time.perf_counter()
     cuda_lib.build(force=True)
     cuda_lib.library()
-    print(f"build: nvcc sm_90a {time.perf_counter() - t0:.1f} s")
+    print(f"build: nvcc sm_90a {time.perf_counter() - t0:.1f} s (each "
+          f"source's nvcc ended at, s: {cuda_lib.build_seconds})")
     # Each kernel's registers and spills under its (mangled) name, and
     # every ptxas warning (C7513 / C7512: wgmma serialized).
     name = ""
@@ -2622,6 +2940,8 @@ def main() -> int:
             check_decode_kernel(), check_datapath_kernel()]
         check_head_dims()
         print(f"phase kernels done at {time.perf_counter() - t0:.1f} s")
+    if "pools" in phases:
+        check_pools()
     if "reference" in phases:
         paged = check_small_reference()
         # Page 4, f32: every prefill on the CUDA cores; decode and verify
@@ -2660,7 +2980,14 @@ def main() -> int:
     if "decode_variants" in phases:
         decode_variants()
     totals: dict = {}
-    for phase, run in (("engine", check_engine),
+    # The engine and engine_codecs phases share each rail's model (and
+    # the fp spec_k 0 streams the log16 streams must equal).
+    engine = functools.partial(check_engine, fp_runs="engine" in phases,
+                               codecs="engine_codecs" in phases)
+    if "engine" in phases:
+        phases = [p for p in phases if p != "engine_codecs"]
+    for phase, run in (("engine", engine),
+                       ("engine_codecs", engine),
                        ("engine_sampled", check_engine_sampled),
                        ("dense_serve", check_dense_serve),
                        ("train", check_train)):

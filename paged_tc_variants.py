@@ -102,8 +102,10 @@ def _pwl_correction() -> str:
 COLUMN = ("    if (masked)\n      column_pass<D, true>(vl_s + c, w_s + g * kRpt, "
           "nk, sa, ra, tab);\n    else\n      column_pass<D, false>(vl_s + c, "
           "w_s + g * kRpt, nk, sa, ra, tab);\n")
-# Source of each variant: the datapath's start with dp_.
+# Source of each variant: the datapath's start with dp_; the paged ones
+# link the v2 kernel's codec instantiations beside it.
 DP_SRC, PAGED_SRC = "hfa_datapath.cu", "paged_attention_tc.cu"
+PAGED_CODEC_SRC = "paged_decode_v2_codec.cu"
 VARIANTS = {
     "base": [],
     "no_pv": [(PV, "")],
@@ -113,13 +115,14 @@ VARIANTS = {
     "ring2": [RING2],
     "units1": [("constexpr int kPfUnits = 2; ", "constexpr int kPfUnits = 1; "),
                RING2],
-    "tiles4": [("  constexpr int kWideStep = sizeof(T) == 2 ? 8 : 4;",
+    "tiles4": [("  constexpr int kWideStep = sizeof(T) <= 2 ? 8 : 4;",
                 "  constexpr int kWideStep = 4;")],
     "dc_ring3": [("constexpr int kDcRing = 2;", "constexpr int kDcRing = 3;")],
-    "dc_rpt1": [("return launch_dc<T, D, false, kWide, 4, 2>(p, lut, B, s);",
-                 "return launch_dc<T, D, false, 2 * kWide, 4, 1>(p, lut, B, s);")],
-    "dc_hfa_rpt2": [(": launch_dc<T, D, true, kWide, 4, 1>(p, lut, B, s);",
-                     ": launch_dc<T, D, true, kWide, 4, 2>(p, lut, B, s);")],
+    "dc_rpt1": [("return launch_dc<TQ, T, D, false, kWide, 4, 2>(p, lut, B, s);",
+                 "return launch_dc<TQ, T, D, false, 2 * kWide, 4, 1>(p, lut, B, "
+                 "s);")],
+    "dc_hfa_rpt2": [(": launch_dc<TQ, T, D, true, kWide, 4, 1>(p, lut, B, s);",
+                     ": launch_dc<TQ, T, D, true, kWide, 4, 2>(p, lut, B, s);")],
     "dc_abs": [("const int per = (n_tiles + p.splits - 1) / p.splits;",
                 "const int per = ((p.J * p.page + kDcTile - 1) / kDcTile + "
                 "p.splits - 1) / p.splits;")],
@@ -142,6 +145,8 @@ def build(names: list[str]) -> dict:
     for name in names:
         src = DP_SRC if name.startswith("dp_") else PAGED_SRC
         files = {"k.cu": (CSRC / src).read_text()}
+        if src == PAGED_SRC:
+            files["k_codec.cu"] = (CSRC / PAGED_CODEC_SRC).read_text()
         files.update({h.name: h.read_text() for h in CSRC.glob("*.cuh")})
         for old, new in VARIANTS[name]:
             new = _pwl_correction() if new is None else new
@@ -157,8 +162,8 @@ def build(names: list[str]) -> dict:
             (d / f).write_text(text)
         procs[name] = subprocess.Popen(
             [nvcc, *cuda_lib.NVCC_FLAGS, "-shared", "-o", str(d / "lib.so"),
-             str(d / "k.cu")], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-            text=True)
+             *(str(d / f) for f in files if f.endswith(".cu"))],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     libs = {}
     for name, proc in procs.items():
         _, err = proc.communicate()
@@ -279,13 +284,15 @@ def main() -> int:
                                             stream())
 
         def decode(hfa, splits, lib=lib):
-            return lib.paged_decode_fwd_v2(*ptrs(dc), 8, hkv, g, d, j, page,
-                                           splits, scale, hfa, 1, lut,
-                                           stream())
+            return lib.paged_decode_fwd_v2(*ptrs(dc[:3]), None, None,
+                                           *ptrs(dc[3:]), 8, hkv, g, d, j,
+                                           page, splits, scale, hfa, 1, 0,
+                                           lut, stream())
         def verify(hfa, splits, row_blocks, lib=lib):
-            return lib.paged_verify_fwd_v2(*ptrs(vf), 8, hkv, g, 5, d, j,
+            return lib.paged_verify_fwd_v2(*ptrs(vf[:3]), None, None,
+                                           *ptrs(vf[3:]), 8, hkv, g, 5, d, j,
                                            page, splits, row_blocks, scale,
-                                           hfa, 1, lut, stream())
+                                           hfa, 1, 0, lut, stream())
         print(f"{name:12s} prefill ms fa2 {timed(lambda: prefill(0)):.4f} "
               f"hfa {timed(lambda: prefill(1)):.4f} | decode ms fa2 split 5 "
               f"{timed(lambda: decode(0, 5)):.4f}, split 8 "

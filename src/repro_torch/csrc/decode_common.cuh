@@ -3,8 +3,10 @@
 //
 //  * The ring: cp.async copies of 16-byte chunks of key rows into
 //    shared memory (zero-filled where the source is past the walk's
-//    end), committed as groups and waited on, and the widening of a
-//    16-byte chunk of bf16 or f32 values to f32.
+//    end), and of 4-byte row scales, committed as groups and waited on,
+//    and the widening of a 16-byte chunk of bf16, f32 or int8 values to
+//    f32 - an int8 value times its row's scale, one rounded multiply
+//    (the int8 page codec's decode), the others as they are.
 //  * The split walk's merge.  A walk split across blocks into runs
 //    writes one triplet per run and row to a workspace; each block then
 //    counts itself in the (slot, head) counter with atomicInc, which
@@ -35,6 +37,13 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
                "r"(src_bytes)
                : "memory");
 }
+// 4 bytes (one row scale) from src to shared address dst; src_bytes 0
+// zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -61,6 +70,22 @@ __device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* o) {
   }
 }
 __device__ __forceinline__ void widen16(const float* p, float* o) { widen8(p, o); }
+// 16 bytes of a padded shared-memory row as f32, the row's scale applied
+// to int8 values (16 of them) and ignored for bf16 and f32.
+__device__ __forceinline__ void widen16(const __nv_bfloat16* p, float* o, float) { widen16(p, o); }
+__device__ __forceinline__ void widen16(const float* p, float* o, float) { widen8(p, o); }
+__device__ __forceinline__ void widen16(const int8_t* p, float* o, float s) {
+  const int4 u = *reinterpret_cast<const int4*>(p);
+  const int w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const char4 c = *reinterpret_cast<const char4*>(&w[i]);
+    o[4 * i] = __fmul_rn((float)c.x, s);
+    o[4 * i + 1] = __fmul_rn((float)c.y, s);
+    o[4 * i + 2] = __fmul_rn((float)c.z, s);
+    o[4 * i + 3] = __fmul_rn((float)c.w, s);
+  }
+}
 
 __device__ __forceinline__ float dc_f32(float x) { return x; }
 __device__ __forceinline__ float dc_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -68,10 +93,11 @@ __device__ __forceinline__ float dc_f32(__nv_bfloat16 x) { return __bfloat162flo
 // Scores of one key for RPT rows: for each row four interleaved fmaf
 // chains over D, then ((d0 + d1) + (d2 + d3)).  q0 is the first f32 row
 // (rows q_stride apart), kr a padded key row of T; both in shared memory,
-// 16-byte aligned.  The key's chunk is read once for all RPT rows.
+// 16-byte aligned; ksc the key row's scale (int8 rows only).  The key's
+// chunk is read once for all RPT rows.
 template <typename T, int D, int RPT>
 __device__ __forceinline__ void dc_dots(const float* q0, int q_stride, const T* kr,
-                                        float (&out)[RPT]) {
+                                        float (&out)[RPT], float ksc = 1.f) {
   constexpr int VPE = 16 / (int)sizeof(T);   // key values per 16-byte load
   float d[RPT][4];
 #pragma unroll
@@ -79,7 +105,7 @@ __device__ __forceinline__ void dc_dots(const float* q0, int q_stride, const T* 
 #pragma unroll
   for (int c = 0; c < D; c += VPE) {
     float kf[VPE];
-    widen16(kr + c, kf);
+    widen16(kr + c, kf, ksc);
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       float qf[VPE];
@@ -104,6 +130,13 @@ __device__ __forceinline__ float2 dc_pair(const __nv_bfloat16* p) {
 }
 __device__ __forceinline__ float2 dc_pair(const float* p) {
   return *reinterpret_cast<const float2*>(p);
+}
+// The same with the row's scale: applied to int8 values, ignored else.
+template <typename T>
+__device__ __forceinline__ float2 dc_pair(const T* p, float) { return dc_pair(p); }
+__device__ __forceinline__ float2 dc_pair(const int8_t* p, float s) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  return make_float2(__fmul_rn((float)c.x, s), __fmul_rn((float)c.y, s));
 }
 
 // After a block wrote its runs' triplets: true (in every thread) in the

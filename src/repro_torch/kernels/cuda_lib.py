@@ -1,10 +1,11 @@
 """Build, load and launch the hand-written CUDA kernels.
 
 Every source under ``csrc/`` (``paged_attention.cu``,
-``paged_attention_tc.cu``, ``dense_attention.cu``, ``dense_attention_tc.cu``,
+``paged_attention_tc.cu``, ``paged_decode_v2_codec.cu``,
+``dense_attention.cu``, ``dense_attention_tc.cu``,
 ``dense_attention_bwd_tc.cu``, ``dense_decode.cu``, ``hfa_datapath.cu``,
-and the headers ``hfa_rail.cuh``, ``lns_rail.cuh``, ``tc_common.cuh`` and
-``decode_common.cuh`` they share) is
+and the headers ``hfa_rail.cuh``, ``lns_rail.cuh``, ``tc_common.cuh``,
+``decode_common.cuh`` and ``paged_decode_v2.cuh`` they share) is
 compiled by ``nvcc`` - one process per ``.cu`` file, all started
 together - and linked into one shared library with a plain C interface,
 loaded with ``ctypes``.  No PyTorch headers, so a build takes seconds.
@@ -27,6 +28,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 import torch
@@ -48,6 +51,7 @@ _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
 # table, as a host array its entry points copy from.
 _CORR = (ctypes.c_uint8 * lns.EXP2_NEG_TABLE)(*lns.exp2_neg_table().tolist())
 build_log = ""    # nvcc's stderr (ptxas register / spill report)
+build_seconds: dict = {}   # seconds each source's nvcc took, last build
 # rail entry point of each source, for the bit-equality checks
 RAIL_ENTRIES = {"paged": "hfa_rail_eval", "dense": "dense_rail_eval",
                 "dense_tc": "dense_tc_rail_eval", "decode": "decode_rail_eval"}
@@ -76,10 +80,17 @@ PAGED_TC_MAX_PAGES = 16384
 # Query rows a block of the v2 paged decode and verify takes (64 threads
 # a row): decode's G, verify's G K / row_blocks.
 PAGED_V2_MAX_ROWS = 16
-# The largest page the H-FA rail takes: the CUDA-core paged body, which
-# takes every H-FA page size other than 16, rescales once a page (as the
-# reference does) and stages at most this many keys of a page.
-HFA_MAX_PAGE = 64
+# The largest page the H-FA rail takes, a shared-memory ceiling: the
+# CUDA-core paged body, which takes every H-FA page size other than 16,
+# rescales once a page (as the reference does); above page 16 it keeps a
+# page's scores in shared memory, 16 rows x (page + 16) f32, beside a
+# 64-key K/V stage - 207.6 KB of the 227 KB a block at page 2048, d 128.
+HFA_MAX_PAGE = 2048
+# What the kernels read the pools as, beside q (the C entry points' kv
+# argument): 0 q's dtype; 1 int8 with per-row f32 scales (the int8
+# codec, decoded tile by tile: value * scale, one rounded multiply); 2
+# bf16 under an f32 q (a log16 pool's bits at f32 compute).
+KV_SAME, KV_INT8, KV_BF16 = 0, 1, 2
 # Launches of the paged kernels by route.  prefill: "tc" the tensor-core
 # kernel (paged_prefill_fwd_tc), "simt" the CUDA-core one
 # (paged_prefill_fwd); decode: "v2" paged_decode_fwd_v2, "simt"
@@ -100,12 +111,12 @@ dense_dkv_launches = {"tc": 0, "simt": 0}
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 # Argument types of every C entry point; each returns its first CUDA error.
 SIGNATURES = {
-    "paged_decode_fwd": [_P] * 8 + [_I] * 6 + [_F, _I, _I, _P, _P],
-    "paged_prefill_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P, _P],
-    "paged_verify_fwd": [_P] * 9 + [_I] * 7 + [_F, _I, _I, _P, _P],
+    "paged_decode_fwd": [_P] * 10 + [_I] * 6 + [_F, _I, _I, _I, _P, _P],
+    "paged_prefill_fwd": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _P, _P],
+    "paged_verify_fwd": [_P] * 11 + [_I] * 7 + [_F, _I, _I, _I, _P, _P],
     "paged_prefill_fwd_tc": [_P] * 9 + [_I] * 8 + [_F, _I, _P, _P],
-    "paged_decode_fwd_v2": [_P] * 10 + [_I] * 7 + [_F, _I, _I, _P, _P],
-    "paged_verify_fwd_v2": [_P] * 11 + [_I] * 9 + [_F, _I, _I, _P, _P],
+    "paged_decode_fwd_v2": [_P] * 12 + [_I] * 7 + [_F, _I, _I, _I, _P, _P],
+    "paged_verify_fwd_v2": [_P] * 13 + [_I] * 9 + [_F, _I, _I, _I, _P, _P],
     "dense_attn_fwd": [_P] * 5 + [_I] * 7 + [_F, _I, _P, _P],
     "dense_attn_fwd_tc": [_P] * 6 + [_I] * 7 + [_F, _I, _P, _P],
     "dense_attn_dq": [_P] * 7 + [_I] * 7 + [_F, _I, _P],
@@ -146,7 +157,7 @@ def _sources() -> list[Path]:
 def build(force: bool = False) -> Path:
     """Compile every ``csrc/*.cu`` for sm_90a (in parallel) and link them
     into one library; returns its path."""
-    global build_log
+    global build_log, build_seconds
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in _sources():
         h.update(src.name.encode() + src.read_bytes())
@@ -158,16 +169,25 @@ def build(force: bool = False) -> Path:
     nvcc = _nvcc()
     units = [s for s in _sources() if s.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in units]
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.PIPE, text=True)
              for src, obj in zip(units, objs)]
-    logs, failed = [], []
-    for src, proc in zip(units, procs):
-        _, err = proc.communicate()
-        logs.append(err)
-        if proc.returncode != 0:
-            failed.append(f"nvcc failed on {src}:\n{err}")
+    errs, seconds = {}, {}
+
+    def drain(src, proc):                # each source's time as it ends
+        errs[src] = proc.communicate()[1]
+        seconds[src.name] = round(time.perf_counter() - t0, 1)
+    threads = [threading.Thread(target=drain, args=sp)
+               for sp in zip(units, procs)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    logs = [errs[src] for src in units]
+    failed = [f"nvcc failed on {src}:\n{errs[src]}"
+              for src, proc in zip(units, procs) if proc.returncode != 0]
     try:
         if failed:
             raise RuntimeError("\n".join(failed))
@@ -182,6 +202,7 @@ def build(force: bool = False) -> Path:
         for obj in objs:
             obj.unlink(missing_ok=True)
     build_log = "".join(logs)
+    build_seconds = seconds
     return out
 
 
@@ -220,16 +241,29 @@ def _check_head_dim(entry: str, d: int) -> None:
     _require(d in HEAD_DIMS, f"{entry}: head dim {d} not in {HEAD_DIMS}")
 
 
-def _check_paged(entry, q, k_pages, v_pages, page_table, lens):
+def _check_paged(entry, q, k_pages, v_pages, page_table, lens,
+                 k_scales=None, v_scales=None) -> int:
+    """Check a paged launch's tensors; returns the kv argument
+    (:data:`KV_SAME`, :data:`KV_INT8` or :data:`KV_BF16`)."""
     b, hkv = q.shape[:2]
     d = q.shape[-1]
-    tensors = [q, k_pages, v_pages, page_table, *lens]
+    scales = [t for t in (k_scales, v_scales) if t is not None]
+    tensors = [q, k_pages, v_pages, page_table, *lens, *scales]
     _require(all(t.is_cuda and t.device == q.device for t in tensors),
              f"{entry}: every tensor must be on the same CUDA device")
+    kv_dt = k_pages.dtype
     _require(q.dtype in (torch.bfloat16, torch.float32)
-             and k_pages.dtype == q.dtype and v_pages.dtype == q.dtype,
-             f"{entry}: q and pools must share a dtype in (bf16, f32), got "
-             f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+             and v_pages.dtype == kv_dt
+             and kv_dt in (q.dtype, torch.int8, torch.bfloat16),
+             f"{entry}: q in (bf16, f32) and pools in q's dtype, int8 or "
+             f"bf16, got {q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    kv = KV_SAME if kv_dt == q.dtype else \
+        KV_INT8 if kv_dt == torch.int8 else KV_BF16
+    _require((kv == KV_INT8) == (len(scales) == 2)
+             and all(t.dtype == torch.float32
+                     and t.shape == (*k_pages.shape[:3], 1) for t in scales),
+             f"{entry}: int8 pools take f32 scales (P, page, Hkv, 1) for K "
+             f"and V, other pools none")
     _check_head_dim(entry, d)
     _require(k_pages.dim() == 4 and k_pages.shape == v_pages.shape
              and k_pages.shape[2] == hkv and k_pages.shape[3] == d,
@@ -237,10 +271,11 @@ def _check_paged(entry, q, k_pages, v_pages, page_table, lens):
              f"{tuple(q.shape)}")
     _require(page_table.dim() == 2 and page_table.shape[0] == b,
              f"{entry}: page_table {tuple(page_table.shape)} for batch {b}")
-    _require(all(t.dtype == torch.int32 for t in tensors[3:]),
+    _require(all(t.dtype == torch.int32 for t in [page_table, *lens]),
              f"{entry}: page table and lengths must be int32")
     _require(all(t.is_contiguous() for t in tensors),
              f"{entry}: every tensor must be contiguous")
+    return kv
 
 
 def _triplet(q, lead):
@@ -252,42 +287,54 @@ def _triplet(q, lead):
 
 
 def check_hfa_page(page: int, use_hfa: bool) -> None:
-    """Refuse an H-FA page above :data:`HFA_MAX_PAGE` (the engine checks
-    it when it is built on the card; the routes check it again)."""
+    """Refuse an H-FA page above :data:`HFA_MAX_PAGE`, the shared-memory
+    ceiling (the engine checks it when it is built on the card; the
+    routes check it again)."""
     _require(not use_hfa or page <= HFA_MAX_PAGE,
              f"paged attention: page size {page} on the H-FA rail; the rail "
              f"rescales once a page, as the reference does, and the paged "
-             f"kernels stage at most {HFA_MAX_PAGE} keys of a page")
+             f"kernel keeps a page's scores in shared memory, which holds "
+             f"them up to page {HFA_MAX_PAGE}")
+
+
+def _opt_ptr(t: torch.Tensor | None):
+    return None if t is None else _ptr(t)
 
 
 def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
                  v_pages: torch.Tensor, page_table: torch.Tensor,
                  lens_a: torch.Tensor, lens_b: torch.Tensor | None, *,
-                 scale: float, use_hfa: bool):
+                 scale: float, use_hfa: bool,
+                 k_scales: torch.Tensor | None = None,
+                 v_scales: torch.Tensor | None = None):
     """Launch one entry point of the CUDA-core paged kernel
     (``paged_attention.cu``) on the current stream.
 
-    q: (B, Hkv, G, L, d) in the pools' dtype; returns the f32 triplet
-    o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).  Every launch is
-    counted in :data:`paged_launches` as "simt".
+    q: (B, Hkv, G, L, d) bf16 or f32; the pools in q's dtype, int8 with
+    their f32 scales (P, page, Hkv, 1), or bf16 under an f32 q.  Returns
+    the f32 triplet o~ (B, Hkv, G, L, d), m and l (B, Hkv, G, L).  Every
+    launch is counted in :data:`paged_launches` as "simt".
     """
     b, hkv, g, ell, d = q.shape
     lens = [lens_a] + ([] if lens_b is None else [lens_b])
-    _check_paged(entry, q, k_pages, v_pages, page_table, lens)
+    kv = _check_paged(entry, q, k_pages, v_pages, page_table, lens,
+                      k_scales, v_scales)
     check_hfa_page(k_pages.shape[1], use_hfa)
     o, m, l = _triplet(q, q.shape[:-1])
     if o.numel() == 0:
         return o, m, l
     lib = library()
     j, page = page_table.shape[1], k_pages.shape[1]
-    ptrs = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
-            _ptr(lens_a)] + ([] if lens_b is None else [_ptr(lens_b)]) + [
+    ptrs = [_ptr(q), _ptr(k_pages), _ptr(v_pages), _opt_ptr(k_scales),
+            _opt_ptr(v_scales), _ptr(page_table), _ptr(lens_a)] + (
+        [] if lens_b is None else [_ptr(lens_b)]) + [
         _ptr(o), _ptr(m), _ptr(l)]
     dims = [b, hkv, g] + ([] if entry == "paged_decode_fwd" else [ell]) \
         + [d, j, page]
     err = getattr(lib, entry)(*ptrs, *dims, ctypes.c_float(scale),
                               int(use_hfa), int(q.dtype == torch.bfloat16),
-                              ctypes.cast(_LUT, ctypes.c_void_p), _stream())
+                              kv, ctypes.cast(_LUT, ctypes.c_void_p),
+                              _stream())
     check(err, entry)
     kind = {"paged_decode_fwd": "decode", "paged_prefill_fwd": "prefill",
             "paged_verify_fwd": "verify"}
@@ -299,13 +346,16 @@ def paged_prefill_route(q: torch.Tensor, k_pages: torch.Tensor,
                         page_table: torch.Tensor, *,
                         use_hfa: bool = False) -> str:
     """Which kernel takes a paged prefill: "tc" (``paged_prefill_fwd_tc``,
-    the tensor cores) for bf16 pools at d 64 or 128, page 16 and at most
+    the tensor cores) for a bf16 q over bf16 pools (fp, or a log16 pool's
+    bf16 view) at d 64 or 128, page 16 and at most
     :data:`PAGED_TC_MAX_PAGES` pages a slot; "simt" (``paged_prefill_fwd``,
     the CUDA cores, which on the H-FA rail rescales once a page) for
-    everything else - f32 pools, d 32 or 96, other page sizes.  An H-FA
-    page above :data:`HFA_MAX_PAGE` raises a ValueError."""
+    everything else - f32 q, int8 pools (decoded tile by tile there), d
+    32 or 96, other page sizes.  An H-FA page above :data:`HFA_MAX_PAGE`
+    raises a ValueError."""
     check_hfa_page(k_pages.shape[1], use_hfa)
-    if (q.dtype == torch.bfloat16 and q.shape[-1] in TC_HEAD_DIMS
+    if (q.dtype == torch.bfloat16 and k_pages.dtype == torch.bfloat16
+            and q.shape[-1] in TC_HEAD_DIMS
             and k_pages.shape[1] == PAGED_TC_PAGE
             and page_table.shape[1] <= PAGED_TC_MAX_PAGES):
         return "tc"
@@ -313,16 +363,19 @@ def paged_prefill_route(q: torch.Tensor, k_pages: torch.Tensor,
 
 
 def launch_paged_prefill(q, k_pages, v_pages, page_table, start_pos,
-                         kv_lens, *, scale: float, use_hfa: bool):
+                         kv_lens, *, scale: float, use_hfa: bool,
+                         k_scales=None, v_scales=None):
     """Paged chunked prefill on the current stream, on the kernel
     :func:`paged_prefill_route` picks; counted in :data:`paged_launches`.
-    q (B, Hkv, G, L, d); returns the f32 triplet o~ (B, Hkv, G, L, d), m
-    and l (B, Hkv, G, L)."""
+    q (B, Hkv, G, L, d); pools and scales as :func:`launch_paged` takes
+    them; returns the f32 triplet o~ (B, Hkv, G, L, d), m and l (B, Hkv,
+    G, L)."""
     if paged_prefill_route(q, k_pages, page_table,
                            use_hfa=use_hfa) == "simt":
         return launch_paged("paged_prefill_fwd", q, k_pages, v_pages,
                             page_table, start_pos, kv_lens, scale=scale,
-                            use_hfa=use_hfa)
+                            use_hfa=use_hfa, k_scales=k_scales,
+                            v_scales=v_scales)
     entry = "paged_prefill_fwd_tc"
     _check_paged(entry, q, k_pages, v_pages, page_table,
                  [start_pos, kv_lens])
@@ -460,10 +513,12 @@ def _split_buffers(device: torch.device, n_counters: int, ws_numel: int):
 
 def _launch_v2(entry: str, q, k_pages, v_pages, page_table, lens, *,
                rows: int, row_blocks: int, splits: int, scale: float,
-               use_hfa: bool):
+               use_hfa: bool, k_scales=None, v_scales=None):
     """One launch of the v2 paged decode or verify (``paged_attention_tc.cu``);
-    ``rows`` = G K rows a (slot, kv head)."""
-    _check_paged(entry, q, k_pages, v_pages, page_table, lens)
+    ``rows`` = G K rows a (slot, kv head); pools and scales as
+    :func:`launch_paged` takes them."""
+    kv = _check_paged(entry, q, k_pages, v_pages, page_table, lens,
+                      k_scales, v_scales)
     _require(all(t.data_ptr() % 16 == 0 for t in (k_pages, v_pages)),
              f"{entry}: the pools must be 16-byte aligned (cp.async)")
     b, hkv, d = q.shape[0], q.shape[1], q.shape[-1]
@@ -484,19 +539,19 @@ def _launch_v2(entry: str, q, k_pages, v_pages, page_table, lens, *,
         + [d, page_table.shape[1], k_pages.shape[1], splits] \
         + ([row_blocks] if q.dim() == 5 else [])
     err = getattr(library(), entry)(
-        _ptr(q), _ptr(k_pages), _ptr(v_pages), _ptr(page_table),
-        *map(_ptr, lens), _ptr(o), _ptr(m), _ptr(l),
-        None if ws is None else _ptr(ws), None if cnt is None else _ptr(cnt),
-        *dims, ctypes.c_float(scale), int(use_hfa),
-        int(q.dtype == torch.bfloat16), ctypes.cast(_LUT, ctypes.c_void_p),
-        _stream())
+        _ptr(q), _ptr(k_pages), _ptr(v_pages), _opt_ptr(k_scales),
+        _opt_ptr(v_scales), _ptr(page_table), *map(_ptr, lens), _ptr(o),
+        _ptr(m), _ptr(l), _opt_ptr(ws), _opt_ptr(cnt), *dims,
+        ctypes.c_float(scale), int(use_hfa), int(q.dtype == torch.bfloat16),
+        kv, ctypes.cast(_LUT, ctypes.c_void_p), _stream())
     check(err, entry)
     return o, m, l
 
 
 def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
                         scale: float, use_hfa: bool,
-                        splits: int | None = None):
+                        splits: int | None = None, k_scales=None,
+                        v_scales=None):
     """Paged decode on the current stream, on the kernel
     :func:`paged_decode_route` picks; counted in :data:`paged_launches`.
     q (B, Hkv, G, d); returns the f32 triplet o~ (B, Hkv, G, d), m and l
@@ -509,7 +564,8 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
                  f"{splits} splits (the CUDA-core walk is unsplit)")
         o, m, l = launch_paged("paged_decode_fwd", q[:, :, :, None, :],
                                k_pages, v_pages, page_table, kv_lens, None,
-                               scale=scale, use_hfa=use_hfa)
+                               scale=scale, use_hfa=use_hfa,
+                               k_scales=k_scales, v_scales=v_scales)
         return o[:, :, :, 0], m[..., 0], l[..., 0]
     _require(q.dim() == 4 and 1 <= q.shape[2] <= PAGED_V2_MAX_ROWS,
              f"paged_decode_fwd_v2: q {tuple(q.shape)}: (B, Hkv, G, d) with "
@@ -518,7 +574,8 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
         splits = decode_splits(q, page_table, k_pages.shape[1], use_hfa)
     out = _launch_v2("paged_decode_fwd_v2", q, k_pages, v_pages, page_table,
                      [kv_lens], rows=q.shape[2], row_blocks=1, splits=splits,
-                     scale=scale, use_hfa=use_hfa)
+                     scale=scale, use_hfa=use_hfa, k_scales=k_scales,
+                     v_scales=v_scales)
     paged_launches["decode"]["v2"] += 1
     return out
 
@@ -526,7 +583,8 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
 def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
                         chunk_lens, *, scale: float, use_hfa: bool,
                         splits: int | None = None,
-                        row_blocks: int | None = None):
+                        row_blocks: int | None = None, k_scales=None,
+                        v_scales=None):
     """Paged verify on the current stream, on the kernel
     :func:`paged_verify_route` picks; counted in :data:`paged_launches`.
     q (B, Hkv, G, K, d); returns the f32 triplet o~ (B, Hkv, G, K, d), m
@@ -538,7 +596,8 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
     if paged_verify_route(g, kw, k_pages.shape[1], use_hfa) == "simt":
         return launch_paged("paged_verify_fwd", q, k_pages, v_pages,
                             page_table, seq_lens, chunk_lens, scale=scale,
-                            use_hfa=use_hfa)
+                            use_hfa=use_hfa, k_scales=k_scales,
+                            v_scales=v_scales)
     if row_blocks is None:
         row_blocks = verify_row_blocks(g, kw, use_hfa)
     if splits is None:
@@ -548,7 +607,7 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
     out = _launch_v2("paged_verify_fwd_v2", q, k_pages, v_pages, page_table,
                      [seq_lens, chunk_lens], rows=g * kw,
                      row_blocks=row_blocks, splits=splits, scale=scale,
-                     use_hfa=use_hfa)
+                     use_hfa=use_hfa, k_scales=k_scales, v_scales=v_scales)
     paged_launches["verify"]["v2"] += 1
     return out
 

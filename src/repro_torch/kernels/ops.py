@@ -196,29 +196,37 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 def paged_decode_partials(qg, k_pages, v_pages, page_table, kv_lens, *,
-                          impl: str = "fa2", scale: float | None = None):
-    """Paged decode partial triplet: (o~ (B,Hkv,G,d), m/l (B,Hkv,G))."""
+                          impl: str = "fa2", scale: float | None = None,
+                          codec=None, k_scales=None, v_scales=None):
+    """Paged decode partial triplet: (o~ (B,Hkv,G,d), m/l (B,Hkv,G)).
+    ``codec`` (None: the raw fp pool) and the scale sidecars select the
+    page codec the kernels decode each tile with."""
     return paged_k.paged_decode_partial(
         qg.contiguous(), k_pages, v_pages, page_table, kv_lens,
-        scale=scale, use_hfa=_use_hfa(impl))
+        scale=scale, use_hfa=_use_hfa(impl), codec=codec,
+        k_scales=k_scales, v_scales=v_scales)
 
 
 def paged_prefill_partials(qg, k_pages, v_pages, page_table, start_pos,
                            kv_lens, *, impl: str = "fa2",
-                           scale: float | None = None):
+                           scale: float | None = None, codec=None,
+                           k_scales=None, v_scales=None):
     """Paged chunked-prefill partial triplet: shapes (B,Hkv,G,L,[d])."""
     return paged_pf_k.paged_prefill_partial(
         qg.contiguous(), k_pages, v_pages, page_table, start_pos, kv_lens,
-        scale=scale, use_hfa=_use_hfa(impl))
+        scale=scale, use_hfa=_use_hfa(impl), codec=codec,
+        k_scales=k_scales, v_scales=v_scales)
 
 
 def paged_verify_partials(qg, k_pages, v_pages, page_table, seq_lens,
                           chunk_lens, *, impl: str = "fa2",
-                          scale: float | None = None):
+                          scale: float | None = None, codec=None,
+                          k_scales=None, v_scales=None):
     """Paged speculative-verify partial triplet: shapes (B,Hkv,G,K,[d])."""
     return paged_v_k.paged_verify_partial(
         qg.contiguous(), k_pages, v_pages, page_table, seq_lens, chunk_lens,
-        scale=scale, use_hfa=_use_hfa(impl))
+        scale=scale, use_hfa=_use_hfa(impl), codec=codec,
+        k_scales=k_scales, v_scales=v_scales)
 
 
 def _group(q: torch.Tensor, hkv: int) -> torch.Tensor:
@@ -235,7 +243,8 @@ def _ungroup(out: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def paged_prefill_attention(q, k_pages, v_pages, page_table, start_pos,
                             chunk_lens, *, impl: str = "fa2",
-                            scale: float | None = None) -> torch.Tensor:
+                            scale: float | None = None, codec=None,
+                            k_scales=None, v_scales=None) -> torch.Tensor:
     """Chunked-prefill attention against a paged KV cache.
 
     q (B, L, H, d); the chunk's K/V must already be in the pools
@@ -245,14 +254,16 @@ def paged_prefill_attention(q, k_pages, v_pages, page_table, start_pos,
     kv_lens = (start_pos + chunk_lens).to(torch.int32)
     o, _, ell = paged_prefill_partials(
         _group(q, k_pages.shape[2]), k_pages, v_pages, page_table,
-        start_pos, kv_lens, impl=impl, scale=scale)
+        start_pos, kv_lens, impl=impl, scale=scale, codec=codec,
+        k_scales=k_scales, v_scales=v_scales)
     out = decode_k.finalize_decode(o, ell, use_hfa=_use_hfa(impl))
     return _ungroup(out, q.dtype)
 
 
 def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
-                           impl: str = "fa2",
-                           scale: float | None = None) -> torch.Tensor:
+                           impl: str = "fa2", scale: float | None = None,
+                           codec=None, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
     """Continuous-batching decode attention against a paged KV cache:
     q (B, 1, H, d), kv_lens (B,) with 0 marking a free slot."""
     b, one, h, d = q.shape
@@ -260,19 +271,23 @@ def paged_decode_attention(q, k_pages, v_pages, page_table, kv_lens, *,
     hkv = k_pages.shape[2]
     qg = q.reshape(b, hkv, h // hkv, d)
     o, _, ell = paged_decode_partials(qg, k_pages, v_pages, page_table,
-                                      kv_lens, impl=impl, scale=scale)
+                                      kv_lens, impl=impl, scale=scale,
+                                      codec=codec, k_scales=k_scales,
+                                      v_scales=v_scales)
     out = decode_k.finalize_decode(o, ell, use_hfa=_use_hfa(impl))
     return out.reshape(b, 1, h, d).to(q.dtype)
 
 
 def paged_verify_attention(q, k_pages, v_pages, page_table, seq_lens,
                            chunk_lens, *, impl: str = "fa2",
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None, codec=None,
+                           k_scales=None, v_scales=None) -> torch.Tensor:
     """Multi-query speculative-verify attention: q (B, K, H, d), token i
     of slot b at ``seq_lens[b] + i`` (its K/V already written).  Rows at
     ``i >= chunk_lens[b]`` are garbage the caller ignores."""
     o, _, ell = paged_verify_partials(
         _group(q, k_pages.shape[2]), k_pages, v_pages, page_table,
-        seq_lens, chunk_lens, impl=impl, scale=scale)
+        seq_lens, chunk_lens, impl=impl, scale=scale, codec=codec,
+        k_scales=k_scales, v_scales=v_scales)
     out = decode_k.finalize_decode(o, ell, use_hfa=_use_hfa(impl))
     return _ungroup(out, q.dtype)

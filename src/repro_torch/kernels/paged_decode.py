@@ -11,10 +11,14 @@ kernel ``cuda_lib.paged_decode_route`` picks and counts the launch in
 :data:`launches` (and in ``cuda_lib.paged_launches``): on the FA-2 rail
 and on the H-FA rail at page 16, ``paged_decode_fwd_v2`` of
 ``csrc/paged_attention_tc.cu``; on the H-FA rail at any other page size
-(up to 64), the CUDA-core ``paged_decode_fwd`` of
-``csrc/paged_attention.cu``, which rescales once a page as the
-reference does.  On a CPU tensor it runs
-:func:`paged_decode_partial_plain`.  What bounds the
+(up to ``cuda_lib.HFA_MAX_PAGE``, 2048), the CUDA-core
+``paged_decode_fwd`` of ``csrc/paged_attention.cu``, which rescales once
+a page as the reference does.  On a CPU tensor it runs
+:func:`paged_decode_partial_plain`.  The pools may hold a page codec's
+encoding (``kernels/page_codec.py``): both kernels decode int8 tiles
+right after their load (value times its row's f32 scale), and a log16
+pool is read through its bf16 view (:func:`kernel_pools`); the plain
+version decodes the gathered pages with ``codec.decode``.  What bounds the
 kernel on the card is the bytes of the live K/V pages it reads (one
 query token per slot does 2 flops per K/V byte, far below the card's
 ridge): it streams them through a cp.async ring, stops at
@@ -35,7 +39,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import bitmath, cuda_lib
+from repro_torch.kernels import bitmath, cuda_lib, page_codec
 from repro_torch.kernels.decode import NEG_INF
 
 launches = 0
@@ -45,12 +49,41 @@ def _default_scale(d: int, scale: float | None) -> float:
     return (1.0 / d ** 0.5) if scale is None else scale
 
 
+def _gathered(pages, scales, page_table, codec):
+    """Dense f32 view of each sequence's pages, decoded with ``codec``
+    (None: the raw fp pool) - the reference's ``ops._gathered_kv``."""
+    cache = gather_pages(pages, page_table)
+    if codec is None:
+        return cache.to(torch.float32)
+    return page_codec.get_codec(codec).decode(cache, None if scales is None
+                        else gather_pages(scales, page_table))
+
+
+def kernel_pools(codec, k_pages, v_pages, k_scales, v_scales):
+    """The pools and scales as the kernels read them: ``codec`` None (the
+    raw fp pool) or int8 as they are - the int8 kernels decode each tile
+    right after its load, value times its row's scale, as
+    ``Int8Codec.decode``; log16 as ``pages.view(torch.bfloat16)``, which
+    is ``Log16Codec.decode`` (a bitcast to bf16, then the widening every
+    bf16 pool gets), not a shortcut of it."""
+    codec = page_codec.get_codec(codec)
+    if codec.name == "fp":
+        return k_pages, v_pages, None, None
+    if codec.name == "log16":
+        return (k_pages.view(torch.bfloat16), v_pages.view(torch.bfloat16),
+                None, None)
+    if codec.name == "int8":
+        return k_pages, v_pages, k_scales, v_scales
+    raise ValueError(f"no paged kernel decodes page codec {codec.name!r}")
+
+
 def paged_partial_plain(qg: torch.Tensor, k_pages: torch.Tensor,
                         v_pages: torch.Tensor, page_table: torch.Tensor,
                         q_pos: torch.Tensor, kv_lens: torch.Tensor, *,
-                        scale: float | None, use_hfa: bool):
-    """Plain triplet for every paged kernel: dense gather + one-shot
-    masked softmax pieces, all in f32 (p included).
+                        scale: float | None, use_hfa: bool, codec=None,
+                        k_scales=None, v_scales=None):
+    """Plain triplet for every paged kernel: dense gather (decoded with
+    ``codec``) + one-shot masked softmax pieces, all in f32 (p included).
 
     qg (B, Hkv, G, L, d); q_pos (B, L) absolute position per row;
     kv_lens (B,).  Row (b, l) sees KV positions ``<= q_pos[b, l]`` and
@@ -58,8 +91,8 @@ def paged_partial_plain(qg: torch.Tensor, k_pages: torch.Tensor,
     triplet (0, NEG_INF, 0).
     """
     d = qg.shape[-1]
-    k_cache = gather_pages(k_pages, page_table).to(torch.float32)
-    v_cache = gather_pages(v_pages, page_table).to(torch.float32)
+    k_cache = _gathered(k_pages, k_scales, page_table, codec)
+    v_cache = _gathered(v_pages, v_scales, page_table, codec)
     s_len = k_cache.shape[1]
     s = torch.einsum("bhgld,bshd->bhgls", qg.to(torch.float32),
                      k_cache) * _default_scale(d, scale)
@@ -82,52 +115,64 @@ def paged_partial_plain(qg: torch.Tensor, k_pages: torch.Tensor,
 
 
 def paged_decode_partial_plain(q, k_pages, v_pages, page_table, kv_lens, *,
-                               scale=None, use_hfa=False):
+                               scale=None, use_hfa=False, codec=None,
+                               k_scales=None, v_scales=None):
     """Plain version of the paged decode kernel: (o~ (B,Hkv,G,d),
     m/l (B,Hkv,G)).  ``kv_lens[b] == 0`` marks a free slot."""
     kvl = kv_lens.to(torch.int32)
     o, m, l = paged_partial_plain(q[:, :, :, None, :], k_pages, v_pages,
                                   page_table, (kvl - 1)[:, None], kvl,
-                                  scale=scale, use_hfa=use_hfa)
+                                  scale=scale, use_hfa=use_hfa, codec=codec,
+                                  k_scales=k_scales, v_scales=v_scales)
     return o[:, :, :, 0], m[..., 0], l[..., 0]
 
 
 def paged_decode_partial(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          kv_lens: torch.Tensor, *, scale: float | None = None,
-                         use_hfa: bool = False):
+                         use_hfa: bool = False, codec=None, k_scales=None,
+                         v_scales=None):
     """Partial paged decode attention, one triplet per (slot, kv head).
 
-    q (B, Hkv, G, d) grouped queries; pools (P, page, Hkv, d);
-    page_table (B, J) int32; kv_lens (B,) int32 (0 = free slot, which
-    yields (0, NEG_INF, 0)).  Returns o~ (B, Hkv, G, d) f32 and m, l
-    (B, Hkv, G) f32.  A CUDA tensor launches the kernel; a CPU tensor
-    runs the plain version.
+    q (B, Hkv, G, d) grouped queries; pools (P, page, Hkv, d), encoded
+    by ``codec`` (None: the raw fp pool; int8 with its f32 scale
+    sidecars (P, page, Hkv, 1)); page_table (B, J) int32; kv_lens (B,)
+    int32 (0 = free slot, which yields (0, NEG_INF, 0)).  Returns o~ (B,
+    Hkv, G, d) f32 and m, l (B, Hkv, G) f32.  A CUDA tensor launches the
+    kernel on :func:`kernel_pools`; a CPU tensor runs the plain version.
     """
     if q.device.type == "cpu":
         return paged_decode_partial_plain(q, k_pages, v_pages, page_table,
                                           kv_lens, scale=scale,
-                                          use_hfa=use_hfa)
+                                          use_hfa=use_hfa, codec=codec,
+                                          k_scales=k_scales,
+                                          v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_decode_partial: no kernel for {q.device}")
     global launches
+    kp, vp, ks, vs = kernel_pools(codec, k_pages, v_pages, k_scales,
+                                  v_scales)
     out = cuda_lib.launch_paged_decode(
-        q, k_pages, v_pages, page_table, kv_lens,
-        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
+        q, kp, vp, page_table, kv_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa,
+        k_scales=ks, v_scales=vs)
     launches += 1
     return out
 
 
 def paged_decode_partial_simt(q, k_pages, v_pages, page_table, kv_lens, *,
-                              scale=None, use_hfa=False):
+                              scale=None, use_hfa=False, codec=None,
+                              k_scales=None, v_scales=None):
     """For the checks: the same triplet from the CUDA-core kernel
     ``paged_decode_fwd`` (16-row blocks, one per (slot, kv head), plain
     loads); counted in ``cuda_lib.paged_launches["decode"]["simt"]``, not
     in :data:`launches`."""
+    kp, vp, ks, vs = kernel_pools(codec, k_pages, v_pages, k_scales,
+                                  v_scales)
     o, m, l = cuda_lib.launch_paged(
-        "paged_decode_fwd", q[:, :, :, None, :], k_pages, v_pages,
-        page_table, kv_lens, None, scale=_default_scale(q.shape[-1], scale),
-        use_hfa=use_hfa)
+        "paged_decode_fwd", q[:, :, :, None, :], kp, vp, page_table,
+        kv_lens, None, scale=_default_scale(q.shape[-1], scale),
+        use_hfa=use_hfa, k_scales=ks, v_scales=vs)
     return o[:, :, :, 0], m[..., 0], l[..., 0]
 
 

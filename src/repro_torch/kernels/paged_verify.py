@@ -23,7 +23,9 @@ on the H-FA rail at a page size other than 16 (where the reference's
 once-a-page rescale is not the v2 kernel's 16-key tile),
 ``paged_verify_fwd`` of ``csrc/paged_attention.cu`` (the CUDA cores),
 which :func:`paged_verify_partial_simt` also launches for the checks.
-Unsplit, the two are bit-equal.  On a CPU tensor it runs the plain
+Unsplit, the two are bit-equal, on int8 pools too (each decodes a tile
+as it loads it; a log16 pool is read through its bf16 view, as
+``paged_decode.kernel_pools`` says).  On a CPU tensor it runs the plain
 version, which is also the counterpart of the reference's
 ``paged_verify_partial_ref``.  On the card it is bound by the bytes of
 the live K/V pages; ``kernels/ref.py::paged_verify_split_model`` models
@@ -35,13 +37,15 @@ import torch
 
 from repro_torch.kernels import cuda_lib
 from repro_torch.kernels.paged_decode import (_default_scale,
+                                              kernel_pools,
                                               paged_partial_plain)
 
 launches = 0
 
 
 def paged_verify_partial_plain(q, k_pages, v_pages, page_table, seq_lens,
-                               chunk_lens, *, scale=None, use_hfa=False):
+                               chunk_lens, *, scale=None, use_hfa=False,
+                               codec=None, k_scales=None, v_scales=None):
     """Plain version of the paged verify kernel."""
     kw = q.shape[3]
     sl = seq_lens.to(torch.int32)
@@ -49,37 +53,48 @@ def paged_verify_partial_plain(q, k_pages, v_pages, page_table, seq_lens,
                                        device=q.device)[None]
     return paged_partial_plain(q, k_pages, v_pages, page_table, q_pos,
                                sl + chunk_lens.to(torch.int32),
-                               scale=scale, use_hfa=use_hfa)
+                               scale=scale, use_hfa=use_hfa, codec=codec,
+                               k_scales=k_scales, v_scales=v_scales)
 
 
 def paged_verify_partial(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          seq_lens: torch.Tensor, chunk_lens: torch.Tensor, *,
-                         scale: float | None = None, use_hfa: bool = False):
-    """Partial paged verify attention: q (B, Hkv, G, K, d); returns o~
-    (B, Hkv, G, K, d) and m, l (B, Hkv, G, K), all f32.  Rows at
-    ``i >= chunk_lens[b]`` are garbage the caller ignores."""
+                         scale: float | None = None, use_hfa: bool = False,
+                         codec=None, k_scales=None, v_scales=None):
+    """Partial paged verify attention: q (B, Hkv, G, K, d); pools encoded
+    by ``codec`` as ``paged_decode.paged_decode_partial`` takes them;
+    returns o~ (B, Hkv, G, K, d) and m, l (B, Hkv, G, K), all f32.  Rows
+    at ``i >= chunk_lens[b]`` are garbage the caller ignores."""
     if q.device.type == "cpu":
         return paged_verify_partial_plain(q, k_pages, v_pages, page_table,
                                           seq_lens, chunk_lens, scale=scale,
-                                          use_hfa=use_hfa)
+                                          use_hfa=use_hfa, codec=codec,
+                                          k_scales=k_scales,
+                                          v_scales=v_scales)
     if q.device.type != "cuda":
         raise ValueError(f"paged_verify_partial: no kernel for {q.device}")
     global launches
+    kp, vp, ks, vs = kernel_pools(codec, k_pages, v_pages, k_scales,
+                                  v_scales)
     out = cuda_lib.launch_paged_verify(
-        q, k_pages, v_pages, page_table, seq_lens, chunk_lens,
-        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa)
+        q, kp, vp, page_table, seq_lens, chunk_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa,
+        k_scales=ks, v_scales=vs)
     launches += 1
     return out
 
 
 def paged_verify_partial_simt(q, k_pages, v_pages, page_table, seq_lens,
-                              chunk_lens, *, scale=None, use_hfa=False):
+                              chunk_lens, *, scale=None, use_hfa=False,
+                              codec=None, k_scales=None, v_scales=None):
     """For the checks: the same triplet from the CUDA-core kernel
     ``paged_verify_fwd`` (16-row blocks, plain loads), whatever the route
     rule picks; counted in ``cuda_lib.paged_launches["verify"]["simt"]``,
     not in :data:`launches`."""
+    kp, vp, ks, vs = kernel_pools(codec, k_pages, v_pages, k_scales,
+                                  v_scales)
     return cuda_lib.launch_paged(
-        "paged_verify_fwd", q, k_pages, v_pages, page_table, seq_lens,
-        chunk_lens, scale=_default_scale(q.shape[-1], scale),
-        use_hfa=use_hfa)
+        "paged_verify_fwd", q, kp, vp, page_table, seq_lens, chunk_lens,
+        scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa,
+        k_scales=ks, v_scales=vs)

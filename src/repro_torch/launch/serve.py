@@ -78,6 +78,13 @@ def main(argv=None):
                          "headroom)")
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable shared-prefix page reuse")
+    ap.add_argument("--kv-codec", choices=("fp", "int8", "log16"),
+                    default="fp",
+                    help="paged KV page codec: 'fp' stores raw "
+                         "compute-dtype rows, 'int8' per-row absmax "
+                         "quantization with an f32 scale sidecar, "
+                         "'log16' 16-bit log-domain rows (the bf16 bit "
+                         "pattern); the paged kernels decode each tile")
     ap.add_argument("--spec-k", type=int, default=0,
                     help="max prompt-lookup draft tokens verified per "
                          "decode step (0 = no speculation)")
@@ -149,7 +156,8 @@ def main(argv=None):
                            page_size=args.page_size, max_seq=args.max_seq,
                            prefill_budget=args.prefill_budget,
                            prefix_caching=not args.no_prefix_cache,
-                           spec_k=args.spec_k, device=args.device)
+                           spec_k=args.spec_k, kv_codec=args.kv_codec,
+                           device=args.device)
     arrivals = [(i, Request(rid=i, prompt=prompts[i].tolist(),
                             max_new_tokens=args.steps,
                             sampling=SamplingParams(

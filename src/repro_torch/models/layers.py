@@ -169,7 +169,8 @@ def attention_apply(p: Attention, x: torch.Tensor, cfg, *,
         out = _ring_attention(q, k, v, cache, cache_pos or 0, cfg)
     else:
         out, cache = _paged_attention(q, k, v, cache, page_state,
-                                      impl=cfg.attn_impl)
+                                      impl=cfg.attn_impl,
+                                      block=cfg.attn_block)
     out = torch.einsum("bshk,hkd->bsd", out, p.wo.to(wdt))
     return out, cache
 
@@ -209,7 +210,7 @@ def _decode_impl(impl: str) -> str:
             "hfa_datapath": "hfa_pallas"}.get(impl, "fa2")
 
 
-def _paged_attention(q, k, v, cache, page_state, *, impl):
+def _paged_attention(q, k, v, cache, page_state, *, impl, block):
     """Attention against a paged block-pool KV cache (serving path).
 
     Verify: scatter the K step tokens at positions seq_lens[b].. (rows
@@ -218,41 +219,60 @@ def _paged_attention(q, k, v, cache, page_state, *, impl):
     slot's pages.  Chunked prefill: scatter the chunk at start_pos[b]..
     (padding rows dropped), then attend causally against everything
     written for the sequence.  Whole-prompt prefill (no start_pos): the
-    chunked prefill from position 0 with every row of the (B, L) input
-    real, so all L rows are written (the reference writes them all too)
-    and attention takes the same paged prefill kernel.  The reference
-    attends over the raw chunk instead: the same attention on the FA-2
-    rail, its dense walk on the H-FA rail (ROADMAP.md Queue 3 C5).  The
-    reference's tensor-parallel branch waits for ROADMAP.md Queue 1
-    item 11.
+    chunk from position 0 with every row of the (B, L) input real, so
+    all L rows are written (the reference writes them all too); with the
+    fp codec attention takes the same paged prefill kernel, where the
+    reference attends over the raw chunk - the same attention on the
+    FA-2 rail, its dense walk on the H-FA rail (ROADMAP.md Queue 3 C5).
+    With another codec it attends over the raw chunk, as the reference
+    does: the pages would give the quantized K/V.
+
+    Every write encodes with the page codec (``page_state["codec"]``);
+    the reads of a codec other than fp pass it and the scale sidecars to
+    the kernels, and fp reads on ``codec=None``, byte for byte the
+    pre-codec path (the reference's rule).  The reference's
+    tensor-parallel branch waits for ROADMAP.md Queue 1 item 11.
     """
     pt = page_state["page_table"]
     codec = page_codec.get_codec(page_state.get("codec"))
+    rcodec = None if codec.name == "fp" else codec
+
+    def read(pools):
+        return dict(codec=rcodec, k_scales=pools.get("k_scale"),
+                    v_scales=pools.get("v_scale"))
+
     if page_state.get("verify", False):
         sl = page_state["seq_lens"]
         cl = page_state["chunk_lens"]
         pools = page_codec.encode_write(paged_pf_k.write_chunk_kv, codec,
                                         cache, k, v, pt, sl, cl)
         out = kops.paged_verify_attention(
-            q, pools["k_pages"], pools["v_pages"], pt, sl, cl, impl=impl)
+            q, pools["k_pages"], pools["v_pages"], pt, sl, cl, impl=impl,
+            **read(pools))
     elif not page_state.get("prefill", False):
         sl = page_state["seq_lens"]
         pools = page_codec.encode_write(paged_k.append_kv, codec, cache, k,
                                         v, pt, sl)
         kv_lens = torch.where(sl > 0, sl + 1, torch.zeros_like(sl))
         out = kops.paged_decode_attention(
-            q, pools["k_pages"], pools["v_pages"], pt, kv_lens, impl=impl)
+            q, pools["k_pages"], pools["v_pages"], pt, kv_lens, impl=impl,
+            **read(pools))
     else:
-        if "start_pos" in page_state:
-            sp = page_state["start_pos"]
-            cl = page_state["chunk_lens"]
-        else:
+        whole = "start_pos" not in page_state
+        if whole:
             b, ell = q.shape[0], q.shape[1]
             sp = torch.zeros((b,), dtype=torch.int32, device=q.device)
             cl = torch.full((b,), ell, dtype=torch.int32, device=q.device)
+        else:
+            sp = page_state["start_pos"]
+            cl = page_state["chunk_lens"]
         pools = page_codec.encode_write(paged_pf_k.write_chunk_kv, codec,
                                         cache, k, v, pt, sp, cl)
-        out = kops.paged_prefill_attention(
-            q, pools["k_pages"], pools["v_pages"], pt, sp, cl, impl=impl)
+        if whole and rcodec is not None:
+            out = kops.multihead_attention(q, k, v, impl=impl, causal=True,
+                                           block_q=block, block_kv=block)
+        else:
+            out = kops.paged_prefill_attention(
+                q, pools["k_pages"], pools["v_pages"], pt, sp, cl,
+                impl=impl, **read(pools))
     return out, pools
-

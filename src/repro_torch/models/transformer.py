@@ -107,14 +107,27 @@ def stack_init_cache(cfg, batch: int, max_seq: int, dtype, device):
 def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,
                            device, codec: str = "fp"):
     """Paged block-pool caches, stacked (groups, P, page, Hkv, dh), one
-    shared pool per layer, zero-filled."""
+    shared pool per layer, zero-filled.  The data pools take the codec's
+    storage dtype; a codec with scales adds f32 sidecar pools "k_scale" /
+    "v_scale" of shape (groups, P, page, Hkv, 1), which every page-table
+    mechanism (scatter, copy-on-write, gather) treats as it treats the
+    data."""
     kinds, _, period = period_pattern(cfg)
     groups = cfg.n_layers // period
     if not all(k == "attn" for k in kinds):
         raise NotImplementedError(
             f"paged KV cache supports attention-only stacks, got {kinds}")
-    sdt = page_codec.get_codec(codec).storage_dtype(dtype)
+    c = page_codec.get_codec(codec)
+    sdt = c.storage_dtype(dtype)
     shape = (groups, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
-    return {f"l{i}": {"k_pages": torch.zeros(shape, dtype=sdt, device=device),
-                      "v_pages": torch.zeros(shape, dtype=sdt, device=device)}
-            for i in range(period)}
+
+    def one_layer():
+        leaves = {"k_pages": torch.zeros(shape, dtype=sdt, device=device),
+                  "v_pages": torch.zeros(shape, dtype=sdt, device=device)}
+        if c.has_scales:
+            for key in ("k_scale", "v_scale"):
+                leaves[key] = torch.zeros(shape[:-1] + (1,),
+                                          dtype=torch.float32, device=device)
+        return leaves
+
+    return {f"l{i}": one_layer() for i in range(period)}

@@ -36,10 +36,13 @@ One engine step mixes prefill chunks with one batched decode
 Only the sampled tokens - and, when a step needs them, the chosen
 tokens' logprobs and the beam groups' top-2w - cross to the host; the
 repetition-penalty presence bitmask (max_batch, padded vocab) lives on
-the device and is updated by scatter.  The engine rejects what it does
-not port yet: a tensor-parallel ``mesh`` and the int8/log16 codecs
-(ROADMAP.md Queue 1).  Host bookkeeping (``paged_cache``, ``scheduler``,
-``spec``) is the reference's, copied.
+the device and is updated by scatter.  ``kv_codec`` ("fp", "int8",
+"log16") picks the page codec: K/V rows are encoded on write, the int8
+scale sidecars ride every page copy, and the paged kernels decode each
+tile (``kernels/page_codec.py``).  The engine rejects what it does not
+port yet: a tensor-parallel ``mesh`` (ROADMAP.md Queue 1).  Host
+bookkeeping (``paged_cache``, ``scheduler``, ``spec``) is the
+reference's, copied.
 
 The engine runs on ``cuda`` unless built with ``device="cpu"``; the
 model must already live on that device.  Pools are updated in place.
@@ -65,8 +68,9 @@ def check_page_size(page_size: int, impl: str,
                     device: torch.device) -> None:
     """Refuse a page size the engine cannot serve: below 1 anywhere, and
     above ``cuda_lib.HFA_MAX_PAGE`` on the H-FA rail (an impl "hfa...")
-    on the card, whose paged kernels rescale once a page and stage at
-    most that many keys of one.  The plain path on the CPU takes it."""
+    on the card, whose paged kernel rescales once a page and keeps a
+    page's scores in shared memory, which holds them up to that page.
+    The plain path on the CPU takes it."""
     if page_size < 1:
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     if device.type == "cuda":

@@ -1,6 +1,7 @@
 """Shared workload for the engine parity tests (test_torch_engine_fa2.py,
-test_torch_engine_hfa.py, test_torch_engine_sampling.py and
-test_torch_engine_groups.py); this module holds no tests of its own.
+test_torch_engine_hfa.py, test_torch_engine_sampling.py,
+test_torch_engine_groups.py and test_torch_engine_codecs_*.py); this
+module holds no tests of its own.
 
 The reference's ``ServingEngine`` and the port's serve the same greedy
 shared-prefix workload on the reduced qwen3-1.7b (weights converted with
@@ -71,17 +72,17 @@ def workload(vocab, n=6, seed=53):
              .tolist(), NEW_TOKENS) for i in range(n)]
 
 
-def run_reference(jm, params, spec_k, work):
-    eng = JEngine(jm, params, spec_k=spec_k, **ENGINE_KW)
+def run_reference(jm, params, spec_k, work, **kw):
+    eng = JEngine(jm, params, spec_k=spec_k, **ENGINE_KW, **kw)
     done = eng.run([(2 * i, JRequest(rid=i, prompt=p, max_new_tokens=t))
                     for i, p, t in work])
     return {f.rid: f.tokens for f in done}
 
 
-def run_port(tm, spec_k, work):
+def run_port(tm, spec_k, work, **kw):
     """Step loop of ``ServingEngine.run`` with the cache invariants
     checked after every step; returns (streams, stats)."""
-    eng = ServingEngine(tm, spec_k=spec_k, device="cpu", **ENGINE_KW)
+    eng = ServingEngine(tm, spec_k=spec_k, device="cpu", **ENGINE_KW, **kw)
     arrivals = [(2 * i, Request(rid=i, prompt=p, max_new_tokens=t))
                 for i, p, t in work]
     done, step = [], 0
@@ -94,11 +95,13 @@ def run_port(tm, spec_k, work):
     return {f.rid: f.tokens for f in done}, eng.stats
 
 
-def check_engine_parity(models_, spec_k):
+def check_engine_parity(models_, spec_k, **kw):
+    """The greedy streams of both engines built with ``kw`` (e.g.
+    ``kv_codec``) on the workload; returns the port's stats."""
     jm, params, tm = models_
     work = workload(tm.cfg.vocab_size)
-    want = run_reference(jm, params, spec_k, work)
-    got, stats = run_port(tm, spec_k, work)
+    want = run_reference(jm, params, spec_k, work, **kw)
+    got, stats = run_port(tm, spec_k, work, **kw)
     assert sorted(got) == list(range(len(work)))
     for rid, toks in want.items():
         assert got[rid] == toks, (spec_k, rid)

@@ -40,6 +40,7 @@ from repro_torch.kernels import fa2_bwd as tfa2_bwd
 from repro_torch.kernels import hfa as thfa
 from repro_torch.kernels import hfa_datapath as dp_k
 from repro_torch.kernels import ops
+from repro_torch.kernels import page_codec
 from repro_torch.kernels import paged_decode as pd
 from repro_torch.kernels import paged_prefill as pp
 from repro_torch.kernels import paged_verify as pv
@@ -351,7 +352,7 @@ def test_prefill_tc_dyadic_matches_simt(cuda, use_hfa, d, g):
         and torch.all(tc[1][2] == -1e30)
 
 
-@pytest.mark.parametrize("page", [3, 4, 32])
+@pytest.mark.parametrize("page", [3, 4, 32, 128, 256])
 @pytest.mark.parametrize("kind", ["decode", "verify", "prefill"])
 def test_hfa_paged_rescales_once_a_page(cuda, kind, page):
     """On the H-FA rail at a page size other than 16 every paged call goes
@@ -359,7 +360,8 @@ def test_hfa_paged_rescales_once_a_page(cuda, kind, page):
     as the reference does: on a dyadic grid within +-0.5 (every score and
     every page's sum of p exact) within 1e-5 of the per-page model
     (kernels/ref.py) after finalize, m bit for bit, bf16 pools at d 128
-    (page 32: K and V of a page in dynamic shared memory)."""
+    (pages 32, 128 and 256: the page kernel, which stages a page 64 keys
+    at a time and keeps its scores in shared memory)."""
     b, hkv, g, d = 3, 2, 2, 128
     kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, d, b=b,
                                    j=-(-160 // page), hkv=hkv, page=page,
@@ -401,7 +403,12 @@ def test_hfa_paged_rescales_once_a_page(cuda, kind, page):
 
 
 def test_hfa_paged_page_above_64_is_refused(cuda):
-    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, 64, page=128)
+    """Pages above 64 run on the H-FA rail up to the shared-memory
+    ceiling (cuda_lib.HFA_MAX_PAGE); a page above it is refused before
+    any launch."""
+    page = 2 * cuda_lib.HFA_MAX_PAGE
+    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, 64, page=page,
+                                   b=3, j=1)
     q = torch.randn((3, 2, 2, 64), generator=gen, device=cuda).to(
         torch.bfloat16)
     before = _paged_counts()
@@ -409,6 +416,13 @@ def test_hfa_paged_page_above_64_is_refused(cuda):
         pd.paged_decode_partial(q, kp, vp, pt, _i32(cuda, [5, 0, 9]),
                                 use_hfa=True)
     assert _paged_counts() == before
+    kp, vp, pt, gen = _paged_pools(cuda, torch.bfloat16, 64, b=3, j=1,
+                                   page=cuda_lib.HFA_MAX_PAGE)
+    o, m, l = pd.paged_decode_partial(q, kp, vp, pt,
+                                      _i32(cuda, [2000, 0, 9]), use_hfa=True)
+    torch.cuda.synchronize()
+    before["decode"]["simt"] += 1
+    assert _paged_counts() == before and torch.isfinite(o).all()
 
 
 def test_paged_entries_refuse_other_head_dims(cuda):
@@ -925,3 +939,135 @@ def test_lns_device_functions_bit_exact(cuda):
         got = cuda_lib.lns_eval(sg, raw, sg, raw, raw, sg)[5]
         assert torch.equal(got.view(torch.int16),
                            lns.lns_to_bf16(sg, raw).view(torch.int16))
+
+
+# ------------------------------------------------------------ page codecs
+def _encoded(codec, kp, vp):
+    """(k data, v data, k scales, v scales) of f32/bf16 pools under a
+    page codec, encoded on the card."""
+    c = page_codec.get_codec(codec)
+    kd, ks = c.encode(kp)
+    vd, vs = c.encode(vp)
+    return kd, vd, ks, vs
+
+
+@pytest.mark.parametrize("route", ["default", "simt"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("kind", ["decode", "prefill", "verify"])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+@pytest.mark.parametrize("codec", ["int8", "log16"])
+def test_codec_kernel_matches_plain(cuda, codec, kind, d, dtype, use_hfa,
+                                    route):
+    """Each paged kernel on int8 and log16 pools against its plain version
+    with the codec's decode (tolerances as test_kernel_matches_plain),
+    counted on its route: decode and verify on v2, prefill on the tensor
+    cores for a log16 pool's bf16 view at bf16 and d 64 / 128 and on the
+    CUDA cores for int8 (and f32 q, d 32 / 96)."""
+    g, hkv, b = 2, 2, 3
+    kp, vp, pt, gen = _paged_pools(cuda, torch.float32, d, b=b, hkv=hkv,
+                                   seed=d + 7)
+    kd, vd, ks, vs = _encoded(codec, kp.to(dtype), vp.to(dtype))
+    c = page_codec.get_codec(codec)
+    q = lambda *shape: torch.randn(shape, generator=gen,  # noqa: E731
+                                   device=cuda).to(dtype)
+    i32 = lambda a: _i32(cuda, a)  # noqa: E731
+    if kind == "decode":
+        args = (q(b, hkv, g, d), kd, vd, pt, i32([37, 0, 96]))
+        fn = pd.paged_decode_partial if route == "default" else \
+            pd.paged_decode_partial_simt
+        plain, live = pd.paged_decode_partial_plain, [[1], [0], [1]]
+        key = ("decode", "v2" if route == "default" else "simt")
+    elif kind == "prefill":
+        args = (q(b, hkv, g, 7, d), kd, vd, pt, i32([0, 20, 40]),
+                i32([7, 23, 47]))
+        view = pd.kernel_pools(c, kd, vd, ks, vs)[0]
+        rule = cuda_lib.paged_prefill_route(args[0], view, pt)
+        assert rule == ("tc" if codec == "log16" and dtype == torch.bfloat16
+                        and d in (64, 128) else "simt")
+        fn = pp.paged_prefill_partial
+        plain = pp.paged_prefill_partial_plain
+        live = [[1] * 7, [1] * 3 + [0] * 4, [1] * 7]
+        key = ("prefill", rule if route == "default" else "simt")
+    else:
+        args = (q(b, hkv, g, 5, d), kd, vd, pt, i32([30, 0, 90]),
+                i32([5, 0, 2]))
+        fn = pv.paged_verify_partial if route == "default" else \
+            pv.paged_verify_partial_simt
+        plain = pv.paged_verify_partial_plain
+        live = [[1] * 5, [0] * 5, [1, 1, 0, 0, 0]]
+        key = ("verify", "v2" if route == "default" else "simt")
+    kw = dict(codec=c, k_scales=ks, v_scales=vs)
+    before = _paged_counts()
+    if kind == "prefill" and route == "simt":
+        kpool, vpool, kss, vss = pd.kernel_pools(c, kd, vd, ks, vs)
+        got = cuda_lib.launch_paged(
+            "paged_prefill_fwd", args[0], kpool, vpool, pt, *args[4:],
+            scale=d ** -0.5, use_hfa=use_hfa, k_scales=kss, v_scales=vss)
+    else:
+        got = fn(*args, use_hfa=use_hfa, **kw)
+    want = plain(*args, use_hfa=use_hfa, **kw)
+    torch.cuda.synchronize()
+    before[key[0]][key[1]] += 1
+    assert _paged_counts() == before
+    ko, km, kl = got
+    po, pm, pl_ = want
+    if kind == "decode":
+        ko, po = ko[:, :, :, None], po[:, :, :, None]
+        km, pm, kl, pl_ = (x[..., None] for x in (km, pm, kl, pl_))
+    mask = torch.tensor(live, dtype=torch.bool, device=cuda)[:, None, None]
+    mask = mask.expand(km.shape)
+    assert torch.allclose(km[mask], pm[mask], atol=1e-3, rtol=0)
+    kout = decode_k.finalize_decode(ko, kl, use_hfa=use_hfa)[mask]
+    pout = decode_k.finalize_decode(po, pl_, use_hfa=use_hfa)[mask]
+    assert (kout - pout).abs().max().item() <= (1e-2 if use_hfa else 1e-3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [32, 64, 96, 128])
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+@pytest.mark.parametrize("use_hfa", [False, True], ids=["fa2", "hfa"])
+def test_int8_v2_unsplit_bit_equal_to_simt(cuda, use_hfa, kind, d, dtype):
+    """The int8 tile decode in the v2 ring (a key chunk times its row's
+    scale, a V pair times its row's scale) is the CUDA-core body's
+    decode, so unsplit the two give the same triplet bit for bit - in
+    one block of the G K rows and one block a query head for verify."""
+    case = _decode_case if kind == "decode" else _verify_case
+    q, kp, vp, pt, *lens = case(cuda, dtype, d, seed=d + 3)
+    kd, vd, ks, vs = _encoded("int8", kp, vp)
+    kw = dict(scale=d ** -0.5, use_hfa=use_hfa, k_scales=ks, v_scales=vs)
+    if kind == "decode":
+        want = pd.paged_decode_partial_simt(q, kd, vd, pt, *lens,
+                                            codec="int8", k_scales=ks,
+                                            v_scales=vs, use_hfa=use_hfa)
+        gots = [cuda_lib.launch_paged_decode(q, kd, vd, pt, *lens,
+                                             splits=1, **kw)]
+    else:
+        want = pv.paged_verify_partial_simt(q, kd, vd, pt, *lens,
+                                            codec="int8", k_scales=ks,
+                                            v_scales=vs, use_hfa=use_hfa)
+        gots = [cuda_lib.launch_paged_verify(q, kd, vd, pt, *lens, splits=1,
+                                             row_blocks=rb, **kw)
+                for rb in (1, q.shape[2])]
+    torch.cuda.synchronize()
+    for got in gots:
+        for name, a, w in zip(("o", "m", "l"), got, want):
+            assert torch.equal(a.view(torch.int32), w.view(torch.int32)), name
+
+
+@pytest.mark.parametrize("codec", ["int8", "log16"])
+def test_codec_encode_on_the_card_equals_the_cpu(cuda, codec):
+    """encode on the card gives the CPU's data and scales bit for bit
+    (bf16 and f32 inputs, an all-zero row, bf16 subnormals)."""
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn((4, 16, 2, 64), generator=gen)
+    x[1, 2] = 0.0
+    x[2, 3, 0, :8] = 1e-39
+    c = page_codec.get_codec(codec)
+    for dt in (torch.float32, torch.bfloat16):
+        cd, cs = c.encode(x.to(dt))
+        gd, gs = c.encode(x.to(dt).to(cuda))
+        assert torch.equal(gd.cpu(), cd)
+        if cs is not None:
+            assert torch.equal(gs.cpu().view(torch.int32),
+                               cs.view(torch.int32))

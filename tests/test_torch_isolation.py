@@ -151,15 +151,18 @@ def test_multihead_attention_takes_every_reference_impl():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """A mesh and the int8/log16 codecs are refused with a pointer to the
-    roadmap; the request surface the port serves is accepted."""
+    """A mesh is refused with a pointer to the roadmap and an unknown
+    codec by name; the int8 and log16 codecs and the request surface the
+    port serves are accepted."""
     lm = _small_lm()
-    for kw in ({"mesh": object()}, {"kv_codec": "int8"},
-               {"kv_codec": "log16"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ServingEngine(lm, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ServingEngine(lm, device="cpu", mesh=object())
     with pytest.raises(ValueError, match="unknown page codec"):
         page_codec.get_codec("fp8")
+    for codec in ("int8", "log16"):
+        eng = ServingEngine(lm, device="cpu", max_seq=32, page_size=4,
+                            kv_codec=codec)
+        assert eng.kv_codec == codec
     for kw in ({"spec_k": "auto"}, {"prefill_budget": "adaptive"}):
         ServingEngine(lm, device="cpu", max_seq=32, page_size=4, **kw)
     eng = ServingEngine(lm, device="cpu", max_seq=32, page_size=4)
