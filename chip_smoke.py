@@ -121,7 +121,35 @@ Phases, in order; any failure exits non-zero and prints no result line:
    ``sample_tokens`` on a captured batch of card logits must choose the
    CPU's tokens, a row whose choice sits within 1e-6 of the top-p
    boundary excepted (counted).  Walls, tok/s, launches and the
-   sampler's time are printed.
+   sampler's time are printed.  The engine phases share each rail's
+   model (``rail_model``), and engine_sampled holds the top_k=1 run to
+   the engine phase's greedy run when that phase ran.
+   Serving stack (``serving_stack``).  The same models and engine
+   settings behind the stack a user calls.  HTTP: the 16-request
+   workload as concurrent SSE streams through ``HttpServer`` over an
+   ``AsyncFrontend``, fp, spec_k 0, both rails; a probe against a cap of
+   1 answers 429 while requests wait for a slot; then a sampled tenant
+   stream, a ``stream: false`` request and a disconnect after 4 tokens.
+   The engine's submits and cancels are recorded with its step count
+   (``record_arrivals``) and replayed through ``ServingEngine.step`` on a
+   fresh engine: every stream must equal the replay token for token (on
+   the card decode rounding depends on the batch, ROADMAP Queue 3 B6),
+   the disconnect's tokens a prefix of it; the pool clean, the frontend
+   not failed.  TTFT p50 / p99 and tok/s by the client's clock and the
+   walls of both are printed.  Router: two replicas over the fa2 model,
+   two 520-token system prompts, a first request and three follow-ups on
+   each; every follow-up must land on the replica holding its prompt's
+   prefix; replica 1 is marked down with its requests in flight, the
+   rids it hands back are sent again and land on replica 0; each
+   replica's streams equal the replay of its own record, both pools
+   clean.  Disaggregation: ``DisaggPair`` of two engines over the
+   workload (16 new tokens a request) on fa2 with fp, int8 and log16
+   pools and on hfa with fp: every imported page bit-equal to the
+   exporter's in every leaf (int8's scales too), the streams equal a
+   single engine's that first ran each prompt alone with
+   max_new_tokens=1, a mid-handoff abort and a stage fallback leave both
+   pools clean; the copy's ms a handoff by events beside its bound (the
+   pages' bytes read and written at 3.35 TB/s).
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
    0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
    loop of ``serve --dense``: 8 prompts of 512 tokens from
@@ -160,8 +188,10 @@ There is no CPU fallback: without a card the script stops at once.
 from __future__ import annotations
 
 import argparse
+import asyncio
 import dataclasses
 import functools
+import gc
 import json
 import shutil
 import statistics
@@ -200,6 +230,8 @@ from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.runtime.trainer import (  # noqa: E402
     Trainer, TrainerConfig, make_train_step)
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    AsyncFrontend, DisaggPair, HttpServer, Router, stream_generate)
 from repro_torch.serving import SamplingParams  # noqa: E402
 from repro_torch.serving import sampler  # noqa: E402
 
@@ -1989,6 +2021,14 @@ def check_train_reference() -> None:
 
 
 # ------------------------------------------------------------- phase 4
+# The engine phases' settings (``serve``, and the serving stack's engines).
+STACK_KW = dict(max_batch=8, page_size=16, max_seq=2048, prefill_budget=512)
+
+
+def stack_engine(model, **kw) -> ServingEngine:
+    return ServingEngine(model, device=model.device, **{**STACK_KW, **kw})
+
+
 def workload(vocab: int) -> list[Request]:
     rng = np.random.default_rng(0)
     sysp = rng.integers(1, vocab, 520).tolist()
@@ -2030,9 +2070,7 @@ def serve(model, reqs: list, spec_k, capture=None,
             return logits, layers
         setattr(model, meth, checked)
     try:
-        eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
-                            prefill_budget=512, spec_k=spec_k,
-                            kv_codec=kv_codec)
+        eng = stack_engine(model, spec_k=spec_k, kv_codec=kv_codec)
         holder["eng"] = eng
         cfg = model.cfg
         kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b (fp)
@@ -2077,6 +2115,27 @@ def run_engine(model, spec_k: int,
     return streams, info, info["wall_s"]
 
 
+# The engine phase's greedy fp spec_k 0 streams and wall by rail, which
+# the engine_sampled phase's top_k=1 run is held to (the same model).
+GREEDY_RUNS: dict = {}
+
+
+@functools.lru_cache(maxsize=None)
+def rail_model(rail: str) -> LM:
+    """Full-width qwen3-1.7b on ``rail`` (random bf16 weights from seed 0),
+    built once for the engine, engine_codecs, engine_sampled and
+    serving_stack phases (``rail_model.cache_clear()`` frees them)."""
+    cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model [{rail}]: qwen3-1.7b full width, {cfg.n_layers} layers, "
+          f"{n_params} parameters, init {time.perf_counter() - t0:.1f} s")
+    return model
+
+
 def _reset_paged_counters() -> None:
     for mod in MODULES.values():
         mod.launches = 0
@@ -2103,6 +2162,17 @@ def _agreement(a: dict, b: dict) -> str:
 CODEC_RUNS = (("int8", 0), ("int8", 4), ("log16", 0))
 
 
+def _row_launches(la: dict, codec: str) -> dict:
+    """A run's launches by route (``_paged_counts``) as rows of the
+    kernels line: the fp rows, or the codec's rows (int8's prefill route:
+    the CUDA cores)."""
+    if codec == "fp":
+        return {n: la[n] for n in PAGED_ROWS}
+    return {row: la["paged_prefill_simt" if (base, c) == (
+        "paged_prefill", "int8") else base]
+        for row, (base, c) in CODEC_ROWS.items() if c == codec}
+
+
 def _check_codec_launches(rail, codec, spec_k, la) -> None:
     """The route counts of a codec run: every int8 prefill on the CUDA
     cores (the tensor cores take bf16 pools), every log16 prefill (a bf16
@@ -2124,19 +2194,13 @@ def check_engine(fp_runs: bool = True, codecs: bool = False) -> dict:
     with fp printed), both rails.  Returns the launches by row."""
     totals = {n: 0 for n in list(PAGED_ROWS) + list(CODEC_ROWS)}
     for rail in ("fa2", "hfa"):
-        cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
-        t0 = time.perf_counter()
-        model = LM(cfg, device="cuda").init(
-            torch.Generator(device="cuda").manual_seed(0))
-        torch.cuda.synchronize()
-        n_params = sum(p.numel() for p in model.parameters())
-        print(f"engine [{rail}]: qwen3-1.7b full width, {cfg.n_layers} "
-              f"layers, {n_params} parameters, init "
-              f"{time.perf_counter() - t0:.1f} s")
+        model = rail_model(rail)
         runs = {}
         for spec_k in ((0, 4) if fp_runs else (0,)):
             streams, info, wall = run_engine(model, spec_k)
             runs[spec_k] = streams
+            if spec_k == 0:
+                GREEDY_RUNS[rail] = (streams, wall)
             la = info["launches"]
             # bf16 pools at d 128, page 16: every prefill on the tensor
             # cores and every decode (spec_k 0) or verify (spec_k 4) on
@@ -2181,10 +2245,8 @@ def check_engine(fp_runs: bool = True, codecs: bool = False) -> dict:
             streams, info, wall = run_engine(model, spec_k, kv_codec=codec)
             la = info["launches"]
             _check_codec_launches(rail, codec, spec_k, la)
-            for row, (base, c) in CODEC_ROWS.items():
-                if c == codec:      # int8's prefill route: the CUDA cores
-                    totals[row] += la["paged_prefill_simt" if (
-                        base, c) == ("paged_prefill", "int8") else base]
+            for row, n in _row_launches(la, codec).items():
+                totals[row] += n
             st = info["stats"]
             agree = _agreement(streams, runs[0]) if spec_k == 0 else \
                 _agreement(streams, runs.get(4, runs[0]))
@@ -2198,8 +2260,6 @@ def check_engine(fp_runs: bool = True, codecs: bool = False) -> dict:
             if codec == "log16" and streams != runs[0]:
                 raise AssertionError(f"engine_codecs [{rail}]: the log16 "
                                      f"streams differ from fp's: {agree}")
-        del model
-        torch.cuda.empty_cache()
     return totals
 
 
@@ -2435,9 +2495,8 @@ def check_engine_sampled() -> dict:
     check_threefry()
     totals = {n: 0 for n in PAGED_ROWS}
     for rail in ("fa2", "hfa"):
-        cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
-        model = LM(cfg, device="cuda").init(
-            torch.Generator(device="cuda").manual_seed(0))
+        model = rail_model(rail)
+        cfg = model.cfg
         reqs = sampled_workload(cfg.vocab_size)
         captured = {}
 
@@ -2485,7 +2544,12 @@ def check_engine_sampled() -> dict:
             agree = _agreement(streams[0], streams[spec_k])
             print(f"engine_sampled [{rail}]: spec_k={spec_k} vs spec_k=0 "
                   f"streams agree on {agree}")
-        greedy, info_g, wall_g = run_engine(model, 0)
+        if rail in GREEDY_RUNS:    # the engine phase's run of this model
+            greedy, wall_g = GREEDY_RUNS[rail]
+        else:
+            greedy, info_g, wall_g = run_engine(model, 0)
+            for n in PAGED_ROWS:
+                totals[n] += info_g["launches"][n]
         top1 = [dataclasses.replace(r, sampling=SamplingParams(
             temperature=0.8, top_k=1, seed=r.rid))
             for r in workload(cfg.vocab_size)]
@@ -2497,13 +2561,493 @@ def check_engine_sampled() -> dict:
         if not same:
             raise AssertionError(f"[{rail}] the top_k=1 run differs from the "
                                  f"greedy run")
-        for la in (info_g["launches"], info["launches"]):
-            for n in PAGED_ROWS:
-                totals[n] += la[n]
+        for n in PAGED_ROWS:
+            totals[n] += info["launches"][n]
         check_legacy_prefill(model)
         check_sampler_card_vs_cpu(captured)
-        del model
-        torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------ phase 4c
+ROUTER_TOKENS = 32          # new tokens a router request
+DISAGG_TOKENS = 16          # new tokens a request of the disagg runs
+DISAGG_RUNS = (("fa2", "fp"), ("fa2", "int8"), ("fa2", "log16"),
+               ("hfa", "fp"))
+WAIT_S = 120.0              # the longest a client waits for a state
+
+
+def record_arrivals(eng) -> list:
+    """Wrap ``eng.submit`` and ``eng.cancel`` (as ``serve`` wraps the
+    model's methods) to record each call with the engine's step count at
+    the time: the frontend calls both between steps, so the record
+    replays exactly through ``ServingEngine.step`` (:func:`replay`)."""
+    events = []
+    submit, cancel = eng.submit, eng.cancel
+
+    def recorded_submit(req):
+        events.append((eng.stats["steps"], "submit",
+                       dataclasses.replace(req, prompt=list(req.prompt))))
+        return submit(req)
+
+    def recorded_cancel(rid):
+        events.append((eng.stats["steps"], "cancel", rid))
+        return cancel(rid)
+
+    eng.submit, eng.cancel = recorded_submit, recorded_cancel
+    return events
+
+
+def replay(model, events: list, watch=(), **kw) -> tuple[dict, float]:
+    """Replay an arrival record on a fresh engine of the same settings:
+    each submit and cancel before the step it came before.  Returns
+    (tokens by rid - a cancelled rid's up to its cancel -, the wall until
+    every rid of ``watch`` finished)."""
+    eng = stack_engine(model, **kw)
+    done, watch = {}, set(watch)
+    wall = None
+    i = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while i < len(events) or eng.sched.has_work:
+        while i < len(events) and events[i][0] <= eng.stats["steps"]:
+            _, kind, x = events[i]
+            i += 1
+            if kind == "submit":
+                eng.submit(dataclasses.replace(x, prompt=list(x.prompt)))
+                continue
+            run = [r for r in eng.sched.running.values()
+                   if r.req.rid == x and r.group is None]
+            done[x] = list(run[0].generated) if run else []
+            eng.cancel(x)
+        if not eng.sched.has_work:
+            if i < len(events):
+                raise AssertionError("replay: the record steps an idle "
+                                     "engine")
+            break
+        for fr in eng.step():
+            done[fr.rid] = fr.tokens
+        eng.cache.check_invariants()
+        if wall is None and watch <= done.keys():
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return done, wall
+
+
+def check_pool_clean(eng, label: str) -> None:
+    """No live slot and no work, every page free or cached, bookkeeping
+    consistent."""
+    eng.cache.check_invariants()
+    c = eng.cache
+    if eng.sched.has_work or c.free_slot_count != eng.max_batch or \
+            c.available_page_count != c.num_pages:
+        raise AssertionError(f"{label}: pool not clean ({c.free_slot_count} "
+                             f"free slots, {c.available_page_count} of "
+                             f"{c.num_pages} pages available)")
+
+
+async def _until(cond, what: str) -> None:
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > WAIT_S:
+            raise AssertionError(f"serving_stack: waited {WAIT_S} s for "
+                                 f"{what}")
+        await asyncio.sleep(0.002)
+
+
+async def sse_client(server, payload: dict, tenant=None, stop=None,
+                     first=None) -> dict:
+    """One ``/v1/generate`` through ``stream_generate``: the tokens and
+    their client-clock times, the done payload (None when ``stop`` - a
+    token count or an event - closed the stream first: a disconnect).
+    ``first`` is set at the first token."""
+    out = {"toks": [], "times": [], "done": None, "t0": time.perf_counter()}
+    gen = stream_generate(server.host, server.port, payload, tenant=tenant)
+    try:
+        async for kind, data in gen:
+            if kind == "error":
+                raise AssertionError(f"serving_stack: {payload.get('id')} "
+                                     f"answered {data}")
+            if kind == "done":
+                out["done"] = data
+                break
+            out["toks"].append(data["token"])
+            out["times"].append(time.perf_counter())
+            if first is not None:
+                first.set()
+            if stop is not None and (len(out["toks"]) >= stop
+                                     if isinstance(stop, int)
+                                     else stop.is_set()):
+                break
+    finally:
+        await gen.aclose()
+    return out
+
+
+def _stream_done(c: dict, label: str) -> list:
+    """A stream that ended with its done event, which carries its tokens
+    (those streamed, unless it was a ``stream: false`` answer)."""
+    d = c["done"]
+    if d is None or (c["toks"] and d["tokens"] != c["toks"]):
+        raise AssertionError(f"{label}: stream without its done event or "
+                             f"tokens differing from it")
+    return d["tokens"]
+
+
+def _same(label: str, got: list, want: list, prefix=False) -> None:
+    if (got != want[:len(got)]) if prefix else (got != want):
+        raise AssertionError(f"{label}: the stream differs from the replay "
+                             f"of its arrival record ({len(got)} / "
+                             f"{len(want)} tokens)")
+
+
+async def _http_round(model, rail: str) -> dict:
+    """The 16-request workload as concurrent SSE streams through one
+    HttpServer, a 429 probe against a cap of 1 while requests wait for a
+    slot; then one sampled tenant stream, one ``stream: false`` request
+    and one mid-stream disconnect."""
+    eng = stack_engine(model)
+    events = record_arrivals(eng)
+    fe = AsyncFrontend(eng)
+    server = await HttpServer(fe).start()
+    probe = await HttpServer(fe, queue_caps=1).start()
+    reqs = workload(model.cfg.vocab_size)
+    _reset_paged_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tasks = [asyncio.ensure_future(sse_client(server, {
+        "prompt": r.prompt, "max_new_tokens": r.max_new_tokens,
+        "id": r.rid})) for r in reqs]
+    await _until(lambda: fe.queue_depth("standard") >= 1,
+                 "a request waiting for a slot")
+    rejected = [ev async for ev in stream_generate(
+        probe.host, probe.port, {"prompt": reqs[0].prompt,
+                                 "max_new_tokens": 8})]
+    main = await asyncio.gather(*tasks)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rejected != [("error", {"status": 429, "body": {
+            "error": "queue full for class 'standard'", "class": "standard",
+            "cap": 1}})]:
+        raise AssertionError(f"http [{rail}]: the probe got {rejected}")
+    prompt = reqs[0].prompt
+    extra = await asyncio.gather(
+        sse_client(server, {"prompt": prompt, "max_new_tokens": 16,
+                            "temperature": 0.8, "top_k": 50, "top_p": 0.95,
+                            "seed": 7, "id": "sampled"}, tenant="alice"),
+        sse_client(server, {"prompt": reqs[1].prompt, "max_new_tokens": 16,
+                            "stream": False, "id": "json"}),
+        sse_client(server, {"prompt": reqs[2].prompt, "max_new_tokens": 64,
+                            "id": "disconnect"}, stop=4))
+    await _until(lambda: eng.stats["cancelled"] >= 1, "the disconnect's "
+                 "cancel")
+    await fe.drain()
+    la = _paged_counts()
+    failed = fe.failed
+    http = dict(server.http_stats)
+    await probe.stop()
+    await server.stop()
+    await fe.close()
+    if failed:
+        raise AssertionError(f"http [{rail}]: the frontend failed")
+    check_pool_clean(eng, f"http [{rail}]")
+    return {"main": main, "extra": extra, "events": events, "wall": wall,
+            "launches": la, "http": http, "stats": dict(eng.stats)}
+
+
+def check_http(model, rail: str) -> dict:
+    """HTTP over loopback, one replica, fp pools, spec_k 0: every SSE
+    stream equals the replay of the frontend's arrival record, token for
+    token.  Returns the launches (the served run and its replay)."""
+    r = asyncio.run(_http_round(model, rail))
+    la = r["launches"]
+    simt = [n for n in PAGED_ROWS if n.endswith("_simt")]
+    if la["paged_prefill"] <= 0 or la["paged_decode"] <= 0 or any(
+            la[n] for n in simt):
+        raise AssertionError(f"http [{rail}]: launches {la}")
+    main_rids = [c["done"]["rid"] for c in r["main"] if c["done"]]
+    _reset_paged_counters()
+    want, replay_wall = replay(model, r["events"], watch=main_rids)
+    la_replay = _paged_counts()
+    for c in r["main"]:
+        toks = _stream_done(c, f"http [{rail}] {c['done'] and c['done']['id']}")
+        if len(toks) != 64:
+            raise AssertionError(f"http [{rail}]: a stream of {len(toks)} "
+                                 f"tokens")
+        _same(f"http [{rail}] rid {c['done']['rid']}", toks,
+              want[c["done"]["rid"]])
+    sampled, as_json, cut = r["extra"]
+    for c, n in ((sampled, 16), (as_json, 16)):
+        toks = _stream_done(c, f"http [{rail}] {c['done']['id']}")
+        if len(toks) != n or c["done"]["reason"] != "length":
+            raise AssertionError(f"http [{rail}]: {c['done']}")
+        _same(f"http [{rail}] {c['done']['id']}", toks,
+              want[c["done"]["rid"]])
+    if as_json["toks"] or cut["done"] is not None or len(cut["toks"]) != 4:
+        raise AssertionError(f"http [{rail}]: the stream: false answer "
+                             f"streamed, or the disconnect got its end")
+    cancels = [x for _, kind, x in r["events"] if kind == "cancel"]
+    if len(cancels) != 1 or r["http"]["disconnects"] < 1:
+        raise AssertionError(f"http [{rail}]: cancels {cancels}, "
+                             f"{r['http']}")
+    _same(f"http [{rail}] disconnect", cut["toks"], want[cancels[0]],
+          prefix=True)
+    ttft = [c["times"][0] - c["t0"] for c in r["main"]]
+    n_tok = sum(len(c["toks"]) for c in r["main"])
+    print(f"serving_stack http [{rail}]: 16 concurrent SSE streams, TTFT "
+          f"p50 {np.percentile(ttft, 50):.4f} s p99 "
+          f"{np.percentile(ttft, 99):.4f} s (client clock), {n_tok} tokens "
+          f"in {r['wall']:.3f} s ({n_tok / r['wall']:.1f} tok/s); the replay "
+          f"of its arrival record {replay_wall:.3f} s "
+          f"({r['wall'] / replay_wall:.3f}x); every stream equal to the "
+          f"replay; {r['stats']['steps']} steps; 429 at cap 1, sampled tenant "
+          f"stream, stream false, a disconnect after 4 tokens cancelled "
+          f"(its first {len(want[cancels[0]])} tokens); launches {la}, "
+          f"replay {la_replay}")
+    return {n: la[n] + la_replay[n] for n in PAGED_ROWS}
+
+
+async def _router_round(model) -> dict:
+    """Two replicas behind a Router and one HttpServer: two distinct
+    520-token system prompts, a first request on each (B0 placed while A0
+    decodes on replica 0), three follow-ups each; replica 1 is marked
+    down with its requests in flight, their clients disconnect, and the
+    requests are sent again."""
+    engines = [stack_engine(model), stack_engine(model)]
+    events = [record_arrivals(e) for e in engines]
+    router = Router([AsyncFrontend(e) for e in engines])
+    placements = []                # (rid, prompt, replica) by submission
+    submit = router.submit
+
+    def recorded_submit(req):
+        gen = submit(req)
+        placements.append((req.rid, tuple(req.prompt),
+                           router.core.placement[req.rid]))
+        return gen
+
+    router.submit = recorded_submit
+    server = await HttpServer(router).start()
+    vocab = model.cfg.vocab_size
+    rng = np.random.default_rng(1)
+    systems = [rng.integers(1, vocab, 520).tolist() for _ in range(2)]
+    payloads = {f"{ab}{i}": {"prompt": systems[k] + rng.integers(
+        1, vocab, int(rng.integers(32, 129))).tolist(),
+        "max_new_tokens": ROUTER_TOKENS, "id": f"{ab}{i}"}
+        for k, ab in enumerate("AB") for i in range(4)}
+    clients, firsts = {}, {}
+    down = asyncio.Event()
+
+    def start(name, payload, stop=None):
+        firsts[name] = asyncio.Event()
+        clients[name] = asyncio.ensure_future(sse_client(
+            server, payload, first=firsts[name], stop=stop))
+
+    t0 = time.perf_counter()
+    for name in ("A0", "B0", "A1", "B1", "A2", "B2", "A3", "B3"):
+        start(name, payloads[name], stop=down if name[0] == "B" else None)
+        if name[1] == "0":
+            await _until(firsts[name].is_set, f"{name}'s first token")
+    await _until(lambda: all(firsts[f"B{i}"].is_set() for i in range(4)),
+                 "replica 1's follow-ups decoding")
+    lost = router.core.down(1)
+    down.set()                     # their clients disconnect
+    cut = [name for name in ("B0", "B1", "B2", "B3")
+           if (await clients[name])["done"] is None]
+    for name in cut:               # the caller re-places what came back
+        start(name + "'", dict(payloads[name], id=name + "'"))
+    out = {name: await c for name, c in clients.items()}
+    await router.drain()
+    wall = time.perf_counter() - t0
+    stats, core = dict(router.stats), router.core
+    left = (dict(core.placement), list(core.load))
+    await server.stop()
+    await router.close()
+    for i, e in enumerate(engines):
+        check_pool_clean(e, f"router replica {i}")
+    return {"out": out, "payloads": payloads, "placements": placements,
+            "lost": lost, "cut": cut, "events": events, "stats": stats,
+            "left": left, "wall": wall}
+
+
+def check_router(model) -> dict:
+    """Router, two replicas, fa2: follow-ups land on the replica holding
+    their system prompt; a replica marked down hands back its in-flight
+    rids, which re-route to the live one; each replica's streams equal
+    the replay of its own arrival record.  Returns the launches."""
+    _reset_paged_counters()
+    r = asyncio.run(_router_round(model))
+    la = _paged_counts()
+    out, cut = r["out"], r["cut"]
+    by_prompt: dict = {}
+    for rid, prompt, replica in r["placements"]:
+        by_prompt.setdefault(prompt, []).append((rid, replica))
+    where = {}                     # name -> (rid, replica)
+    for name, c in out.items():
+        runs = by_prompt[tuple(r["payloads"][name.rstrip("'")]["prompt"])]
+        where[name] = runs[1 if name.endswith("'") else 0]
+    want = {name: 0 if name[0] == "A" or name.endswith("'") else 1
+            for name in out}
+    got = {name: replica for name, (_, replica) in where.items()}
+    lost_names = sorted(name for name, (rid, _) in where.items()
+                        if rid in r["lost"])
+    if got != want or not cut or not set(cut) <= set(lost_names) or any(
+            n[0] != "B" for n in lost_names) or \
+            r["stats"]["prefix_routed"] < 6 or r["left"] != ({}, [0, 0]):
+        raise AssertionError(f"router: placements {got}, want {want}; lost "
+                             f"{lost_names}, disconnected {cut}; stats "
+                             f"{r['stats']}; left {r['left']}")
+    replays = [replay(model, ev)[0] for ev in r["events"]]
+    la_all = _paged_counts()
+    for name, c in out.items():
+        rid, replica = where[name]
+        if name in cut:
+            _same(f"router {name}", c["toks"], replays[replica][rid],
+                  prefix=True)
+            continue
+        toks = _stream_done(c, f"router {name}")
+        if len(toks) != ROUTER_TOKENS:
+            raise AssertionError(f"router {name}: {len(toks)} tokens")
+        _same(f"router {name}", toks, replays[replica][rid])
+    print(f"serving_stack router [fa2]: 2 replicas, {len(out)} streams in "
+          f"{r['wall']:.3f} s, replicas by request {got}; replica 1 marked "
+          f"down with {lost_names} in flight, {cut} re-placed on replica 0; "
+          f"stats {r['stats']}; each replica's streams equal the replay of "
+          f"its record; launches {la}, with the replays {la_all}")
+    return {n: la_all[n] for n in PAGED_ROWS}
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view({torch.float32: torch.int32, torch.bfloat16: torch.int16}
+                  .get(t.dtype, t.dtype))
+
+
+def check_disagg(model, rail: str, codec: str, lifecycle: bool) -> dict:
+    """A DisaggPair of two full-width engines over the 16-request workload
+    (``DISAGG_TOKENS`` new tokens each): every imported page bit-equal to
+    the exporter's in every layer and leaf; the pair's streams equal a
+    single engine's that first ran each prompt alone with
+    max_new_tokens=1 in the same order.  ``lifecycle``: a mid-handoff
+    abort and a stage fallback leave both pools clean.  Returns the
+    launches by row."""
+    label = f"disagg [{rail} {codec}]"
+    reqs = [dataclasses.replace(r, max_new_tokens=DISAGG_TOKENS)
+            for r in workload(model.cfg.vocab_size)]
+    pair = DisaggPair(stack_engine(model, kv_codec=codec),
+                      stack_engine(model, kv_codec=codec))
+    copies = []
+    copy, start = pair._copy_pages, pair.start_handoff
+
+    def timed_copy(src, dst):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        copy(src, dst)
+        ev[1].record()
+        copies.append((len(src), ev))
+
+    def checked_start(req):
+        h = start(req)
+        if h is None:
+            return h
+        s = torch.tensor(h.src_pages, dtype=torch.int64, device=model.device)
+        d = torch.tensor(h.dst_pages, dtype=torch.int64, device=model.device)
+        for name, pools in pair.prefill.layers.items():
+            for key, pool in pools.items():
+                if not torch.equal(
+                        _bits(pair.decode.layers[name][key][:, d]),
+                        _bits(pool[:, s])):
+                    raise AssertionError(f"{label}: an imported page of "
+                                         f"{name}.{key} differs from the "
+                                         f"exporter's")
+        return h
+
+    pair._copy_pages, pair.start_handoff = timed_copy, checked_start
+    _reset_paged_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = {f.rid: f.tokens for f in pair.run([(i, dataclasses.replace(
+        r, prompt=list(r.prompt))) for i, r in enumerate(reqs)])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    la = _paged_counts()
+    _check_codec_launches(rail, codec, 0, la)
+    pair.check_invariants()
+    single = stack_engine(model, kv_codec=codec)
+    for r in reqs:
+        single.run([(0, Request(rid=r.rid, prompt=list(r.prompt),
+                                max_new_tokens=1))])
+    want = {f.rid: f.tokens for f in single.run([(i, dataclasses.replace(
+        r, prompt=list(r.prompt))) for i, r in enumerate(reqs)])}
+    la_all = _paged_counts()
+    if sorted(got) != list(range(16)) or any(
+            len(t) != DISAGG_TOKENS for t in got.values()):
+        raise AssertionError(f"{label}: not every request finished")
+    if got != want:
+        raise AssertionError(f"{label}: the pair's streams differ from the "
+                             f"pre-cached single engine's: "
+                             f"{_agreement(got, want)}")
+    check_pool_clean(pair.prefill, f"{label} prefill worker")
+    check_pool_clean(pair.decode, f"{label} decode worker")
+    pages = [n for n, _ in copies]
+    ms = [ev[0].elapsed_time(ev[1]) for _, ev in copies]
+    page_bytes = STACK_KW["page_size"] * pair.decode.bytes_per_token()
+    bound = [2 * n * page_bytes / HBM_BYTES_PER_S * 1e3 for n in pages]
+    st = pair.stats
+    print(f"{label}: 16 requests, {st['handoffs']} handoffs, "
+          f"{st['handoff_pages']} pages published ({st['handoff_dupes']} "
+          f"dupes), {sum(pages)} pages copied ({page_bytes} B a page), every "
+          f"import bit-equal to its export; copy ms a handoff by events: "
+          f"median {statistics.median(ms):.4f} (pages {min(pages)}-"
+          f"{max(pages)}), bound median {statistics.median(bound):.4f} "
+          f"(read + write at 3.35 TB/s), total {sum(ms):.3f} vs "
+          f"{sum(bound):.3f}; pair wall {wall:.3f} s; streams equal the "
+          f"pre-cached single engine's; launches {la}, with the single "
+          f"engine {la_all}")
+    if lifecycle:
+        req = Request(rid=100, prompt=list(reqs[0].prompt) + [1, 2, 3],
+                      max_new_tokens=1)
+        avail = pair.decode.cache.available_page_count
+        h = pair.start_handoff(req)
+        pair.check_invariants()
+        pair.abort(h)
+        pair.check_invariants()
+        hog = pair.decode.cache.stage_pages(
+            pair.decode.cache.available_page_count - 1)
+        fell_back = pair.start_handoff(dataclasses.replace(req, rid=101))
+        pair.decode.cache.abort_staged(hog)
+        pair.check_invariants()
+        if h.state != "aborted" or fell_back is not None or \
+                st["handoff_fallbacks"] != 1 or st["handoff_aborts"] != 1 \
+                or pair.decode.cache.available_page_count != avail or \
+                pair.prefill.cache._export_pins.any():
+            raise AssertionError(f"{label}: abort / fallback left {st}")
+        check_pool_clean(pair.prefill, f"{label} prefill worker")
+        check_pool_clean(pair.decode, f"{label} decode worker")
+        print(f"{label}: a mid-handoff abort ({len(h.dst_pages)} staged "
+              f"pages returned) and a stage fallback left both pools clean")
+    del pair, single
+    return _row_launches(la_all, codec)
+
+
+def check_serving_stack() -> dict:
+    """The serving stack over the engine at full width: HTTP/SSE on both
+    rails, the router over two replicas, prefill/decode disaggregation on
+    every codec.  Returns the launches by row."""
+    t0 = time.perf_counter()
+    totals = {n: 0 for n in list(PAGED_ROWS) + list(CODEC_ROWS)}
+
+    def add(counts):
+        for n, c in counts.items():
+            totals[n] += c
+
+    for rail in ("fa2", "hfa"):
+        add(check_http(rail_model(rail), rail))
+    add(check_router(rail_model("fa2")))
+    for i, (rail, codec) in enumerate(DISAGG_RUNS):
+        add(check_disagg(rail_model(rail), rail, codec, lifecycle=i == 0))
+    # The recording and timing wrappers close over their engines, a cycle
+    # each: collect them, so their pools are freed before the next phase.
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"serving_stack: phase wall {time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -2732,8 +3276,7 @@ def profile_engine(steps: int = 10, warm: int = 30) -> None:
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl="fa2")
     model = LM(cfg, device="cuda").init(
         torch.Generator(device="cuda").manual_seed(0))
-    eng = ServingEngine(model, max_batch=8, page_size=16, max_seq=2048,
-                        prefill_budget=512)
+    eng = stack_engine(model)
     reqs = workload(cfg.vocab_size)
     for i in range(warm):
         if i < len(reqs):
@@ -2912,7 +3455,7 @@ def main() -> int:
         return 1
     phases = sys.argv[1:] or ["kernels", "pools", "reference", "engine",
                               "engine_codecs", "engine_sampled",
-                              "dense_serve", "train"]
+                              "serving_stack", "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -2989,8 +3532,12 @@ def main() -> int:
     for phase, run in (("engine", engine),
                        ("engine_codecs", engine),
                        ("engine_sampled", check_engine_sampled),
+                       ("serving_stack", check_serving_stack),
                        ("dense_serve", check_dense_serve),
                        ("train", check_train)):
+        if phase in ("dense_serve", "train"):   # the engine phases' models
+            rail_model.cache_clear()
+            torch.cuda.empty_cache()
         if phase in phases:
             for n, c in run().items():       # launches of the phase's path
                 totals[n] = totals.get(n, 0) + c

@@ -45,6 +45,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 DENSE_KV_TILE = 128
 
 _lib = None
+_lib_lock = threading.Lock()      # one build and load for every thread
 # The 16 PWL LUT values, as a host array the entry points copy from.
 _LUT = (ctypes.c_float * 16)(*lns.pwl_lut16().tolist())
 # exp2_neg(d) for d < 1024 (0 beyond), the datapath kernel's correction
@@ -101,6 +102,16 @@ KV_SAME, KV_INT8, KV_BF16 = 0, 1, 2
 paged_launches = {"prefill": {"tc": 0, "simt": 0},
                   "decode": {"v2": 0, "simt": 0},
                   "verify": {"v2": 0, "simt": 0}}
+# Router replicas step their engines on threads of their own, so a count
+# is taken under a lock (``+=`` on a dict entry can lose an update).
+_count_lock = threading.Lock()
+
+
+def _count_paged(kind: str, route: str) -> None:
+    with _count_lock:
+        paged_launches[kind][route] += 1
+
+
 # Launches of the FA-2 backward by kernel: "tc" the tensor-core kernels
 # (bf16 inputs and cotangent), "simt" the CUDA-core ones (an f32
 # cotangent).
@@ -208,14 +219,19 @@ def build(force: bool = False) -> Path:
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use).  Raises without a
-    card: these kernels have no CPU fallback."""
+    card: these kernels have no CPU fallback.  Threads that make their
+    first call at once (the engine steps of several replicas, each on its
+    own executor thread) build once: ``build`` names its object files by
+    pid, which threads share."""
     global _lib
     if _lib is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the attention kernels run "
-                               "only on the card")
-        lib = ctypes.CDLL(str(build()))
-        _lib = bind(lib)
+        with _lib_lock:
+            if _lib is None:
+                if not torch.cuda.is_available():
+                    raise RuntimeError("no CUDA device: the attention "
+                                       "kernels run only on the card")
+                lib = ctypes.CDLL(str(build()))
+                _lib = bind(lib)
     return _lib
 
 
@@ -338,7 +354,7 @@ def launch_paged(entry: str, q: torch.Tensor, k_pages: torch.Tensor,
     check(err, entry)
     kind = {"paged_decode_fwd": "decode", "paged_prefill_fwd": "prefill",
             "paged_verify_fwd": "verify"}
-    paged_launches[kind[entry]]["simt"] += 1
+    _count_paged(kind[entry], "simt")
     return o, m, l
 
 
@@ -392,7 +408,7 @@ def launch_paged_prefill(q, k_pages, v_pages, page_table, start_pos,
         ctypes.c_float(scale), int(use_hfa),
         ctypes.cast(_LUT, ctypes.c_void_p), _stream())
     check(err, entry)
-    paged_launches["prefill"]["tc"] += 1
+    _count_paged("prefill", "tc")
     return o, m, l
 
 
@@ -576,7 +592,7 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
                      [kv_lens], rows=q.shape[2], row_blocks=1, splits=splits,
                      scale=scale, use_hfa=use_hfa, k_scales=k_scales,
                      v_scales=v_scales)
-    paged_launches["decode"]["v2"] += 1
+    _count_paged("decode", "v2")
     return out
 
 
@@ -608,7 +624,7 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
                      [seq_lens, chunk_lens], rows=g * kw,
                      row_blocks=row_blocks, splits=splits, scale=scale,
                      use_hfa=use_hfa, k_scales=k_scales, v_scales=v_scales)
-    paged_launches["verify"]["v2"] += 1
+    _count_paged("verify", "v2")
     return out
 
 

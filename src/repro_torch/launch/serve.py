@@ -217,6 +217,24 @@ def main(argv=None):
     print("sample:", finished[0].tokens[:12])
 
 
+def _paged_supported(cfg) -> bool:
+    """Archs the paged engine can serve today: rope-positioned,
+    attention-only stacks with token-only prompts (no Mamba per-slot
+    state, no encoder cross caches, no patch/frame prefixes)."""
+    return (cfg.pos_emb == "rope"
+            and all(k == "attn" for k in cfg.layer_kinds())
+            and cfg.family not in ("encdec", "vlm"))
+
+
+def refuse_parallel(tp: int = 1, dp: int = 1) -> None:
+    """The serving CLIs' ``--tp`` / ``--dp``: tensor and data parallel
+    serving is not ported yet."""
+    if tp > 1 or dp > 1:
+        raise NotImplementedError(
+            f"--tp {tp} --dp {dp}: tensor- and data-parallel serving is not "
+            "ported yet (ROADMAP.md Queue 1 item 11)")
+
+
 def _sync(device) -> None:
     import torch
     if device.type == "cuda":

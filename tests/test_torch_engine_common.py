@@ -1,7 +1,9 @@
 """Shared workload for the engine parity tests (test_torch_engine_fa2.py,
 test_torch_engine_hfa.py, test_torch_engine_sampling.py,
-test_torch_engine_groups.py and test_torch_engine_codecs_*.py); this
-module holds no tests of its own.
+test_torch_engine_groups.py and test_torch_engine_codecs_*.py) and the
+serving stack's (test_torch_frontend.py, test_torch_http.py,
+test_torch_router.py, test_torch_disagg.py: :func:`stack`); this module
+holds no tests of its own.
 
 The reference's ``ServingEngine`` and the port's serve the same greedy
 shared-prefix workload on the reduced qwen3-1.7b (weights converted with
@@ -197,3 +199,54 @@ def _close_lps(got, want, tol):
         assert (a is None) == (b is None)
         if b is not None:
             assert abs(a - b) <= tol, (a, b)
+
+
+# The serving stack over the engine (test_torch_frontend.py,
+# test_torch_http.py, test_torch_router.py, test_torch_disagg.py): each
+# package's names, and an engine builder over the shared models, so one
+# scenario function drives either package.
+STACK_KW = dict(max_batch=4, page_size=4, max_seq=64)
+
+
+def stack(pkg, impl="fa2"):
+    """The serving names of package ``pkg`` ("ref" or "port") and
+    ``engine(**kw)``, an engine over :func:`models`' model of ``impl``
+    with :data:`STACK_KW` as defaults (the port's on the CPU)."""
+    import types
+    if pkg == "ref":
+        import repro.serving as mod
+        from repro.serving import disagg, frontend, http, router
+    else:
+        import repro_torch.serving as mod
+        from repro_torch.serving import disagg, frontend, http, router
+    jm, params, tm = models(impl)
+
+    def engine(**kw):
+        kw = {**STACK_KW, **kw}
+        if pkg == "ref":
+            return mod.ServingEngine(jm, params, **kw)
+        return mod.ServingEngine(tm, device="cpu", **kw)
+
+    return types.SimpleNamespace(
+        pkg=pkg, mod=mod, frontend=frontend, http=http, router=router,
+        disagg=disagg, engine=engine, vocab=tm.cfg.vocab_size,
+        **{name: getattr(mod, name) for name in mod.__all__})
+
+
+def prompt(vocab, seed, n):
+    return np.random.default_rng(seed).integers(1, vocab, n).tolist()
+
+
+def pool_clean(engine):
+    """Every page back in the allocator, bookkeeping consistent, no work
+    left."""
+    engine.cache.check_invariants()
+    assert engine.cache.available_page_count == engine.cache.num_pages
+    assert not engine.sched.has_work
+
+
+def finished_key(fr):
+    """What a client observes of a FinishedRequest, timing aside."""
+    comps = None if fr.completions is None else \
+        [(c.tokens, c.branch, c.reason) for c in fr.completions]
+    return (fr.rid, fr.tokens, fr.reason, comps)

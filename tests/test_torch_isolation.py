@@ -4,14 +4,20 @@
   subprocess where ``jax`` and ``repro`` cannot be imported.
 * Without a card, the default device (``cuda``) raises instead of
   falling back: building the LM, the engine or the trainer (``launch/
-  train.py``), and loading or launching the kernels.
+  train.py``), the serving CLIs (``serve_async``, ``serve_http``), an
+  ``AsyncFrontend`` stepping an engine on a card, and loading or
+  launching the kernels.
+* ``cuda_lib.library()`` builds once when threads make their first call
+  at once.
 * What the port does not cover yet is refused with a clear error, and
   every attention impl of the reference runs.
 """
+import asyncio
 import dataclasses
 import os
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import pytest
@@ -27,10 +33,13 @@ from repro_torch.kernels import hfa_datapath as tdp
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import paged_decode as tpd
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import serve_async as tserve_async
+from repro_torch.launch import serve_http as tserve_http
 from repro_torch.launch import train as ttrain
 from repro_torch.optim import build_optimizer
 from repro_torch.models.model import LM
-from repro_torch.serving import Request, SamplingParams, ServingEngine
+from repro_torch.serving import (AsyncFrontend, Request, SamplingParams,
+                                 ServingEngine)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -178,3 +187,78 @@ def test_engine_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(dataclasses.replace(cfg, optimizer="adafactor"),
                         lambda step: 1e-3)
+
+
+def test_serving_stack_entry_points_default_to_the_card():
+    """serve_async and serve_http default to cuda and raise without a
+    card; a frontend whose engine is on a card fails its stream and its
+    later submits when no card is there, instead of stepping on the
+    CPU."""
+    _no_card()
+    for cli in (tserve_async, tserve_http):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main(["--arch", "qwen3-1.7b", "--reduced", "--smoke"])
+    eng = ServingEngine(_small_lm(), device="cpu", max_seq=32, page_size=4)
+    eng.device = torch.device("cuda", 0)
+
+    async def main():
+        fe = AsyncFrontend(eng)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            async for _ in fe.submit(Request(rid=0, prompt=[1, 2, 3],
+                                             max_new_tokens=2)):
+                pass
+        assert fe.failed
+        with pytest.raises(RuntimeError, match="frontend failed"):
+            fe.submit(Request(rid=1, prompt=[1], max_new_tokens=1))
+        await fe.close()
+
+    asyncio.run(main())
+    assert eng.stats["steps"] == 0
+
+
+def test_kernel_library_builds_once_under_concurrent_first_calls(
+        monkeypatch):
+    """Eight threads make their first ``library()`` call at once (the
+    engines of several replicas, each stepped on its own thread): one
+    build, one load, one bind, and every thread gets the same library."""
+    calls = {"build": 0, "cdll": 0, "bind": 0}
+    lib = object()
+
+    def build():
+        calls["build"] += 1
+        threading.Event().wait(0.05)     # a build takes a while
+        return "libhfa.so"
+
+    def cdll(path):
+        calls["cdll"] += 1
+        return lib
+
+    def bind(handle):
+        calls["bind"] += 1
+        return handle
+
+    monkeypatch.setattr(cuda_lib, "_lib", None)
+    monkeypatch.setattr(cuda_lib.torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(cuda_lib, "build", build)
+    monkeypatch.setattr(cuda_lib.ctypes, "CDLL", cdll)
+    monkeypatch.setattr(cuda_lib, "bind", bind)
+    start = threading.Barrier(8)
+    got = []
+
+    def first_call():
+        start.wait(timeout=10)
+        got.append(cuda_lib.library())
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=first_call) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=30)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert calls == {"build": 1, "cdll": 1, "bind": 1}
+    assert len(got) == 8 and all(g is lib for g in got)

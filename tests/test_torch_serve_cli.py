@@ -1,11 +1,15 @@
-"""The port's serve entry point against the reference's: the weights
+"""The port's serve entry points against the reference's: the weights
 ``LM.init_reference(seed)`` draws (the reference's ``LM.init(PRNGKey(
 seed))``: f32 within 3 ulps - XLA's f32 erf_inv uses its own log1p -
 and bf16 bit for bit) and, for the same flags on the CPU, the same
 ``sample:`` token ids, dense and paged - greedy, and with seeded
 sampling and speculation, a sequence group, beam search and logprobs
 (the same ``speculation``, ``sequence groups``, completion and
-``logprobs rid`` lines too)."""
+``logprobs rid`` lines too).  ``serve_async`` prints the reference's
+``sample:`` line for an open loop whose requests all arrive at once, and
+its ``--smoke`` runs; ``serve_http --smoke`` passes its built-in client,
+one replica and two behind the router; both refuse ``--tp`` (and
+``serve_http`` ``--dp``) above 1 with a pointer to the roadmap."""
 import functools
 import sys
 
@@ -17,10 +21,13 @@ import jax.numpy as jnp
 import torch
 
 from repro.launch import serve as jserve
+from repro.launch import serve_async as jserve_async
 from repro.models import model as jmodel
 from repro_torch.configs import get_config
 from repro_torch.core import jax_random as jr
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import serve_async as tserve_async
+from repro_torch.launch import serve_http as tserve_http
 from repro_torch.models import convert
 from repro_torch.models.model import LM
 from test_torch_dense_serve import ref_params  # noqa: F401
@@ -65,19 +72,20 @@ def _one_reference_model_a_config():
         yield
 
 
-def _cli_lines(flags, capsys, keep=("sample:",)):
-    """The lines starting with ``keep`` that each package's serve entry
-    point prints for ``flags`` (the port on the CPU)."""
+def _cli_lines(flags, capsys, keep=("sample:",), cli=(jserve, tserve)):
+    """The lines starting with ``keep`` that each package's entry point
+    ``cli`` (reference module, port module) prints for ``flags`` (the
+    port on the CPU)."""
     lines = {}
     for name in ("ref", "port"):
         if name == "ref":
             argv, sys.argv = sys.argv, ["serve"] + flags
             try:
-                jserve.main()
+                cli[0].main()
             finally:
                 sys.argv = argv
         else:
-            tserve.main(flags + ["--device", "cpu"])
+            cli[1].main(flags + ["--device", "cpu"])
         lines[name] = [ln for ln in capsys.readouterr().out.splitlines()
                        if ln.startswith(keep)]
     return lines["ref"], lines["port"]
@@ -114,3 +122,51 @@ def test_serve_cli_request_flags_print_the_reference_lines(name, capsys):
         "logprobs rid"))
     assert got == want
     assert len(want) > 1 and want[-1].startswith("sample:")
+
+
+def test_serve_async_prints_the_reference_sample(capsys):
+    """An open loop whose six requests all arrive at t=0 (``--rate 0``):
+    the drive loop admits them in one step on both packages, so the
+    greedy streams and the ``sample:`` line are the reference's."""
+    flags = ["--arch", "qwen3-1.7b", "--reduced", "--batch", "4",
+             "--prompt-len", "16", "--steps", "8", "--requests", "6",
+             "--rate", "0"]
+    want, got = _cli_lines(flags, capsys, cli=(jserve_async, tserve_async))
+    assert got == want and len(want) == 1
+
+
+def test_serve_async_smoke_runs_on_the_cpu(capsys):
+    """``--smoke`` with mid-stream cancels: every request ends (its
+    length, or cancelled), the pool is clean (``main`` checks it) and
+    each latency class is summarised."""
+    records = tserve_async.main(["--arch", "qwen3-1.7b", "--reduced",
+                                 "--device", "cpu", "--smoke",
+                                 "--cancel-every", "3"])
+    out = capsys.readouterr().out
+    assert len(records) == 6 and "open loop: 6 requests" in out
+    assert {r["reason"] for r in records} <= {"length", "eos", "cancelled"}
+    assert sum(r["reason"] == "cancelled" for r in records) >= 1
+    assert "sample:" in out
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_serve_http_smoke_passes_on_the_cpu(replicas, capsys):
+    """The built-in client over a loopback port: healthz, stats, a greedy
+    and a sampled tenant stream, a disconnect that frees its pages; with
+    two replicas the router's spread, prefix hit and clean pools."""
+    with pytest.raises(SystemExit) as ei:
+        tserve_http.main(["--arch", "qwen3-1.7b", "--reduced", "--device",
+                          "cpu", "--smoke", "--replicas", str(replicas)])
+    out = capsys.readouterr().out
+    assert ei.value.code == 0, out
+    assert "smoke: OK" in out and f"replicas {replicas}" in out
+
+
+@pytest.mark.parametrize("cli,flag", [(tserve_async, "--tp"),
+                                      (tserve_http, "--tp"),
+                                      (tserve_http, "--dp")])
+def test_serving_clis_refuse_tensor_and_data_parallel(cli, flag):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md Queue 1 item 11"):
+        cli.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
+                  "--smoke", flag, "2"])
