@@ -104,8 +104,8 @@ Phases, in order; any failure exits non-zero and prints no result line:
    decode and verify on v2; log16's streams must equal the fp spec_k 0
    run's token for token (at bf16 compute a log16 pool holds the K/V's
    bf16 bits); int8's agreement with fp is printed, not asserted.
-   Engine, sampled (``engine_sampled``).  The same model and workload
-   with seeded sampling (temperature 0.8, top-k 50, top-p 0.95,
+   Engine, sampled (``engine_sampled``).  The same workload with seeded
+   sampling (temperature 0.8, top-k 50, top-p 0.95,
    repetition penalty 1.1, seed = rid), rid 0 an n=4 group, rid 1
    best_of=3, rid 2 a beam-4 search returning 4 hypotheses, rid 3 with
    logprobs, on both rails at spec_k 0, 4 and "auto": every request and
@@ -113,17 +113,21 @@ Phases, in order; any failure exits non-zero and prints no result line:
    cache invariants hold after every step, beam scores are ranked and
    negative, every logprob is finite and <= 0, and every prefill (the
    all-position logprob prefill included) runs on the tensor cores and
-   every decode and verify on v2.  A temperature-0.8 top_k=1 run must
-   equal a greedy run token for token; the whole-prompt prefill (no
-   start_pos) must run every layer on the tensor cores and give the
-   chunked prefill's last logits; JAX's threefry keys, bits, uniform
+   every decode and verify on v2.  These sampled runs take rail_model's
+   weights cut to their first 4 of 28 layers (``CUT_LAYERS``, full width,
+   the same kernels at the same shapes): a cut of depth, because at full
+   depth this phase took 226-308 s and the script up to 1,049.2 s of its
+   1,200 s limit.  The rest is at full depth: a temperature-0.8 top_k=1
+   run must equal the engine phase's greedy run token for token (a
+   greedy run of its own when that phase did not run); the whole-prompt
+   prefill (no start_pos) must run every layer on the tensor cores and
+   give the chunked prefill's last logits; JAX's threefry keys, bits, uniform
    draws and randint on the card must equal the CPU's bit for bit; and
    ``sample_tokens`` on a captured batch of card logits must choose the
    CPU's tokens, a row whose choice sits within 1e-6 of the top-p
    boundary excepted (counted).  Walls, tok/s, launches and the
    sampler's time are printed.  The engine phases share each rail's
-   model (``rail_model``), and engine_sampled holds the top_k=1 run to
-   the engine phase's greedy run when that phase ran.
+   model (``rail_model``).
    Serving stack (``serving_stack``).  The same models and engine
    settings behind the stack a user calls.  HTTP: the 16-request
    workload as concurrent SSE streams through ``HttpServer`` over an
@@ -150,6 +154,36 @@ Phases, in order; any failure exits non-zero and prints no result line:
    max_new_tokens=1, a mid-handoff abort and a stage fallback leave both
    pools clean; the copy's ms a handoff by events beside its bound (the
    pages' bytes read and written at 3.35 TB/s).
+   Tensor and data parallel (``tp``).  The workload and engine settings
+   of the engine phase on a serving mesh (``launch/mesh.py``), at full
+   width with rail_model's weights cut to their first 4 of 28 layers
+   (``CUT_LAYERS``: sharing one card, a run costs about a second a layer):
+   rank 0 is this process and drives the engine, the other ranks are
+   spawned and follow it (``launch/ranks.py``), every rank on this card
+   with the gloo backend, which moves the collectives' tensors through
+   host memory.
+   First, on this rank alone and without collectives: each shard's
+   decode, verify and prefill over its KV heads at the kernels phase's
+   shapes, padded with the merge's neutral element and merged by Eq. 16,
+   must equal the single call's finalize on every live row, both rails,
+   tp 2 and 4.  Then the 16-request greedy workload at tp 2 on both rails
+   at spec_k 0 and 4, at tp 2 x dp 2 (4 ranks) on both rails at spec_k 0,
+   and at tp 2 on int8 pools on fa2: every rank's streams must equal the
+   single-shard engine's token for token (the same cut model run here
+   first, in this process).  That
+   equality is expected, not lucky: a head's triplet comes from one
+   shard, the merge with the neutral element is an fp identity, and each
+   shard's v2 decode and verify split its walks as the single call does
+   (the split rule is sized by the whole call's (slot, kv head) pairs,
+   ``cuda_lib.decode_splits``), so every head is computed as the single
+   shard computes it.  Each rank's measured pool (``pool_bytes_per_shard``)
+   must be half the single shard's, ``triplet_bytes`` the reference's
+   formula over the run's paged calls, the ranks' stats equal, and each
+   rank's paged launches on the engine phase's routes.  Walls and the
+   tp-over-single ratio are printed beside the card's name and power
+   limit.  What one card cannot check: NCCL (it refuses two ranks on one
+   device) and anything across cards; the walls time gloo through host
+   memory, not NVLink.
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
    0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
    loop of ``serve --dense``: 8 prompts of 512 tokens from
@@ -223,10 +257,15 @@ from repro_torch.kernels import ref  # noqa: E402
 from repro_torch.core import jax_random as jr  # noqa: E402
 from repro_torch.core import lns  # noqa: E402
 from repro_torch.data import DataPipeline  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import ranks as rank_programs  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.mesh import (make_tp_dp_mesh,  # noqa: E402
+                                     make_tp_mesh, run_ranks)
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import build_optimizer  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
+from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.runtime.trainer import (  # noqa: E402
     Trainer, TrainerConfig, make_train_step)
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -2038,17 +2077,20 @@ def workload(vocab: int) -> list[Request]:
 
 
 def serve(model, reqs: list, spec_k, capture=None,
-          kv_codec: str = "fp") -> tuple[dict, dict]:
+          kv_codec: str = "fp", mesh=None) -> tuple[dict, dict]:
     """Serve ``reqs`` (one arrival a step) through ``ServingEngine`` at
     full width (max_batch 8, page 16, prefill budget 512, pools of
     ``kv_codec``), the cache invariants checked after every step and
-    every logit checked finite.
+    every logit checked finite; under a ``mesh`` as its rank 0, ending
+    with ``close()``.
     ``capture(eng, logits)`` sees each decode and verify step's logits.
     Returns (finished by rid, {"launches", "wall_s", "stats",
     "all_logits_prefill": the prefill launches by route of the calls
-    with ``return_all_logits``})."""
+    with ``return_all_logits``, "calls": each paged call's (batch,
+    rows), "pool_bytes_per_shard"})."""
     finite = torch.ones((), dtype=torch.bool, device="cuda")
     all_logits = {"calls": 0, "tc": 0, "simt": 0}
+    calls = []
     holder = {}
     originals = {}
     for meth in ("paged_prefill", "paged_decode_step", "paged_verify_step"):
@@ -2058,6 +2100,7 @@ def serve(model, reqs: list, spec_k, capture=None,
         def checked(*a, _orig=orig, _meth=meth, **k):
             nonlocal finite
             before = dict(cuda_lib.paged_launches["prefill"])
+            calls.append(tuple(a[1].shape))
             logits, layers = _orig(*a, **k)
             finite = finite & torch.isfinite(logits).all()
             if k.get("return_all_logits"):
@@ -2070,7 +2113,7 @@ def serve(model, reqs: list, spec_k, capture=None,
             return logits, layers
         setattr(model, meth, checked)
     try:
-        eng = stack_engine(model, spec_k=spec_k, kv_codec=kv_codec)
+        eng = stack_engine(model, spec_k=spec_k, kv_codec=kv_codec, mesh=mesh)
         holder["eng"] = eng
         cfg = model.cfg
         kv_bytes = eng.bytes_per_token()      # 114,688 B at qwen3-1.7b (fp)
@@ -2084,12 +2127,15 @@ def serve(model, reqs: list, spec_k, capture=None,
         done = []
         step = 0
         arrivals = [(i, r) for i, r in enumerate(reqs)]
-        while arrivals or eng.sched.has_work:
-            while arrivals and arrivals[0][0] <= step:
-                eng.submit(arrivals.pop(0)[1])
-            done.extend(eng.step())
-            eng.cache.check_invariants()
-            step += 1
+        try:
+            while arrivals or eng.sched.has_work:
+                while arrivals and arrivals[0][0] <= step:
+                    eng.submit(arrivals.pop(0)[1])
+                done.extend(eng.step())
+                eng.cache.check_invariants()
+                step += 1
+        finally:
+            eng.close()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _paged_counts()
@@ -2101,23 +2147,19 @@ def serve(model, reqs: list, spec_k, capture=None,
     return {f.rid: f for f in done}, {
         "launches": launches, "wall_s": wall, "stats": dict(eng.stats),
         "all_logits_prefill": all_logits, "pool_bytes": eng.pool_bytes(),
-        "bytes_per_token": kv_bytes}
+        "bytes_per_token": kv_bytes, "calls": calls,
+        "pool_bytes_per_shard": eng.pool_bytes_per_shard()}
 
 
-def run_engine(model, spec_k: int,
-               kv_codec: str = "fp") -> tuple[dict, dict, float]:
+def run_engine(model, spec_k: int, kv_codec: str = "fp",
+               mesh=None) -> tuple[dict, dict, float]:
     reqs = workload(model.cfg.vocab_size)
-    done, info = serve(model, reqs, spec_k, kv_codec=kv_codec)
+    done, info = serve(model, reqs, spec_k, kv_codec=kv_codec, mesh=mesh)
     streams = {rid: f.tokens for rid, f in done.items()}
     if sorted(streams) != list(range(len(reqs))) or any(
             len(t) != 64 for t in streams.values()):
         raise AssertionError("not every request finished with 64 tokens")
     return streams, info, info["wall_s"]
-
-
-# The engine phase's greedy fp spec_k 0 streams and wall by rail, which
-# the engine_sampled phase's top_k=1 run is held to (the same model).
-GREEDY_RUNS: dict = {}
 
 
 @functools.lru_cache(maxsize=None)
@@ -2134,6 +2176,34 @@ def rail_model(rail: str) -> LM:
     print(f"model [{rail}]: qwen3-1.7b full width, {cfg.n_layers} layers, "
           f"{n_params} parameters, init {time.perf_counter() - t0:.1f} s")
     return model
+
+
+# Depth of the engine_sampled phase's sampled runs and of the tp phase's
+# model: rail_model's weights, their first 4 of 28 layers, at full width.
+# The engine phase runs the main path at full depth; these runs' checks
+# hold at any depth, and the script's walls vary up to 1.6x between
+# machines (878.6 and 1,049.2 s of the 1,200 s limit on two of them with
+# the sampled runs at full depth, PERF.md).  The tp phase's ranks share
+# one card and a gather a layer: ~1-1.4 s a layer a tp 2 run (28 layers:
+# 26-55 s).
+CUT_LAYERS = 4
+
+# The engine phase's greedy fp spec_k 0 streams and wall by rail (full
+# depth), which the engine_sampled phase's top_k=1 run is held to.
+GREEDY_RUNS: dict = {}
+
+
+def cut_spec(rail: str) -> dict:
+    """The cut model as every rank builds it (``launch/ranks.py``):
+    rail_model's config and seed, cut to CUT_LAYERS layers."""
+    return {"cfg": dataclasses.replace(get_config("qwen3-1.7b"),
+                                       attn_impl=rail),
+            "seed": 0, "layers": CUT_LAYERS}
+
+
+@functools.lru_cache(maxsize=None)
+def cut_model(rail: str) -> LM:
+    return rank_programs.build_lm(cut_spec(rail), torch.device("cuda", 0))
 
 
 def _reset_paged_counters() -> None:
@@ -2487,15 +2557,16 @@ def check_legacy_prefill(model) -> None:
 
 
 def check_engine_sampled() -> dict:
-    """Full-width qwen3-1.7b, both rails: the sampled workload at spec_k
-    0, 4 and "auto"; a greedy run and a temperature-0.8 top_k=1 run of
-    the engine phase's workload, which must agree token for token; the
+    """qwen3-1.7b at full width, both rails: the sampled workload at
+    spec_k 0, 4 and "auto" cut to CUT_LAYERS layers; at full depth a
+    temperature-0.8 top_k=1 run of the engine phase's workload, which must
+    equal the engine phase's greedy run token for token, and the
     whole-prompt prefill; threefry and the sampler card vs CPU.  Returns
     the launches of the engine runs."""
     check_threefry()
     totals = {n: 0 for n in PAGED_ROWS}
     for rail in ("fa2", "hfa"):
-        model = rail_model(rail)
+        model = cut_model(rail)
         cfg = model.cfg
         reqs = sampled_workload(cfg.vocab_size)
         captured = {}
@@ -2544,26 +2615,27 @@ def check_engine_sampled() -> dict:
             agree = _agreement(streams[0], streams[spec_k])
             print(f"engine_sampled [{rail}]: spec_k={spec_k} vs spec_k=0 "
                   f"streams agree on {agree}")
+        full = rail_model(rail)
         if rail in GREEDY_RUNS:    # the engine phase's run of this model
             greedy, wall_g = GREEDY_RUNS[rail]
         else:
-            greedy, info_g, wall_g = run_engine(model, 0)
+            greedy, info_g, wall_g = run_engine(full, 0)
             for n in PAGED_ROWS:
                 totals[n] += info_g["launches"][n]
         top1 = [dataclasses.replace(r, sampling=SamplingParams(
             temperature=0.8, top_k=1, seed=r.rid))
             for r in workload(cfg.vocab_size)]
-        done, info = serve(model, top1, 0)
+        done, info = serve(full, top1, 0)
         same = {rid: f.tokens for rid, f in done.items()} == greedy
-        print(f"engine_sampled [{rail}]: greedy run wall {wall_g:.3f} s, "
-              f"temperature 0.8 top_k=1 run wall {info['wall_s']:.3f} s; "
-              f"streams equal: {same}")
+        print(f"engine_sampled [{rail}]: at {full.cfg.n_layers} layers, "
+              f"greedy run wall {wall_g:.3f} s, temperature 0.8 top_k=1 run "
+              f"wall {info['wall_s']:.3f} s; streams equal: {same}")
         if not same:
             raise AssertionError(f"[{rail}] the top_k=1 run differs from the "
                                  f"greedy run")
         for n in PAGED_ROWS:
             totals[n] += info["launches"][n]
-        check_legacy_prefill(model)
+        check_legacy_prefill(full)
         check_sampler_card_vs_cpu(captured)
     return totals
 
@@ -3051,6 +3123,171 @@ def check_serving_stack() -> dict:
     return totals
 
 
+# ------------------------------------------------------------ phase 4d
+# The tp phase's runs at tp 2: (dp, rail, spec_k, codec).
+TP_RUNS = ((1, "fa2", 0, "fp"), (1, "fa2", 4, "fp"), (1, "hfa", 0, "fp"),
+           (1, "hfa", 4, "fp"), (1, "fa2", 0, "int8"), (2, "fa2", 0, "fp"),
+           (2, "hfa", 0, "fp"))
+TP_TIMEOUT = 300.0      # s a collective or a rank's end may take
+
+
+def _shard_partials(name: str, args, impl: str, tp: int, shard: int):
+    """Shard ``shard`` of ``tp``'s triplet of a kernels-phase case: its
+    KV heads of q and of the pools, the split rule sized for the whole
+    call (``pairs``), no write and no collective."""
+    q, kp, vp, pt, *lens = args
+    hkv = kp.shape[2]
+    hs = collectives.head_slice(hkv, tp, shard)
+    pools = collectives.shard_pools({"k_pages": kp, "v_pages": vp}, tp,
+                                    shard)
+    qs = q[:, hs].contiguous()
+    kw = dict(impl=impl)
+    if name != "paged_prefill":
+        kw["pairs"] = q.shape[0] * hkv
+    fn = {"paged_decode": ops.paged_decode_partials,
+          "paged_verify": ops.paged_verify_partials,
+          "paged_prefill": ops.paged_prefill_partials}[name]
+    return fn(qs, pools["k_pages"], pools["v_pages"], pt, *lens, **kw)
+
+
+def check_tp_kernels() -> None:
+    """On this rank alone, without collectives: each shard's decode,
+    verify and prefill over its heads at the kernels phase's shapes,
+    padded with the neutral element and merged (Eq. 16, shard 0 first),
+    equal to the single call's finalize on every live row, both rails,
+    tp 2 and 4."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = kernel_cases(gen)
+    for name, (args, live, _, _) in cases.items():
+        hkv = args[1].shape[2]
+        for impl in ("fa2", "hfa"):
+            use_hfa = impl == "hfa"
+            o, m, ell = _shard_partials(name, args, impl, 1, 0)
+            want = decode_k.finalize_decode(o, ell, use_hfa=use_hfa)
+            for tp in (2, 4):
+                packed = torch.stack([collectives.pad_neutral(
+                    *_shard_partials(name, args, impl, tp, s), hkv,
+                    collectives.head_slice(hkv, tp, s)) for s in range(tp)])
+                got = collectives.merge_shards(packed, use_hfa=use_hfa)
+                rows = torch.as_tensor(np.asarray(live), device="cuda")
+                mask = rows[:, None, None, :].expand(*want.shape[:3],
+                                                     rows.shape[1])
+                g4 = got if got.dim() == 5 else got[:, :, :, None]
+                w4 = want if want.dim() == 5 else want[:, :, :, None]
+                if not torch.equal(g4[mask], w4[mask]):
+                    raise AssertionError(
+                        f"tp kernels [{name} {impl} tp={tp}]: the merged "
+                        f"shards differ from the single call on "
+                        f"{int((g4[mask] != w4[mask]).sum())} values")
+        print(f"tp kernels [{name}]: shards at tp 2 and 4, padded and "
+              f"merged, equal the single call on every live row, both "
+              f"rails")
+
+
+def _rank_rows(launches: dict) -> dict:
+    """A rank's paged launches by kind and route as rows."""
+    return {row: launches[key[0]][key[1]]
+            for row, (_, _, key, _) in PAGED_ROWS.items()}
+
+
+def check_tp() -> dict:
+    """The tp phase: tensor- and data-parallel serving on gloo ranks on
+    this one card.  Returns the launches by row over every rank."""
+    t0 = time.perf_counter()
+    check_tp_kernels()
+    totals = {n: 0 for n in list(PAGED_ROWS) + list(CODEC_ROWS)}
+    singles = {}
+    for _, rail, spec_k, codec in TP_RUNS:
+        if (rail, codec, spec_k) not in singles:
+            streams, info, _ = run_engine(cut_model(rail), spec_k,
+                                          kv_codec=codec)
+            singles[(rail, codec, spec_k)] = (streams, info)
+            for row, n in _row_launches(info["launches"], codec).items():
+                totals[row] += n
+    cfg = cut_model("fa2").cfg
+    for dp in (1, 2):
+        runs = [r for r in TP_RUNS if r[0] == dp]
+        jobs = [dict(mesh=(2, dp), model=rail,
+                     engine=dict(STACK_KW, spec_k=spec_k, kv_codec=codec))
+                for _, rail, spec_k, codec in runs]
+        specs = {rail: cut_spec(rail) for _, rail, _, _ in runs}
+
+        def lead():
+            kw = dict(device="cuda", backend="gloo")
+            mesh = make_tp_mesh(2, **kw) if dp == 1 else \
+                make_tp_dp_mesh(2, dp, **kw)
+            return [run_engine(cut_model(rail), spec_k, kv_codec=codec,
+                               mesh=mesh)[:2]
+                    for _, rail, spec_k, codec in runs]
+
+        t1 = time.perf_counter()
+        mine, theirs = run_ranks(
+            lead, rank_programs.follow_jobs, 2 * dp,
+            args=({"device": "cuda", "backend": "gloo"}, specs, jobs),
+            device="cuda", backend="gloo", timeout=TP_TIMEOUT)
+        print(f"tp [tp=2 dp={dp}]: {2 * dp} gloo ranks on cuda:0, "
+              f"{len(runs)} runs in {time.perf_counter() - t1:.1f} s "
+              f"(spawn, model init and the runs)")
+        for i, (_, rail, spec_k, codec) in enumerate(runs):
+            label = f"tp [{rail} tp=2 dp={dp} spec_k={spec_k} {codec}]"
+            streams, info = mine[i]
+            want, single = singles[(rail, codec, spec_k)]
+            reps = [(streams, info["stats"], info["pool_bytes_per_shard"],
+                     info["launches"])] + [
+                ({rid: f.tokens for rid, f in t[i]["finished"].items()},
+                 t[i]["stats"], t[i]["pool_bytes_per_shard"],
+                 _rank_rows(t[i]["launches"])) for t in theirs]
+            # The reference's count: tp shards each gather tp padded
+            # triplets, (d_head + 2) f32 a (slot, row, head, layer).
+            tri = sum(2 * 2 * b * rows * cfg.n_heads * (cfg.d_head + 2) * 4
+                      * cfg.n_layers for b, rows in info["calls"])
+            per_rank = []
+            for rank, (st_, stats, pb, la) in enumerate(reps):
+                if st_ != want:
+                    raise AssertionError(
+                        f"{label}: rank {rank}'s streams differ from the "
+                        f"single-shard engine's on {_agreement(st_, want)}")
+                if pb * 2 != single["pool_bytes"]:
+                    raise AssertionError(f"{label}: rank {rank} holds {pb} "
+                                         f"B of pool, the single shard "
+                                         f"{single['pool_bytes']}")
+                if stats != reps[0][1] or stats["triplet_bytes"] != tri:
+                    raise AssertionError(f"{label}: rank {rank}'s stats "
+                                         f"differ, or triplet_bytes "
+                                         f"{stats['triplet_bytes']} != {tri}")
+                if codec == "fp":
+                    need = ["paged_prefill",
+                            "paged_decode" if spec_k == 0 else "paged_verify"]
+                    if any((la[n] > 0) != (n in need) for n in la):
+                        raise AssertionError(f"{label}: rank {rank}'s "
+                                             f"launches {la}, need only "
+                                             f"{need}")
+                    rows_ = {n: la[n] for n in PAGED_ROWS}
+                else:
+                    _check_codec_launches(rail, codec, spec_k, la)
+                    rows_ = _row_launches(la, codec)
+                for n, c in rows_.items():
+                    totals[n] += c
+                per_rank.append({n: c for n, c in la.items() if c})
+            wall, w1 = info["wall_s"], single["wall_s"]
+            print(f"{label}: wall {wall:.3f} s against the single shard's "
+                  f"{w1:.3f} s ({wall / w1:.3f}x), "
+                  f"{reps[0][1]['generated_tokens']} tokens; every rank's "
+                  f"streams equal the single-shard engine's; pool "
+                  f"{reps[0][2]} B a shard of {single['pool_bytes']} B; "
+                  f"triplets {tri} B; launches by rank {per_rank}")
+    print("tp: the collectives are gloo through host memory with every "
+          "rank on one card (NCCL takes one rank a card): the walls time "
+          "that, not NVLink; " + card_line())
+    print(f"tp: launches of the phase, every rank and the single-shard runs, "
+          f"by row {({n: c for n, c in totals.items() if c})}")
+    print(f"tp: phase wall {time.perf_counter() - t0:.1f} s")
+    cut_model.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return totals
+
+
 # ------------------------------------------------------------- phase 5
 SERVE_BATCH, SERVE_PROMPT, SERVE_STEPS, SERVE_MAX_SEQ = 8, 512, 64, 640
 SERVE_IMPLS = {"fa2": "fa2_fwd", "hfa_pallas": "hfa_fwd",
@@ -3455,7 +3692,7 @@ def main() -> int:
         return 1
     phases = sys.argv[1:] or ["kernels", "pools", "reference", "engine",
                               "engine_codecs", "engine_sampled",
-                              "serving_stack", "dense_serve", "train"]
+                              "serving_stack", "tp", "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -3533,10 +3770,12 @@ def main() -> int:
                        ("engine_codecs", engine),
                        ("engine_sampled", check_engine_sampled),
                        ("serving_stack", check_serving_stack),
+                       ("tp", check_tp),
                        ("dense_serve", check_dense_serve),
                        ("train", check_train)):
         if phase in ("dense_serve", "train"):   # the engine phases' models
             rail_model.cache_clear()
+            cut_model.cache_clear()
             torch.cuda.empty_cache()
         if phase in phases:
             for n, c in run().items():       # launches of the phase's path

@@ -443,16 +443,20 @@ def split_runs(pairs: int, max_runs: int, sms: int,
 
 
 def decode_splits(q: torch.Tensor, page_table: torch.Tensor, page: int,
-                  use_hfa: bool) -> int:
+                  use_hfa: bool, pairs: int | None = None) -> int:
     """Runs of the page walk the v2 decode splits each (slot, kv head)
     into: on the FA-2 rail about four blocks an SM (two waves of two; 8
     runs took 0.022 ms where 5 took 0.028 at the kernels-phase shape,
     ``chip_smoke.py decode_variants``), at most one run per 64-key step
     of the longest walk; 1 on the H-FA rail, whose result depends on
-    where the rescales fall."""
+    where the rescales fall.  ``pairs`` (default: q's B Hkv) is the
+    number of (slot, kv head) walks the rule sizes the grid for: a
+    tensor- or data-parallel shard passes the whole call's, so that each
+    of its walks is split as the single-shard call splits it (the split
+    moves the Eq. 16 merge's rounding)."""
     if use_hfa:
         return 1
-    return split_runs(q.shape[0] * q.shape[1],
+    return split_runs(q.shape[0] * q.shape[1] if pairs is None else pairs,
                       -(-page_table.shape[1] * page // 64),
                       sm_count(q.device), blocks_per_sm=4)
 
@@ -567,13 +571,13 @@ def _launch_v2(entry: str, q, k_pages, v_pages, page_table, lens, *,
 def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
                         scale: float, use_hfa: bool,
                         splits: int | None = None, k_scales=None,
-                        v_scales=None):
+                        v_scales=None, pairs: int | None = None):
     """Paged decode on the current stream, on the kernel
     :func:`paged_decode_route` picks; counted in :data:`paged_launches`.
     q (B, Hkv, G, d); returns the f32 triplet o~ (B, Hkv, G, d), m and l
     (B, Hkv, G).  On the v2 route ``splits`` (default
-    :func:`decode_splits`) > 1 splits each page walk across blocks, FA-2
-    rail only; 1 is the unsplit walk."""
+    :func:`decode_splits` for ``pairs`` walks) > 1 splits each page walk
+    across blocks, FA-2 rail only; 1 is the unsplit walk."""
     if paged_decode_route(k_pages.shape[1], use_hfa) == "simt":
         _require(q.dim() == 4 and splits in (None, 1),
                  f"paged_decode_fwd: q {tuple(q.shape)} (B, Hkv, G, d), "
@@ -587,7 +591,8 @@ def launch_paged_decode(q, k_pages, v_pages, page_table, kv_lens, *,
              f"paged_decode_fwd_v2: q {tuple(q.shape)}: (B, Hkv, G, d) with "
              f"1..{PAGED_V2_MAX_ROWS} query heads per KV head")
     if splits is None:
-        splits = decode_splits(q, page_table, k_pages.shape[1], use_hfa)
+        splits = decode_splits(q, page_table, k_pages.shape[1], use_hfa,
+                               pairs)
     out = _launch_v2("paged_decode_fwd_v2", q, k_pages, v_pages, page_table,
                      [kv_lens], rows=q.shape[2], row_blocks=1, splits=splits,
                      scale=scale, use_hfa=use_hfa, k_scales=k_scales,
@@ -600,14 +605,15 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
                         chunk_lens, *, scale: float, use_hfa: bool,
                         splits: int | None = None,
                         row_blocks: int | None = None, k_scales=None,
-                        v_scales=None):
+                        v_scales=None, pairs: int | None = None):
     """Paged verify on the current stream, on the kernel
     :func:`paged_verify_route` picks; counted in :data:`paged_launches`.
     q (B, Hkv, G, K, d); returns the f32 triplet o~ (B, Hkv, G, K, d), m
     and l (B, Hkv, G, K).  On the v2 route ``splits`` (default
-    :func:`verify_splits`; > 1 on the FA-2 rail only) and ``row_blocks``
-    (default :func:`verify_row_blocks`) shape the grid; 1 and 1 is one
-    unsplit walk a (slot, kv head)."""
+    :func:`verify_splits` for ``pairs`` (slot, kv head) walks, default B
+    Hkv; > 1 on the FA-2 rail only) and ``row_blocks`` (default
+    :func:`verify_row_blocks`) shape the grid; 1 and 1 is one unsplit
+    walk a (slot, kv head)."""
     b, hkv, g, kw = q.shape[:4]
     if paged_verify_route(g, kw, k_pages.shape[1], use_hfa) == "simt":
         return launch_paged("paged_verify_fwd", q, k_pages, v_pages,
@@ -617,7 +623,8 @@ def launch_paged_verify(q, k_pages, v_pages, page_table, seq_lens,
     if row_blocks is None:
         row_blocks = verify_row_blocks(g, kw, use_hfa)
     if splits is None:
-        splits = verify_splits(b * hkv * row_blocks,
+        splits = verify_splits((b * hkv if pairs is None else pairs)
+                               * row_blocks,
                                page_table.shape[1] * k_pages.shape[1],
                                use_hfa, sm_count(q.device))
     out = _launch_v2("paged_verify_fwd_v2", q, k_pages, v_pages, page_table,

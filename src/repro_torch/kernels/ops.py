@@ -197,14 +197,16 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 
 def paged_decode_partials(qg, k_pages, v_pages, page_table, kv_lens, *,
                           impl: str = "fa2", scale: float | None = None,
-                          codec=None, k_scales=None, v_scales=None):
+                          codec=None, k_scales=None, v_scales=None,
+                          pairs: int | None = None):
     """Paged decode partial triplet: (o~ (B,Hkv,G,d), m/l (B,Hkv,G)).
     ``codec`` (None: the raw fp pool) and the scale sidecars select the
-    page codec the kernels decode each tile with."""
+    page codec the kernels decode each tile with; ``pairs`` the (slot, kv
+    head) walks of the whole call a shard belongs to (the split rule)."""
     return paged_k.paged_decode_partial(
         qg.contiguous(), k_pages, v_pages, page_table, kv_lens,
         scale=scale, use_hfa=_use_hfa(impl), codec=codec,
-        k_scales=k_scales, v_scales=v_scales)
+        k_scales=k_scales, v_scales=v_scales, pairs=pairs)
 
 
 def paged_prefill_partials(qg, k_pages, v_pages, page_table, start_pos,
@@ -221,12 +223,13 @@ def paged_prefill_partials(qg, k_pages, v_pages, page_table, start_pos,
 def paged_verify_partials(qg, k_pages, v_pages, page_table, seq_lens,
                           chunk_lens, *, impl: str = "fa2",
                           scale: float | None = None, codec=None,
-                          k_scales=None, v_scales=None):
+                          k_scales=None, v_scales=None,
+                          pairs: int | None = None):
     """Paged speculative-verify partial triplet: shapes (B,Hkv,G,K,[d])."""
     return paged_v_k.paged_verify_partial(
         qg.contiguous(), k_pages, v_pages, page_table, seq_lens, chunk_lens,
         scale=scale, use_hfa=_use_hfa(impl), codec=codec,
-        k_scales=k_scales, v_scales=v_scales)
+        k_scales=k_scales, v_scales=v_scales, pairs=pairs)
 
 
 def _group(q: torch.Tensor, hkv: int) -> torch.Tensor:

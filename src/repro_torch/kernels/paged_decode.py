@@ -90,12 +90,17 @@ def paged_partial_plain(qg: torch.Tensor, k_pages: torch.Tensor,
     ``< kv_lens[b]``.  Fully masked rows come back as the neutral
     triplet (0, NEG_INF, 0).
     """
-    d = qg.shape[-1]
+    b, hkv, g, ell, d = qg.shape
     k_cache = _gathered(k_pages, k_scales, page_table, codec)
     v_cache = _gathered(v_pages, v_scales, page_table, codec)
     s_len = k_cache.shape[1]
-    s = torch.einsum("bhgld,bshd->bhgls", qg.to(torch.float32),
-                     k_cache) * _default_scale(d, scale)
+    # One matrix product a (slot, kv head) on contiguous operands, so a
+    # head's result does not depend on how many heads the pools hold (a
+    # tensor-parallel shard's share); einsum picks its layout by shape.
+    s = torch.matmul(
+        qg.to(torch.float32).reshape(b, hkv, g * ell, d),
+        k_cache.permute(0, 2, 3, 1).contiguous()).reshape(
+            b, hkv, g, ell, s_len) * _default_scale(d, scale)
     kv_ids = torch.arange(s_len, dtype=torch.int32, device=qg.device)
     mask = (kv_ids[None, None, :] <= q_pos[:, :, None]) & \
         (kv_ids[None, None, :] < kv_lens.to(torch.int32)[:, None, None])
@@ -109,7 +114,9 @@ def paged_partial_plain(qg: torch.Tensor, k_pages: torch.Tensor,
         p = torch.exp(s - m[..., None])
     p = torch.where(mask, p, torch.zeros_like(p))
     l = torch.sum(p, dim=-1)
-    o = torch.einsum("bhgls,bshd->bhgld", p, v_cache)
+    o = torch.matmul(p.reshape(b, hkv, g * ell, s_len),
+                     v_cache.permute(0, 2, 1, 3).contiguous()).reshape(
+                         b, hkv, g, ell, d)
     o = torch.where(live[..., None], o, torch.zeros_like(o))
     return o, m, l
 
@@ -131,7 +138,7 @@ def paged_decode_partial(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          kv_lens: torch.Tensor, *, scale: float | None = None,
                          use_hfa: bool = False, codec=None, k_scales=None,
-                         v_scales=None):
+                         v_scales=None, pairs: int | None = None):
     """Partial paged decode attention, one triplet per (slot, kv head).
 
     q (B, Hkv, G, d) grouped queries; pools (P, page, Hkv, d), encoded
@@ -140,6 +147,8 @@ def paged_decode_partial(q: torch.Tensor, k_pages: torch.Tensor,
     int32 (0 = free slot, which yields (0, NEG_INF, 0)).  Returns o~ (B,
     Hkv, G, d) f32 and m, l (B, Hkv, G) f32.  A CUDA tensor launches the
     kernel on :func:`kernel_pools`; a CPU tensor runs the plain version.
+    ``pairs``: the (slot, kv head) walks of the whole call when this is
+    one shard of it (``cuda_lib.decode_splits``; default B Hkv).
     """
     if q.device.type == "cpu":
         return paged_decode_partial_plain(q, k_pages, v_pages, page_table,
@@ -155,7 +164,7 @@ def paged_decode_partial(q: torch.Tensor, k_pages: torch.Tensor,
     out = cuda_lib.launch_paged_decode(
         q, kp, vp, page_table, kv_lens,
         scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa,
-        k_scales=ks, v_scales=vs)
+        k_scales=ks, v_scales=vs, pairs=pairs)
     launches += 1
     return out
 

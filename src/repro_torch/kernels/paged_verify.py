@@ -61,11 +61,14 @@ def paged_verify_partial(q: torch.Tensor, k_pages: torch.Tensor,
                          v_pages: torch.Tensor, page_table: torch.Tensor,
                          seq_lens: torch.Tensor, chunk_lens: torch.Tensor, *,
                          scale: float | None = None, use_hfa: bool = False,
-                         codec=None, k_scales=None, v_scales=None):
+                         codec=None, k_scales=None, v_scales=None,
+                         pairs: int | None = None):
     """Partial paged verify attention: q (B, Hkv, G, K, d); pools encoded
     by ``codec`` as ``paged_decode.paged_decode_partial`` takes them;
     returns o~ (B, Hkv, G, K, d) and m, l (B, Hkv, G, K), all f32.  Rows
-    at ``i >= chunk_lens[b]`` are garbage the caller ignores."""
+    at ``i >= chunk_lens[b]`` are garbage the caller ignores.
+    ``pairs``: the (slot, kv head) walks of the whole call when this is
+    one shard of it (``cuda_lib.verify_splits``; default B Hkv)."""
     if q.device.type == "cpu":
         return paged_verify_partial_plain(q, k_pages, v_pages, page_table,
                                           seq_lens, chunk_lens, scale=scale,
@@ -80,7 +83,7 @@ def paged_verify_partial(q: torch.Tensor, k_pages: torch.Tensor,
     out = cuda_lib.launch_paged_verify(
         q, kp, vp, page_table, seq_lens, chunk_lens,
         scale=_default_scale(q.shape[-1], scale), use_hfa=use_hfa,
-        k_scales=ks, v_scales=vs)
+        k_scales=ks, v_scales=vs, pairs=pairs)
     launches += 1
     return out
 

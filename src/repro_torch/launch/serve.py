@@ -11,6 +11,8 @@ a contiguous cache.
       --seed 7
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --reduced --device cpu --dense
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
+      --reduced --device cpu --tp 2
 
 Weights are random (nothing is downloaded): the reference's
 ``LM.init(PRNGKey(0))`` weights, drawn with JAX's generator written in
@@ -24,11 +26,16 @@ token ids for the same flags.
 (exp and a float divide); the dense path prefills through
 ``multihead_attention`` with the impl and decodes through the dense
 decode kernel on its rail.
+``--tp N`` serves on N ranks, the pools KV-head-sharded over them
+(``launch/mesh.py``): gloo ranks on the CPU, one NCCL rank a card on
+``cuda`` (N cards, or an error).  This process is rank 0 and prints; the
+other ranks are spawned (or started by torchrun) and follow it.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import sys
 import time
 
 import numpy as np
@@ -53,7 +60,7 @@ def parse_prefill_budget(value: str | None) -> int | str | None:
             f"expected an int, 'none' or 'adaptive', got {value!r}")
 
 
-def main(argv=None):
+def _args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -116,9 +123,16 @@ def main(argv=None):
                     help="return per-token logprobs: prompt positions (the "
                          "LM head at every prefill position) and every "
                          "generated token")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel shards: KV-head-shard the paged "
+                         "pools over a 'model' mesh axis, one rank a "
+                         "shard (gloo ranks on the CPU, one NCCL rank a "
+                         "card on cuda)")
     ap.add_argument("--dense", action="store_true",
                     help="fixed-batch greedy loop over a contiguous cache")
     args = ap.parse_args(argv)
+    if args.tp < 1:
+        ap.error("--tp must be >= 1")
     if args.n < 1:
         ap.error("--n must be >= 1")
     if args.beam_width > 0 and args.temperature > 0:
@@ -129,35 +143,110 @@ def main(argv=None):
     width = args.beam_width or (args.best_of or args.n)
     if width > args.batch:
         ap.error(f"group width {width} exceeds --batch {args.batch}")
+    return args
 
-    import torch
 
+def config(args):
+    """The model config the serving CLIs' flags name."""
     from repro_torch.configs import get_config
-    from repro_torch.data import DataPipeline
-    from repro_torch.models.model import build_model
-    from repro_torch.serving import Request, SamplingParams, ServingEngine
-
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     if args.attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
-    model = build_model(cfg, device=args.device).init_reference(0)
-    pipe = DataPipeline.for_config(cfg, args.prompt_len, args.batch)
-    if args.dense:
-        _serve_dense(model, cfg, pipe.batch(0), args)
-        return
+    return cfg
 
+
+def paged_engine(args, cfg, mesh=None, model=None):
+    """The serving CLIs' engine over the reference's weights (or over
+    ``model``, another replica's), on the mesh's device under a mesh
+    (every rank builds the same one)."""
+    from repro_torch.models.model import build_model
+    from repro_torch.serving import ServingEngine
+    dev = args.device if mesh is None else mesh.device
+    if model is None:
+        model = build_model(cfg, device=dev).init_reference(0)
+    return ServingEngine(model, max_batch=args.batch,
+                         page_size=args.page_size, max_seq=args.max_seq,
+                         prefill_budget=args.prefill_budget,
+                         prefix_caching=not getattr(args, "no_prefix_cache",
+                                                    False),
+                         spec_k=args.spec_k,
+                         kv_codec=getattr(args, "kv_codec", "fp"),
+                         mesh=mesh, device=dev)
+
+
+def run_parallel(module: str, argv: list, args, cfg, lead, dp: int = 1):
+    """Serve on ``args.tp * dp`` ranks: the mesh checks first, then
+    ``lead(mesh)`` here as rank 0 and ``module.follow(argv)`` on the
+    others (:func:`repro_torch.launch.mesh.run_ranks`); returns what
+    ``lead`` returns.  The mesh's collectives wait run_ranks' timeout
+    for a rank; an idle server keeps its followers inside it
+    (``ServingEngine.keepalive``)."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import ranks
+    from repro_torch.serving.engine import check_parallel
+    mesh_lib.check_degrees(args.tp, dp)
+    check_parallel(cfg, args.tp, dp, args.batch)
+    if mesh_lib.default_backend(args.device) == "nccl":
+        import torch
+        mesh_lib.check_devices(args.tp, dp, torch.cuda.device_count())
+    return mesh_lib.run_ranks(
+        lambda: lead(mesh_lib.make_tp_dp_mesh(args.tp, dp,
+                                              device=args.device)),
+        ranks.cli_follower, args.tp * dp, args=(module, argv),
+        device=args.device)[0]
+
+
+def follow_parallel(args, dp: int = 1) -> None:
+    """A serving CLI's rank > 0: the same engine on its mesh, following
+    rank 0 until it stops."""
+    from repro_torch.launch.mesh import make_tp_dp_mesh
+    mesh = make_tp_dp_mesh(args.tp, dp, device=args.device)
+    paged_engine(args, config(args), mesh).follow()
+
+
+def follow(argv: list) -> None:
+    """Rank > 0 of ``serve --tp``."""
+    follow_parallel(_args(argv))
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _args(argv)
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.models.model import build_model
+
+    cfg = config(args)
+    if args.dense:
+        if args.tp > 1:
+            raise SystemExit("--tp requires the paged serving path")
+        model = build_model(cfg, device=args.device).init_reference(0)
+        _serve_dense(model, cfg, DataPipeline.for_config(
+            cfg, args.prompt_len, args.batch).batch(0), args)
+        return
+    if args.tp > 1:
+        return run_parallel("repro_torch.launch.serve", argv, args, cfg,
+                            lambda mesh: _serve_paged(args, cfg, mesh))
+    return _serve_paged(args, cfg)
+
+
+def _serve_paged(args, cfg, mesh=None):
+    """The paged run (rank 0's under a mesh): prompts, the engine, its
+    lines."""
+    import torch
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.serving import Request, SamplingParams
+
+    pipe = DataPipeline.for_config(cfg, args.prompt_len, args.batch)
     n_req = args.requests or 2 * args.batch
     prompts = np.concatenate(
         [pipe.batch(s)["tokens"] for s in range((n_req + args.batch - 1)
                                                 // args.batch)])[:n_req]
-    engine = ServingEngine(model, max_batch=args.batch,
-                           page_size=args.page_size, max_seq=args.max_seq,
-                           prefill_budget=args.prefill_budget,
-                           prefix_caching=not args.no_prefix_cache,
-                           spec_k=args.spec_k, kv_codec=args.kv_codec,
-                           device=args.device)
+    engine = paged_engine(args, cfg, mesh)
+    model = engine.model
     arrivals = [(i, Request(rid=i, prompt=prompts[i].tolist(),
                             max_new_tokens=args.steps,
                             sampling=SamplingParams(
@@ -171,7 +260,10 @@ def main(argv=None):
                             logprobs=args.logprobs))
                 for i in range(n_req)]
     t0 = time.perf_counter()
-    finished = engine.run(arrivals)
+    try:
+        finished = engine.run(arrivals)
+    finally:
+        engine.close()
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -190,6 +282,10 @@ def main(argv=None):
           f"-> {st['generated_tokens'] / dt:.1f} tok/s")
     print(f"kv codec {engine.kv_codec}: pool {engine.pool_bytes()} B, "
           f"{engine.bytes_per_token()} B/token")
+    if mesh is not None:
+        print(f"tensor parallel: tp {engine.tp} on {mesh.backend} ranks, "
+              f"{engine.pool_bytes_per_shard()} B of pool a shard, "
+              f"{st['triplet_bytes']} B of triplets gathered")
     if args.logprobs:
         fr = finished[0]
         plp = [f"{x:+.2f}" if x is not None else "None"
@@ -224,15 +320,6 @@ def _paged_supported(cfg) -> bool:
     return (cfg.pos_emb == "rope"
             and all(k == "attn" for k in cfg.layer_kinds())
             and cfg.family not in ("encdec", "vlm"))
-
-
-def refuse_parallel(tp: int = 1, dp: int = 1) -> None:
-    """The serving CLIs' ``--tp`` / ``--dp``: tensor and data parallel
-    serving is not ported yet."""
-    if tp > 1 or dp > 1:
-        raise NotImplementedError(
-            f"--tp {tp} --dp {dp}: tensor- and data-parallel serving is not "
-            "ported yet (ROADMAP.md Queue 1 item 11)")
 
 
 def _sync(device) -> None:

@@ -18,18 +18,22 @@ class targets.
 
 Weights are the reference's ``LM.init(PRNGKey(0))`` drawn in torch
 (``LM.init_reference``), prompts ``DataPipeline.for_config``'s, as in
-``repro_torch.launch.serve``.  ``--tp`` > 1 is refused: tensor-parallel
-serving is ROADMAP.md Queue 1 item 11.  torch is imported only after
-argument parsing.
+``repro_torch.launch.serve``.  ``--tp N`` serves on N ranks, the pools
+KV-head-sharded over them (gloo ranks on the CPU, one NCCL rank a card
+on ``cuda``): this process is rank 0 and runs the open loop, the
+frontend and the prints; the other ranks follow its engine.  torch is
+imported only after argument parsing.
 """
 import argparse
 import asyncio
+import sys
 import time
 
 import numpy as np
 
-from repro_torch.launch.serve import (IMPLS, _paged_supported,
-                                     parse_prefill_budget, refuse_parallel)
+from repro_torch.launch.serve import (IMPLS, _paged_supported, config,
+                                     follow_parallel, paged_engine,
+                                     parse_prefill_budget, run_parallel)
 
 
 def parse_class_mix(s: str) -> dict[str, float]:
@@ -127,7 +131,7 @@ def summarize(records: list[dict]) -> dict:
     return out
 
 
-def main(argv=None):
+def _args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -164,8 +168,9 @@ def main(argv=None):
                          "--cancel-after tokens (0 = never)")
     ap.add_argument("--cancel-after", type=int, default=4)
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: not ported yet, > 1 "
-                         "raises")
+                    help="tensor-parallel shards: KV-head-shard the paged "
+                         "pools over a 'model' mesh axis, one rank a "
+                         "shard")
     ap.add_argument("--smoke", action="store_true",
                     help="tiny CI configuration (few short requests)")
     args = ap.parse_args(argv)
@@ -177,35 +182,44 @@ def main(argv=None):
         args.steps = min(args.steps, 8)
         args.requests = args.requests or 6
         args.rate = 50.0
-    refuse_parallel(args.tp)
+    return args
 
-    import dataclasses
 
-    import torch
+def follow(argv: list) -> None:
+    """Rank > 0 of ``serve_async --tp``."""
+    follow_parallel(_args(argv))
 
-    from repro_torch.configs import get_config
-    from repro_torch.data import DataPipeline
-    from repro_torch.models.model import build_model
-    from repro_torch.serving import (LATENCY_CLASSES, AsyncFrontend, Request,
-                                     SamplingParams, ServingEngine)
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _args(argv)
+
+    from repro_torch.serving import LATENCY_CLASSES
 
     for name in args.class_mix:
         if name not in LATENCY_CLASSES:
             raise SystemExit(f"unknown latency class {name!r} (have "
                              f"{sorted(LATENCY_CLASSES)})")
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.attn_impl:
-        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+    cfg = config(args)
     if not _paged_supported(cfg):
         raise SystemExit(f"{cfg.name} is not paged-servable; the async "
                          "front-end has no dense fallback")
-    model = build_model(cfg, device=args.device).init_reference(0)
-    engine = ServingEngine(model, max_batch=args.batch,
-                           page_size=args.page_size, max_seq=args.max_seq,
-                           prefill_budget=args.prefill_budget,
-                           spec_k=args.spec_k, device=args.device)
+    if args.tp != 1:
+        return run_parallel("repro_torch.launch.serve_async", argv, args,
+                            cfg, lambda mesh: _serve(args, cfg, mesh))
+    return _serve(args, cfg)
+
+
+def _serve(args, cfg, mesh=None):
+    """The open loop over the engine (rank 0's under a mesh)."""
+    import torch
+
+    from repro_torch.data import DataPipeline
+    from repro_torch.serving import (LATENCY_CLASSES, AsyncFrontend, Request,
+                                     SamplingParams)
+
+    engine = paged_engine(args, cfg, mesh)
+    model = engine.model
 
     n_req = args.requests or 4 * args.batch
     pipe = DataPipeline.for_config(cfg, args.prompt_len, args.batch)
@@ -228,9 +242,12 @@ def main(argv=None):
 
     frontend = AsyncFrontend(engine)
     t0 = time.perf_counter()
-    records = asyncio.run(open_loop(frontend, arrivals,
-                                    cancel_every=args.cancel_every,
-                                    cancel_after=args.cancel_after))
+    try:
+        records = asyncio.run(open_loop(frontend, arrivals,
+                                        cancel_every=args.cancel_every,
+                                        cancel_after=args.cancel_after))
+    finally:
+        engine.close()
     if model.device.type == "cuda":
         torch.cuda.synchronize(model.device)
     dt = time.perf_counter() - t0

@@ -22,15 +22,21 @@ binds an ephemeral loopback port, runs a built-in client
 (healthz/stats, a greedy and a sampled+tenant SSE stream, a mid-stream
 disconnect; with replicas the router's placement and prefix hit),
 checks the paged pools came back clean, and exits - the CI gate.
-``--tp`` / ``--dp`` > 1 are refused: tensor- and data-parallel serving
-is ROADMAP.md Queue 1 item 11.  torch is imported only after argument
-parsing.
+``--tp`` / ``--dp`` serve one engine on tp x dp ranks (the pools
+KV-head-sharded over "model", each paged attention call's slots split
+over "data"; gloo ranks on the CPU, one NCCL rank a card on ``cuda``):
+this process is rank 0 and runs the server, the other ranks follow its
+engine.  Replicas behind the router over such engines are not served
+yet (ROADMAP.md Queue 1 item 11c).  torch is imported only after
+argument parsing.
 """
 import argparse
 import asyncio
+import sys
 
-from repro_torch.launch.serve import (IMPLS, _paged_supported,
-                                     parse_prefill_budget, refuse_parallel)
+from repro_torch.launch.serve import (IMPLS, _paged_supported, config,
+                                     follow_parallel, paged_engine,
+                                     parse_prefill_budget, run_parallel)
 
 
 def parse_queue_caps(s: str):
@@ -193,7 +199,7 @@ async def _smoke_client(server, cfg) -> list[str]:
     return fails
 
 
-def main(argv=None):
+def _args(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -212,11 +218,11 @@ def main(argv=None):
     ap.add_argument("--kv-codec", choices=("fp", "int8", "log16"),
                     default="fp", help="paged KV page codec")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor-parallel degree: not ported yet, > 1 "
-                         "raises")
+                    help="tensor-parallel shards: KV-head-shard the paged "
+                         "pools over a 'model' mesh axis")
     ap.add_argument("--dp", type=int, default=1,
-                    help="data-parallel degree: not ported yet, > 1 "
-                         "raises")
+                    help="data-parallel degree: batch-shard every paged "
+                         "attention call over a 'data' mesh axis")
     ap.add_argument("--replicas", type=int, default=1,
                     help="serve N independent engine replicas behind a "
                          "prefix-cache-aware router")
@@ -245,33 +251,52 @@ def main(argv=None):
         args.queue_cap = parse_queue_caps(args.queue_cap)
     if args.replicas < 1:
         raise SystemExit(f"--replicas must be >= 1, got {args.replicas}")
-    refuse_parallel(args.tp, args.dp)
+    return args
 
-    import dataclasses
 
-    from repro_torch.configs import get_config
-    from repro_torch.models.model import build_model
-    from repro_torch.serving import AsyncFrontend, ServingEngine
-    from repro_torch.serving.http import HttpServer
-    from repro_torch.serving.router import Router
+def follow(argv: list) -> None:
+    """Rank > 0 of ``serve_http --tp / --dp``."""
+    args = _args(argv)
+    follow_parallel(args, args.dp)
 
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.attn_impl:
-        cfg = dataclasses.replace(cfg, attn_impl=args.attn_impl)
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = _args(argv)
+    cfg = config(args)
     if not _paged_supported(cfg):
         raise SystemExit(f"{cfg.name} is not paged-servable; the HTTP "
                          "front-end has no dense fallback")
+    try:
+        if (args.tp, args.dp) != (1, 1):
+            if args.replicas > 1:
+                raise NotImplementedError(
+                    f"--replicas {args.replicas} with --tp {args.tp} --dp "
+                    f"{args.dp}: the router over tensor-parallel replicas "
+                    "is not served yet (ROADMAP.md Queue 1 item 11c)")
+            code = run_parallel("repro_torch.launch.serve_http", argv, args,
+                                cfg, lambda mesh: _serve(args, cfg, mesh),
+                                dp=args.dp)
+        else:
+            code = _serve(args, cfg)
+    except KeyboardInterrupt:
+        print("interrupted; shut down")
+        return
+    raise SystemExit(code)
+
+
+def _serve(args, cfg, mesh=None) -> int:
+    """Serve until interrupted, or the smoke's exit code (rank 0's side
+    under a mesh)."""
+    from repro_torch.serving import AsyncFrontend
+    from repro_torch.serving.http import HttpServer
+    from repro_torch.serving.router import Router
+
     # One model; each replica's engine holds its own pools over it.
-    model = build_model(cfg, device=args.device).init_reference(0)
-    engines = [ServingEngine(model, max_batch=args.batch,
-                             page_size=args.page_size,
-                             max_seq=args.max_seq,
-                             prefill_budget=args.prefill_budget,
-                             spec_k=args.spec_k, kv_codec=args.kv_codec,
-                             device=args.device)
-               for _ in range(args.replicas)]
+    engines = [paged_engine(args, cfg, mesh)]
+    model = engines[0].model
+    engines += [paged_engine(args, cfg, model=model)
+                for _ in range(args.replicas - 1)]
     engine = engines[0]
 
     async def run() -> int:
@@ -279,6 +304,8 @@ def main(argv=None):
                                    stream_buffer=args.stream_buffer,
                                    max_results=args.max_results)
                      for e in engines]
+        for fe in frontends:        # a mesh's ranks kept from the start
+            fe.start()
         frontend = frontends[0] if args.replicas == 1 \
             else Router(frontends)
         server = HttpServer(frontend, host=args.host,
@@ -312,9 +339,9 @@ def main(argv=None):
                     await fe.close()
 
     try:
-        raise SystemExit(asyncio.run(run()))
-    except KeyboardInterrupt:
-        print("interrupted; shut down")
+        return asyncio.run(run())
+    finally:
+        engine.close()
 
 
 if __name__ == "__main__":

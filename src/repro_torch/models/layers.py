@@ -23,6 +23,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import page_codec
 from repro_torch.kernels import paged_decode as paged_k
 from repro_torch.kernels import paged_prefill as paged_pf_k
+from repro_torch.parallel import collectives
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -185,7 +186,7 @@ def _ring_attention(q, k, v, cache, pos: int, cfg):
     1, fresh, at position 0): the chunk's K/V land at ``pos``.. and it
     attends causally within itself; the ring is storage only.  The
     reference's tensor-parallel ``shardmap_merge`` decode is not ported
-    (ROADMAP.md Queue 1 item 11).
+    (ROADMAP.md Queue 1 item 11b).
     """
     s, max_seq = q.shape[1], cache["k"].shape[1]
     if pos + s > max_seq:
@@ -230,12 +231,22 @@ def _paged_attention(q, k, v, cache, page_state, *, impl, block):
     Every write encodes with the page codec (``page_state["codec"]``);
     the reads of a codec other than fp pass it and the scale sidecars to
     the kernels, and fp reads on ``codec=None``, byte for byte the
-    pre-codec path (the reference's rule).  The reference's
-    tensor-parallel branch waits for ROADMAP.md Queue 1 item 11.
+    pre-codec path (the reference's rule).
+
+    Under a serving mesh (``page_state["mesh"]``) with a "model" or
+    "data" axis above 1, every branch goes through
+    :func:`repro_torch.parallel.collectives.shardmap_paged_attention`:
+    the pools hold this rank's KV heads, it writes and attends them and
+    the ranks merge their triplets; the whole-prompt prefill then
+    attends through the pages, as the reference's sharded branch does.
     """
     pt = page_state["page_table"]
     codec = page_codec.get_codec(page_state.get("codec"))
     rcodec = None if codec.name == "fp" else codec
+    mesh = page_state.get("mesh")
+    if collectives.tp_shards(mesh) > 1 or \
+            collectives.tp_shards(mesh, "data") > 1:
+        return _sharded(q, k, v, cache, page_state, mesh, impl, codec)
 
     def read(pools):
         return dict(codec=rcodec, k_scales=pools.get("k_scale"),
@@ -276,3 +287,25 @@ def _paged_attention(q, k, v, cache, page_state, *, impl, block):
                 q, pools["k_pages"], pools["v_pages"], pt, sp, cl,
                 impl=impl, **read(pools))
     return out, pools
+
+
+def _sharded(q, k, v, cache, page_state, mesh, impl, codec):
+    """The paged branches' lengths for the sharded call (the reference's
+    ``layers._paged_attention`` under a mesh)."""
+    if page_state.get("verify", False):
+        mode, la, lb = ("verify", page_state["seq_lens"],
+                        page_state["chunk_lens"])
+    elif not page_state.get("prefill", False):
+        sl = page_state["seq_lens"]
+        mode, la, lb = "decode", sl, torch.zeros_like(sl)
+    elif "start_pos" in page_state:
+        mode, la, lb = ("prefill", page_state["start_pos"],
+                        page_state["chunk_lens"])
+    else:
+        b, ell = q.shape[:2]
+        mode = "prefill"
+        la = torch.zeros((b,), dtype=torch.int32, device=q.device)
+        lb = torch.full((b,), ell, dtype=torch.int32, device=q.device)
+    return collectives.shardmap_paged_attention(
+        q, k, v, cache, page_state["page_table"], la, lb, mesh=mesh,
+        mode=mode, impl=impl, codec=codec)

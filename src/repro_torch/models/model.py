@@ -208,17 +208,27 @@ class LM(nn.Module):
 
     # ------------------------------------------------ paged decode (serving)
     def init_paged_cache(self, num_pages: int, page_size: int,
-                         codec: str = "fp"):
+                         codec: str = "fp", mesh=None):
         """Shared block-pool KV caches for continuous batching, stacked
-        (groups, P, page, Hkv, dh), on this model's device."""
-        return T.stack_init_paged_cache(self.cfg, num_pages, page_size,
+        (groups, P, page, Hkv, dh), on this model's device.  Under a
+        ``mesh`` whose "model" axis is tp > 1 this rank's pools hold its
+        Hkv / tp heads of every page (scale sidecars too)."""
+        cfg = self.cfg
+        tp = 1 if mesh is None else int(mesh.shape.get("model", 1))
+        if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+            raise ValueError(
+                f"paged TP requires heads divisible by tp: "
+                f"n_kv_heads={cfg.n_kv_heads}, n_heads={cfg.n_heads}, "
+                f"tp={tp}")
+        return T.stack_init_paged_cache(cfg, num_pages, page_size,
                                         self.compute_dtype, self.device,
-                                        codec=codec)
+                                        codec=codec,
+                                        n_kv_heads=cfg.n_kv_heads // tp)
 
     @torch.no_grad()
     def paged_prefill(self, layers, tokens, page_table, last_pos=None,
                       start_pos=None, codec: str = "fp",
-                      return_all_logits: bool = False):
+                      return_all_logits: bool = False, mesh=None):
         """Prefill into paged KV storage; tokens (B, L) rows padded to a
         common L.
 
@@ -235,12 +245,15 @@ class LM(nn.Module):
         (B, 1, V)), else at every position (B, L, V); with
         ``return_all_logits`` it runs at every position even when
         ``last_pos`` is given - the prompt-logprobs path.  Returns
-        (logits, layers) - the pools are updated in place.
+        (logits, layers) - the pools are updated in place.  ``mesh``
+        (here and in the decode and verify steps): the serving mesh the
+        pools are sharded over, every rank of it making the same call.
         """
         x = self._embed_in(tokens)
         if start_pos is None:
             positions = None
-            ps = {"page_table": page_table, "prefill": True, "codec": codec}
+            ps = {"page_table": page_table, "prefill": True, "codec": codec,
+                  "mesh": mesh}
         else:
             if last_pos is None:
                 raise ValueError("chunked prefill needs last_pos")
@@ -249,7 +262,7 @@ class LM(nn.Module):
                 tokens.shape[1], dtype=torch.int32,
                 device=tokens.device)[None]
             ps = {"page_table": page_table, "prefill": True, "codec": codec,
-                  "start_pos": start_pos,
+                  "mesh": mesh, "start_pos": start_pos,
                   "chunk_lens": last_pos.to(torch.int32) + 1}
         x, layers = T.stack_apply(self.layers, x, self.cfg,
                                   positions=positions, caches=layers,
@@ -261,7 +274,7 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def paged_verify_step(self, layers, tokens, page_table, seq_lens,
-                          chunk_lens, codec: str = "fp"):
+                          chunk_lens, codec: str = "fp", mesh=None):
         """K-token speculative verify step across every slot.
 
         tokens (B, K): the carry token and up to K-1 drafts, landing at
@@ -275,7 +288,7 @@ class LM(nn.Module):
             tokens.shape[1], dtype=torch.int32, device=tokens.device)[None]
         ps = {"page_table": page_table, "seq_lens": seq_lens,
               "codec": codec, "chunk_lens": chunk_lens.to(torch.int32),
-              "verify": True}
+              "verify": True, "mesh": mesh}
         x, layers = T.stack_apply(self.layers, x, self.cfg,
                                   positions=positions, caches=layers,
                                   page_state=ps)
@@ -283,14 +296,14 @@ class LM(nn.Module):
 
     @torch.no_grad()
     def paged_decode_step(self, layers, tokens, page_table, seq_lens,
-                          codec: str = "fp"):
+                          codec: str = "fp", mesh=None):
         """One continuous-batching decode step: tokens (B, 1) land at
         ``seq_lens[b]`` (0 = free slot: write dropped, logits garbage).
         Returns (logits (B, 1, V), layers)."""
         x = self._embed_in(tokens)
         seq_lens = seq_lens.to(torch.int32)
         ps = {"page_table": page_table, "seq_lens": seq_lens,
-              "codec": codec}
+              "codec": codec, "mesh": mesh}
         x, layers = T.stack_apply(self.layers, x, self.cfg,
                                   positions=seq_lens[:, None], caches=layers,
                                   page_state=ps)

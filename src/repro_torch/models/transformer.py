@@ -105,13 +105,15 @@ def stack_init_cache(cfg, batch: int, max_seq: int, dtype, device):
 
 
 def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,
-                           device, codec: str = "fp"):
+                           device, codec: str = "fp",
+                           n_kv_heads: int | None = None):
     """Paged block-pool caches, stacked (groups, P, page, Hkv, dh), one
     shared pool per layer, zero-filled.  The data pools take the codec's
     storage dtype; a codec with scales adds f32 sidecar pools "k_scale" /
     "v_scale" of shape (groups, P, page, Hkv, 1), which every page-table
     mechanism (scatter, copy-on-write, gather) treats as it treats the
-    data."""
+    data.  ``n_kv_heads`` (default the config's): the heads the pools
+    hold, a tensor-parallel shard's share."""
     kinds, _, period = period_pattern(cfg)
     groups = cfg.n_layers // period
     if not all(k == "attn" for k in kinds):
@@ -119,7 +121,8 @@ def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,
             f"paged KV cache supports attention-only stacks, got {kinds}")
     c = page_codec.get_codec(codec)
     sdt = c.storage_dtype(dtype)
-    shape = (groups, num_pages, page_size, cfg.n_kv_heads, cfg.d_head)
+    hkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads
+    shape = (groups, num_pages, page_size, hkv, cfg.d_head)
 
     def one_layer():
         leaves = {"k_pages": torch.zeros(shape, dtype=sdt, device=device),

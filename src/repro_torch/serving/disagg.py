@@ -86,6 +86,10 @@ class DisaggPair:
             raise ValueError(
                 "disagg needs prefix_caching=True on both workers "
                 "(the chain-hash table is the transfer manifest)")
+        if any(e.tp * e.dp > 1 for e in (prefill_engine, decode_engine)):
+            raise NotImplementedError(
+                "disaggregation between tensor- or data-parallel engines "
+                "is not served yet (ROADMAP.md Queue 1 item 11c)")
         self.prefill = prefill_engine
         self.decode = decode_engine
         self.stats = {"handoffs": 0, "handoff_pages": 0,

@@ -39,16 +39,36 @@ repetition-penalty presence bitmask (max_batch, padded vocab) lives on
 the device and is updated by scatter.  ``kv_codec`` ("fp", "int8",
 "log16") picks the page codec: K/V rows are encoded on write, the int8
 scale sidecars ride every page copy, and the paged kernels decode each
-tile (``kernels/page_codec.py``).  The engine rejects what it does not
-port yet: a tensor-parallel ``mesh`` (ROADMAP.md Queue 1).  Host
-bookkeeping (``paged_cache``, ``scheduler``, ``spec``) is the
-reference's, copied.
+tile (``kernels/page_codec.py``).  Host bookkeeping (``paged_cache``,
+``scheduler``, ``spec``) is the reference's, copied.
+
+Tensor and data parallelism (a ``mesh`` from
+:func:`repro_torch.launch.mesh.make_tp_dp_mesh`, one engine a rank): the
+pools hold this rank's ``Hkv / tp`` KV heads, every paged attention call
+goes through :mod:`repro_torch.parallel.collectives` (the triplet
+all-gather and the ACC merge; with dp > 1 each rank attends its slots'
+slice), and everything else - weights, the model's other layers, the
+sampler, the host bookkeeping - is replicated.  The ranks must make the
+same decisions in the same step, or they call different collectives:
+so rank 0 alone takes ``submit`` and ``cancel``, and each of its steps
+first broadcasts the intake queued since the last step (in order, each
+item with the clock reading it was taken at), its clock reading and its
+prefill rate; the scheduler's clock reads that one reading all step
+long.  Every other rank runs :meth:`ServingEngine.follow`, which
+applies each step's inputs and steps, until rank 0's ``run`` ends or
+its :meth:`ServingEngine.close` sends a stop.  Every rank then holds
+the same finished requests with the same tokens.  While rank 0 has no
+step to take (a frontend with no requests), it must call
+:meth:`ServingEngine.keepalive` every ``keepalive_s`` seconds, so that
+the followers' wait for the next step stays inside the mesh's
+collective timeout; ``AsyncFrontend`` does.
 
 The engine runs on ``cuda`` unless built with ``device="cpu"``; the
 model must already live on that device.  Pools are updated in place.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -75,6 +95,20 @@ def check_page_size(page_size: int, impl: str,
         raise ValueError(f"page_size must be >= 1, got {page_size}")
     if device.type == "cuda":
         cuda_lib.check_hfa_page(page_size, impl.startswith("hfa"))
+
+
+def check_parallel(cfg, tp: int, dp: int, max_batch: int) -> None:
+    """The reference's checks of a serving mesh: tp must divide the KV
+    and the query heads (each rank holds whole GQA groups) and dp the
+    slots (each decode and verify splits them evenly)."""
+    if tp > 1 and (cfg.n_kv_heads % tp or cfg.n_heads % tp):
+        raise ValueError(
+            f"tp={tp} must divide n_kv_heads={cfg.n_kv_heads} and "
+            f"n_heads={cfg.n_heads}")
+    if dp > 1 and max_batch % dp:
+        raise ValueError(
+            f"data-parallel degree dp={dp} must divide "
+            f"max_batch={max_batch}")
 
 
 def _log_softmax(logits: torch.Tensor) -> torch.Tensor:
@@ -112,10 +146,25 @@ class ServingEngine:
             raise ValueError(f"model lives on {model.device}, engine on "
                              f"{self.device}: move it with .to(device)")
         check_page_size(page_size, model.cfg.attn_impl, self.device)
-        if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet "
-                "(ROADMAP.md Queue 1 item 11)")
+        # A mesh's "model" axis (tp) shards the pools by KV head, its
+        # "data" axis (dp) the slots of each paged attention call.
+        self.mesh = mesh
+        self.tp = 1 if mesh is None else int(mesh.shape.get("model", 1))
+        self.dp = 1 if mesh is None else int(mesh.shape.get("data", 1))
+        check_parallel(model.cfg, self.tp, self.dp, max_batch)
+        self._lockstep = self.tp * self.dp > 1
+        if self._lockstep and mesh.device != self.device:
+            raise ValueError(f"the mesh puts this rank on {mesh.device}, "
+                             f"the engine on {self.device}")
+        # Rank 0 of a mesh leads: it takes the intake and broadcasts each
+        # step's inputs; the others follow().
+        self._lead = not self._lockstep or mesh.rank == 0
+        self._intake: list = []
+        self._unstopped = True         # a stop not yet sent (rank 0)
+        # Rank 0 sends an empty step this often while idle: a quarter of
+        # the time a follower's collective waits for it.
+        self.keepalive_s = mesh.timeout / 4 \
+            if self._lockstep and self._lead else None
         self.kv_codec = page_codec.get_codec(kv_codec).name
         self.adaptive_prefill = prefill_budget == "adaptive"
         if isinstance(prefill_budget, str) and not self.adaptive_prefill:
@@ -169,7 +218,12 @@ class ServingEngine:
                                   max_cached_pages=max_cached)
         self.sched = Scheduler(self.cache)
         self.layers = model.init_paged_cache(num_pages, page_size,
-                                             codec=self.kv_codec)
+                                             codec=self.kv_codec, mesh=mesh)
+        # Measured from the pools this rank holds, the largest over the
+        # ranks: pools left at full width would show at full size.
+        local = self._local_pool_bytes()
+        self._pool_bytes_per_shard = mesh.all_reduce_max(local) \
+            if self._lockstep else local
         # Per-slot sampling vectors (greedy defaults), sent to the device
         # with each sampled call; the presence bitmask (the repetition
         # penalty's context) stays on the device.
@@ -181,8 +235,8 @@ class ServingEngine:
         self._presence = torch.zeros((max_batch, model.cfg.padded_vocab),
                                      dtype=torch.bool, device=self.device)
         # The reference's counters, key for key ("triplet_bytes" counts
-        # tensor-parallel traffic and the last two the async frontend's
-        # bookkeeping: both stay 0 here).
+        # the tensor-parallel triplet traffic; the last two are the async
+        # frontend's bookkeeping).
         self.stats = {"steps": 0, "prefills": 0, "prefill_chunks": 0,
                       "prefill_tokens": 0, "cached_prefill_tokens": 0,
                       "generated_tokens": 0, "preemptions": 0,
@@ -199,10 +253,32 @@ class ServingEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.tensor(a, device=self.device)
 
-    def pool_bytes(self) -> int:
-        """Total KV pool bytes."""
+    def _local_pool_bytes(self) -> int:
         return sum(t.numel() * t.element_size()
                    for pools in self.layers.values() for t in pools.values())
+
+    def pool_bytes(self) -> int:
+        """Total logical KV pool bytes, over the tensor-parallel shards
+        (each holds Hkv / tp heads of every page)."""
+        return self._local_pool_bytes() * self.tp
+
+    def pool_bytes_per_shard(self) -> int:
+        """KV pool bytes a rank holds, measured from each rank's own pool
+        tensors when the engine was built and reduced with MAX over the
+        mesh - not derived from tp, so pools silently left at full width
+        show at full size."""
+        return self._pool_bytes_per_shard
+
+    def _count_triplets(self, batch: int, rows: int) -> None:
+        """The reference's count of one call's ACC-merge traffic: each of
+        the tp shards gathers tp padded (o~, m, l) triplets, (d_head + 2)
+        f32 a (slot, query row, head, layer)."""
+        if self.tp <= 1:
+            return
+        cfg = self.model.cfg
+        per_shard = self.tp * batch * rows * cfg.n_heads * \
+            (cfg.d_head + 2) * 4 * cfg.n_layers
+        self.stats["triplet_bytes"] += self.tp * per_shard
 
     def bytes_per_token(self) -> int:
         """Pool bytes per stored KV token row (all layers)."""
@@ -210,6 +286,7 @@ class ServingEngine:
 
     # ------------------------------------------------------------- intake
     def submit(self, req: Request) -> None:
+        self._lead_only("submit")
         limit = self.pages_per_seq * self.page_size
         need = len(req.prompt) + req.max_new_tokens
         if need > limit:
@@ -222,7 +299,7 @@ class ServingEngine:
             raise ValueError(
                 f"request {req.rid}: group width {width} exceeds "
                 f"max_batch {self.max_batch}")
-        self.sched.submit(req)
+        self._take("submit", req)
 
     def cancel(self, rid: int) -> bool:
         """Drop request ``rid`` wherever it is (waiting, mid-prefill,
@@ -231,11 +308,117 @@ class ServingEngine:
         a queued copy into a page freed here and reallocated next step
         would clobber the new owner's KV.  Returns True if the request
         was found.  Call it between engine steps."""
-        self._apply_pending_copies()
-        hit = self.sched.cancel(rid)
-        if hit:
-            self.stats["cancelled"] += 1
-        return hit
+        self._lead_only("cancel")
+        return self._take("cancel", rid)
+
+    def reject(self, req: Request) -> FinishedRequest:
+        """Turn ``req`` away (``submit`` raised ValueError: it can never
+        fit): counted in ``stats["rejected"]`` on every rank."""
+        self._lead_only("reject")
+        return self._take("reject", req)
+
+    # ------------------------------------------------------------ lockstep
+    def _lead_only(self, what: str) -> None:
+        if not self._lead:
+            raise RuntimeError(f"{what}: rank {self.mesh.rank} follows rank "
+                               f"0 (call follow()); rank 0 takes the intake")
+
+    @contextlib.contextmanager
+    def _clock_at(self, now: float):
+        """The scheduler's clock reads ``now`` within the block."""
+        live = self.sched.clock
+        self.sched.clock = lambda: now
+        try:
+            yield
+        finally:
+            self.sched.clock = live
+
+    def _take(self, kind: str, arg, now: float | None = None):
+        """Apply one intake item: "submit" (a request), "cancel" (a rid)
+        or "reject" (a request ``run`` turned away).  Under a mesh it runs
+        at one clock reading: rank 0 reads the clock and queues the item
+        for its next step's broadcast, the others apply it at rank 0's
+        reading."""
+        if not self._lockstep:
+            return self._apply(kind, arg)
+        lead = now is None
+        if lead:
+            now = self.sched.clock()
+        with self._clock_at(now):
+            out = self._apply(kind, arg)
+        if lead:                       # taken: the others apply it too
+            self._intake.append((kind, arg, now))
+            self._unstopped = True
+        return out
+
+    def _apply(self, kind: str, arg):
+        if kind == "submit":
+            self.sched.submit(arg)
+            return None
+        if kind == "cancel":
+            self._apply_pending_copies()
+            hit = self.sched.cancel(arg)
+            if hit:
+                self.stats["cancelled"] += 1
+            return hit
+        self.stats["rejected"] += 1
+        return FinishedRequest(rid=arg.rid, prompt=arg.prompt, tokens=[],
+                               reason="rejected")
+
+    def _fingerprint(self) -> tuple:
+        """What every rank's host state must agree on before a step."""
+        return (self.stats["steps"], self.stats["generated_tokens"],
+                tuple(int(x) for x in self.cache.seq_lens))
+
+    def follow(self) -> list[FinishedRequest]:
+        """A rank other than 0: receive each step's inputs from rank 0,
+        apply them and step, until rank 0 sends a stop (the end of its
+        ``run``, or :meth:`close`), applying the intake of rank 0's
+        keepalives without a step.  Returns the requests finished (and
+        rejected) meanwhile, as rank 0's ``run`` does."""
+        if not self._lockstep or self._lead:
+            raise RuntimeError("follow() runs on the ranks other than 0 of "
+                               "a serving mesh")
+        finished: list[FinishedRequest] = []
+        while True:
+            msg = self.mesh.broadcast_object()
+            for kind, arg, now in msg["intake"]:
+                out = self._take(kind, arg, now)
+                if kind == "reject":
+                    finished.append(out)
+            if msg["do"] == "stop":
+                return finished
+            if msg["do"] == "idle":
+                continue
+            if msg["check"] != self._fingerprint():
+                raise RuntimeError(
+                    f"rank {self.mesh.rank} left lockstep with rank 0: "
+                    f"{self._fingerprint()} != {msg['check']}")
+            self._prefill_rate = msg["rate"]
+            with self._clock_at(msg["now"]):
+                finished.extend(self._step())
+
+    def close(self) -> None:
+        """Rank 0 of a mesh: send the intake still queued and a stop, so
+        each other rank's :meth:`follow` returns (``run`` does this at its
+        end).  Nothing to do without a mesh, or when no step or intake
+        came since the last stop."""
+        if self._lockstep and self._lead and self._unstopped:
+            self.mesh.broadcast_object({"do": "stop",
+                                        "intake": self._intake})
+            self._intake = []
+            self._unstopped = False
+
+    def keepalive(self) -> None:
+        """Rank 0 of a mesh with no step to take: send the intake queued
+        so far and no step, so that the other ranks, waiting in
+        :meth:`follow` for the next step, are not left past the mesh's
+        collective timeout (call it every ``keepalive_s`` seconds while
+        idle).  Nothing to do without a mesh, or after a stop."""
+        if self._lockstep and self._lead and self._unstopped:
+            self.mesh.broadcast_object({"do": "idle",
+                                        "intake": self._intake})
+            self._intake = []
 
     # -------------------------------------------------------------- step
     def _step_budget(self) -> int | None:
@@ -250,7 +433,21 @@ class ServingEngine:
     def step(self) -> list[FinishedRequest]:
         """One token-budget step: continue/admit prefill chunks, run one
         batched (speculative) decode over every decoding slot; returns
-        the requests that finished during this step."""
+        the requests that finished during this step.  Under a mesh, rank
+        0's step first sends the step's inputs to the other ranks."""
+        if not self._lockstep:
+            return self._step()
+        self._lead_only("step")
+        msg = {"do": "step", "intake": self._intake,
+               "now": self.sched.clock(), "rate": self._prefill_rate,
+               "check": self._fingerprint()}
+        self._intake = []
+        self._unstopped = True
+        self.mesh.broadcast_object(msg)
+        with self._clock_at(msg["now"]):
+            return self._step()
+
+    def _step(self) -> list[FinishedRequest]:
         finished: list[FinishedRequest] = []
         # Decoding slots claim their next page before prefill work is
         # scheduled, so a prompt chunk cannot evict an in-flight decode.
@@ -409,7 +606,8 @@ class ServingEngine:
             logits, self.layers = self.model.paged_prefill(
                 self.layers, self._dev(toks), self._dev(rows),
                 last_pos=last_t, start_pos=self._dev(start),
-                codec=self.kv_codec, return_all_logits=want_plp)
+                codec=self.kv_codec, return_all_logits=want_plp,
+                mesh=self.mesh)
             if want_plp:
                 lsm = _log_softmax(logits)
                 targets = self._dev(self._prompt_targets(grp, lpad))
@@ -421,6 +619,7 @@ class ServingEngine:
             else:
                 logits = logits[:, 0]
             self.stats["prefills"] += 1
+            self._count_triplets(bsz, lpad)
             finals = []
             for i, ck in enumerate(grp):
                 self.stats["prefill_chunks"] += 1
@@ -609,11 +808,12 @@ class ServingEngine:
         toks_t, dl_t = self._dev(toks), self._dev(dl)
         if kw == 1:
             logits, self.layers = self.model.paged_decode_step(
-                self.layers, toks_t, pt, dl_t, codec=self.kv_codec)
+                self.layers, toks_t, pt, dl_t, codec=self.kv_codec,
+                mesh=self.mesh)
         else:
             logits, self.layers = self.model.paged_verify_step(
                 self.layers, toks_t, pt, dl_t, self._dev(cl),
-                codec=self.kv_codec)
+                codec=self.kv_codec, mesh=self.mesh)
         if self._all_greedy(s.slot for s in steps):
             sampled_t = sampler.greedy_tokens(logits)
         else:
@@ -630,6 +830,7 @@ class ServingEngine:
         sampled = sampled_t.cpu().numpy()
         self.stats["decode_steps"] += 1
         self.stats["decode_slot_steps"] += len(steps)
+        self._count_triplets(self.max_batch, kw)
         step_drafted = step_accepted = 0
         marks = []
         for step in steps:
@@ -721,7 +922,8 @@ class ServingEngine:
         A request whose prompt + budget cannot ever fit a sequence's page
         allowance, or whose group is wider than ``max_batch``, is
         rejected (``reason="rejected"``); contradictory knobs raise
-        ``InvalidRequestError``.
+        ``InvalidRequestError``.  Under a mesh this is rank 0's side:
+        it ends with :meth:`close`, which ends the others' ``follow``.
         """
         pending = sorted(arrivals, key=lambda a: a[0])
         finished: list[FinishedRequest] = []
@@ -734,10 +936,7 @@ class ServingEngine:
                 except InvalidRequestError:
                     raise        # contradictory knobs: client misuse
                 except ValueError:
-                    self.stats["rejected"] += 1
-                    finished.append(FinishedRequest(
-                        rid=req.rid, prompt=req.prompt, tokens=[],
-                        reason="rejected"))
+                    finished.append(self.reject(req))
             before = self.stats["generated_tokens"]
             finished.extend(self.step())
             step += 1
@@ -746,7 +945,9 @@ class ServingEngine:
             if (self.stats["generated_tokens"] == before
                     and not self.sched.running and not pending
                     and self.sched.waiting):
+                self.close()
                 raise RuntimeError(
                     "serving stalled: page pool too small for the "
                     "smallest waiting request")
+        self.close()
         return finished

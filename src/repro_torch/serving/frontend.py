@@ -27,6 +27,13 @@ calling thread's current device and stream
 each step runs under ``torch.cuda.device(engine.device)`` so an engine
 on any card launches there.
 
+An engine on a serving mesh (rank 0 of tensor- or data-parallel ranks)
+has its other ranks waiting in a collective for each step: while idle,
+the drive task sends them ``engine.keepalive()`` on the executor every
+``engine.keepalive_s`` seconds, well inside the mesh's collective
+timeout.  ``start()`` starts the drive task before the first request,
+so that a server that waits long for one keeps its ranks too.
+
 Cancellation: abandoning the generator (``break`` / ``aclose()`` / GC)
 triggers its ``finally`` block, which files a cancel intent; the next
 drive iteration frees the request's slot and pages refcount-clean -
@@ -136,6 +143,11 @@ class AsyncFrontend:
         """True once the drive task crashed; the frontend no longer
         accepts submissions (the engine's state is suspect)."""
         return self._failed is not None
+
+    def start(self) -> None:
+        """Start the drive task now rather than at the first ``submit``
+        (call it inside the running event loop)."""
+        self._ensure_task()
 
     def submit(self, req: Request):
         """Enqueue ``req`` and return an async generator of its token
@@ -250,13 +262,16 @@ class AsyncFrontend:
                     # Intents filed between the clear and this wait were
                     # filed with _wake.set() afterwards, so no lost
                     # wakeup.
-                    if not (self._pending or self._cancels):
-                        await self._wake.wait()
+                    while not (self._pending or self._cancels):
+                        try:
+                            await asyncio.wait_for(self._wake.wait(),
+                                                   self.engine.keepalive_s)
+                            break
+                        except asyncio.TimeoutError:
+                            await loop.run_in_executor(
+                                self._pool(), self.engine.keepalive)
                     continue
-                if self._executor is None:
-                    self._executor = concurrent.futures.ThreadPoolExecutor(
-                        max_workers=1, thread_name_prefix="engine-step")
-                finished = await loop.run_in_executor(self._executor,
+                finished = await loop.run_in_executor(self._pool(),
                                                       self._step)
                 self._publish(finished)
         except asyncio.CancelledError:
@@ -271,6 +286,13 @@ class AsyncFrontend:
             if self._executor is not None:
                 self._executor.shutdown(wait=False)
                 self._executor = None
+
+    def _pool(self) -> concurrent.futures.ThreadPoolExecutor:
+        """The executor thread, made at first use."""
+        if self._executor is None:
+            self._executor = concurrent.futures.ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="engine-step")
+        return self._executor
 
     def _step(self) -> list[FinishedRequest]:
         """One engine step, on the executor thread, with the engine's card
@@ -337,10 +359,7 @@ class AsyncFrontend:
             except ValueError:
                 # Resource rejection (prompt/width over capacity) -
                 # mirrors ServingEngine.run's per-request rejection.
-                self.engine.stats["rejected"] += 1
-                self._finish(st, FinishedRequest(
-                    rid=req.rid, prompt=req.prompt, tokens=[],
-                    reason="rejected"))
+                self._finish(st, self.engine.reject(req))
 
     def _publish(self, finished: list[FinishedRequest]) -> None:
         for fr in finished:

@@ -114,6 +114,10 @@ class Router:
     def __init__(self, frontends: list[AsyncFrontend]):
         if not frontends:
             raise ValueError("router needs at least one frontend")
+        if any(fe.engine.tp * fe.engine.dp > 1 for fe in frontends):
+            raise NotImplementedError(
+                "a router over tensor- or data-parallel replicas is not "
+                "served yet (ROADMAP.md Queue 1 item 11c)")
         self.frontends = list(frontends)
         self.core = RouterCore(
             [fe.engine.cache._hash_page for fe in self.frontends])

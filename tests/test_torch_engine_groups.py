@@ -2,7 +2,7 @@
 (``n``, ``best_of``) and beam search over copy-on-write forks, on the
 CPU, against the reference engine and against the port itself (mirrors
 tests/test_parallel_sampling.py (a)-(c); its 2-way tensor-parallel case
-waits for the port's TP, ROADMAP.md Queue 1 item 11).
+is test_torch_tp_engine.py's n=3 group at tp 2).
 
 * n=3 branches equal the reference's group and three single requests
   seeded by ``branch_seed``, on both rails; speculation leaves them

@@ -1,7 +1,8 @@
 """The port stands alone and never moves to the CPU on its own.
 
 * Every module of ``repro_torch`` - and ``chip_smoke.py`` - imports in a
-  subprocess where ``jax`` and ``repro`` cannot be imported.
+  subprocess where ``jax`` and ``repro`` cannot be imported; so do the
+  mesh, the collectives and the functions a spawned rank runs.
 * Without a card, the default device (``cuda``) raises instead of
   falling back: building the LM, the engine or the trainer (``launch/
   train.py``), the serving CLIs (``serve_async``, ``serve_http``), an
@@ -18,6 +19,7 @@ import os
 import subprocess
 import sys
 import threading
+import types
 from pathlib import Path
 
 import pytest
@@ -68,6 +70,35 @@ def test_every_module_imports_without_jax_or_repro():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= 35      # the whole package
+
+
+_IMPORT_TP = """
+import pickle, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+from repro_torch.launch import mesh, ranks, serve, serve_async, serve_http
+from repro_torch.parallel import collectives
+# What run_ranks hands a spawned rank, resolved by name there.
+for fn in (mesh._follower_main, ranks.follow_jobs, ranks.cli_follower,
+           serve.follow, serve_async.follow, serve_http.follow,
+           collectives.shardmap_paged_attention):
+    assert pickle.loads(pickle.dumps(fn)) is fn
+assert not any(k == "jax" or k.startswith(("jax.", "repro."))
+               for k, v in sys.modules.items() if v is not None)
+print("ok")
+"""
+
+
+def test_tensor_parallel_modules_and_rank_entry_import_alone():
+    """The mesh, the collectives and the rank entry points a spawned rank
+    imports (``launch/ranks.py``, the CLIs' ``follow``) import with
+    ``jax`` and ``repro`` blocked."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _IMPORT_TP],
+                         capture_output=True, text=True, env=env, cwd=ROOT,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split()[-1] == "ok"
 
 
 def _no_card():
@@ -160,12 +191,15 @@ def test_multihead_attention_takes_every_reference_impl():
 
 
 def test_engine_refuses_what_is_not_ported():
-    """A mesh is refused with a pointer to the roadmap and an unknown
-    codec by name; the int8 and log16 codecs and the request surface the
-    port serves are accepted."""
+    """A mesh whose "model" axis does not divide the heads is refused by
+    the reference's check (before the mesh is used), an unknown codec by
+    name; the int8 and log16 codecs and the request surface the port
+    serves are accepted."""
     lm = _small_lm()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(lm, device="cpu", mesh=object())
+    with pytest.raises(ValueError, match="tp=3 must divide n_kv_heads"):
+        ServingEngine(lm, device="cpu",
+                      mesh=types.SimpleNamespace(shape={"model": 3,
+                                                        "data": 1}))
     with pytest.raises(ValueError, match="unknown page codec"):
         page_codec.get_codec("fp8")
     for codec in ("int8", "log16"):

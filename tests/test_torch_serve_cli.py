@@ -8,8 +8,9 @@ sampling and speculation, a sequence group, beam search and logprobs
 ``logprobs rid`` lines too).  ``serve_async`` prints the reference's
 ``sample:`` line for an open loop whose requests all arrive at once, and
 its ``--smoke`` runs; ``serve_http --smoke`` passes its built-in client,
-one replica and two behind the router; both refuse ``--tp`` (and
-``serve_http`` ``--dp``) above 1 with a pointer to the roadmap."""
+one replica and two behind the router; both refuse a ``--tp`` (and
+``serve_http`` a ``--dp``) that the heads or the batch cannot take, and
+``--tp 0``.  The CLIs' runs at tp 2 are in test_torch_tp_cli.py."""
 import functools
 import sys
 
@@ -162,11 +163,26 @@ def test_serve_http_smoke_passes_on_the_cpu(replicas, capsys):
     assert "smoke: OK" in out and f"replicas {replicas}" in out
 
 
+# What each case refuses before a rank starts: tp 3 does not divide the
+# reduced config's heads, tp 0 is no mesh, dp 2 does not divide a batch
+# of 3.
+_REFUSED = {(tserve_async, "--tp"): (["--tp", "3"], ValueError,
+                                     "tp=3 must divide n_kv_heads"),
+            (tserve_http, "--tp"): (["--tp", "0"], ValueError,
+                                    "tp and dp must be >= 1"),
+            (tserve_http, "--dp"): (["--dp", "2", "--batch", "3"],
+                                    ValueError, "dp=2 must divide "
+                                                "max_batch=3")}
+
+
 @pytest.mark.parametrize("cli,flag", [(tserve_async, "--tp"),
                                       (tserve_http, "--tp"),
                                       (tserve_http, "--dp")])
 def test_serving_clis_refuse_tensor_and_data_parallel(cli, flag):
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md Queue 1 item 11"):
+    """The serving CLIs refuse a mesh the config or the batch cannot
+    take, with the reference's checks: ``serve_async --tp 3`` (heads),
+    ``serve_http --tp 0`` and ``serve_http --dp 2 --batch 3``."""
+    extra, exc, match = _REFUSED[(cli, flag)]
+    with pytest.raises(exc, match=match):
         cli.main(["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
-                  "--smoke", flag, "2"])
+                  "--smoke"] + extra)
