@@ -128,12 +128,15 @@ Phases, in order; any failure exits non-zero and prints no result line:
    boundary excepted (counted).  Walls, tok/s, launches and the
    sampler's time are printed.  The engine phases share each rail's
    model (``rail_model``).
-   Serving stack (``serving_stack``).  The same models and engine
-   settings behind the stack a user calls.  HTTP: the 16-request
-   workload as concurrent SSE streams through ``HttpServer`` over an
-   ``AsyncFrontend``, fp, spec_k 0, both rails; a probe against a cap of
-   1 answers 429 while requests wait for a slot; then a sampled tenant
-   stream, a ``stream: false`` request and a disconnect after 4 tokens.
+   Serving stack (``serving_stack``).  The engine phases' settings
+   behind the stack a user calls, on rail_model's weights cut to their
+   first 4 of 28 layers (``CUT_LAYERS``, full width) since the families
+   phase joined the script (its checks hold at any depth).  HTTP: the
+   16-request workload as concurrent SSE streams through ``HttpServer``
+   over an ``AsyncFrontend``, fp, spec_k 0, both rails; a probe against
+   a cap of 1 answers 429 while requests wait for a slot; then a sampled
+   tenant stream, a ``stream: false`` request and a disconnect after 4
+   tokens.
    The engine's submits and cancels are recorded with its step count
    (``record_arrivals``) and replayed through ``ServingEngine.step`` on a
    fresh engine: every stream must equal the replay token for token (on
@@ -184,6 +187,44 @@ Phases, in order; any failure exits non-zero and prints no result line:
    limit.  What one card cannot check: NCCL (it refuses two ranks on one
    device) and anything across cards; the walls time gloo through host
    memory, not NVLink.
+   Families (``families``).  Every other config the reference's paged
+   engine serves.  First, on small inputs as phase 3: the reduced
+   granite-moe-1b-a400m and the reduced hfa-paper-mini at its d_head 96
+   (f32, page 4) give the same logits through the kernels on the card as
+   through the plain versions on the CPU, both rails (the MoE model's CPU
+   run takes the card's routing, ``card_routing``: a router choice is
+   discontinuous, and the H-FA rail moves a router logit by up to a rail
+   step; the tokens the CPU would have routed otherwise are counted).
+   Then hfa-paper-mini (32 layers, d_model 3072, 32 heads over 32 KV
+   heads, d_head 96, vocab 32064) and granite-moe-1b-a400m (24 layers,
+   d 1024, 32 experts top-8, d_ff 512, vocab 49155) at full width and
+   full depth serve 8 requests of the engine phase's workload (32 new
+   tokens each) on the engine phase's settings: hfa-paper-mini on hfa at
+   spec_k 0 and 4 and on fa2 at 0, every prefill on the CUDA cores (d
+   96 is not a tensor-core head dim), decode and verify (G K = 5) on
+   v2, then ``serve --dense``'s loop (8 x 256 prompts, 16 steps,
+   hfa_pallas: the tensor-core forward at d 96 and the dense decode);
+   granite on fa2 at spec_k 0 and 4 and on hfa at 0, prefill on the
+   tensor cores, decode and verify (G K = 10) on v2, and its fa2 spec_k
+   0 run again, equal token for token.  On layer 0's captured MoE input
+   (the first decode batch and the last prefill chunk, free and padding
+   rows included) ``moe_apply`` on the card and on the CPU (the same
+   bf16 inputs upcast to f32) route every assignment to the same
+   experts and drop the same ones - a token within 1e-6 of a tie and
+   the slots such a tie moved excepted, counted - and their outputs
+   agree within 2^-7 of the largest; the drops are printed.  Then
+   qwen1.5-4b, minitron-8b, phi3.5-moe-42b-a6.6b and command-r-plus-104b
+   at full width cut to their first 2 layers (``FAMILY_CUT_LAYERS``: one
+   card holds neither phi3.5-moe, ~84 GB in bf16, nor command-r-plus,
+   ~208 GB), 4 requests of 16 tokens on fa2 at spec_k 0 and 4: verify
+   of G K = 20 (minitron, phi3.5-moe) and 60 (command-r-plus) rows on
+   the CUDA cores, of 5 (qwen1.5-4b) on v2.  Every run finishes each
+   request with its tokens, finite logits and the cache invariants, and
+   launches exactly its routes (``family_routes``); walls, tok/s,
+   launches and each model's parameter bytes are printed.  hfa-paper-mini's
+   hfa spec_k 0 run and command-r-plus's spec_k 4 run go again under
+   torch.profiler: the CUDA-core paged kernel's device time beside the
+   device's busy time and the wall (launches not counted).
 5. Dense serve.  Full-width qwen3-1.7b (random bf16 weights from seed
    0) through ``repro_torch.launch.serve._serve_dense``, the fixed-batch
    loop of ``serve --dense``: 8 prompts of 512 tokens from
@@ -223,6 +264,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -262,6 +304,7 @@ from repro_torch.launch import ranks as rank_programs  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import (make_tp_dp_mesh,  # noqa: E402
                                      make_tp_mesh, run_ranks)
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
 from repro_torch.optim import build_optimizer  # noqa: E402
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
@@ -1911,63 +1954,148 @@ def check_datapath_kernel() -> dict:
 
 
 # ------------------------------------------------------------- phase 3
+# Card vs CPU logits on a reduced f32 model.  fa2: f32 on both sides,
+# summation order only.  hfa: the kernels rescale online on the rail (see
+# ATOL_OUT), which moves attention outputs by up to ~1e-2 and the logits
+# of this model by less.
+SMALL_REF_TOLS = {"fa2": 1e-4, "hfa": 2e-2}
+
+
 def check_small_reference() -> dict:
     """Reduced qwen3-1.7b in f32: kernels on the card vs plain versions
     on the CPU, one chunked prefill, one decode and one verify step, at
-    page 4.  Returns each rail's paged launches by route."""
-    # fa2: f32 on both sides, summation order only.  hfa: the kernels
-    # rescale online on the rail (see ATOL_OUT), which moves attention
-    # outputs by up to ~1e-2 and the logits of this model by less.  The
-    # int8 and log16 pools quantize each K/V value: a value the card and
-    # the CPU compute a few f32 ulps apart next to a rounding boundary
-    # lands a quantization step apart (int8: its row's absmax / 127;
-    # log16: a bf16 ulp), which moved fa2's logits by 3.9e-4 (PR 21).
-    counts = {}
-    for rail, tol in (("fa2", 1e-4), ("hfa", 2e-2)):
-        _reset_paged_counters()
-        cfg = dataclasses.replace(get_config("qwen3-1.7b").reduced(),
-                                  attn_impl=rail)
-        cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-        gpu = LM(cfg, device="cuda")
-        gpu.load_state_dict(cpu.state_dict())
-        rng = np.random.default_rng(1)
-        pt = rng.permutation(40)[:32].reshape(2, 16).astype(np.int32)
-        toks = rng.integers(1, cfg.vocab_size, (2, 40)).astype(np.int32)
-        calls = (("paged_prefill", (toks, pt), dict(
-                    last_pos=np.array([39, 30], np.int32),
-                    start_pos=np.array([0, 0], np.int32))),
-                 ("paged_decode_step", (toks[:, :1], pt,
-                                        np.array([40, 31], np.int32)), {}),
-                 ("paged_verify_step", (toks[:, 1:6], pt,
-                                        np.array([41, 32], np.int32),
-                                        np.array([5, 5], np.int32)), {}))
-        # fp, then int8 (f32 q over int8 pools) and log16 (f32 q over the
-        # pools' bf16 view); the route counts are the fp run's.
-        for codec in ("fp",) + CODECS:
-            caches = {m: m.init_paged_cache(40, 4, codec=codec)
-                      for m in (cpu, gpu)}
-            for meth, args, kw in calls:
-                out = {}
-                for m in (cpu, gpu):
+    page 4, on fp, int8 and log16 pools.  Returns each rail's paged
+    launches by route (the fp runs')."""
+    return {rail: small_reference(get_config("qwen3-1.7b"), rail,
+                                  ("fp",) + CODECS)
+            for rail in SMALL_REF_TOLS}
+
+
+def small_reference(full_cfg, rail: str, codecs=("fp",), **kw) -> dict:
+    """``full_cfg`` reduced (f32; ``kw`` replaces fields, e.g. d_head) on
+    ``rail``: one chunked prefill, one decode and one verify step at page
+    4 through the kernels on the card and through the plain versions on
+    the CPU, the same weights (seed 0) and tokens, on each codec's pools;
+    the logits within SMALL_REF_TOLS.  Returns the fp calls' paged
+    launches by route."""
+    # The int8 and log16 pools quantize each K/V value: a value the card
+    # and the CPU compute a few f32 ulps apart next to a rounding
+    # boundary lands a quantization step apart (int8: its row's absmax /
+    # 127; log16: a bf16 ulp), which moved fa2's logits by 3.9e-4.
+    tol = SMALL_REF_TOLS[rail]
+    _reset_paged_counters()
+    cfg = dataclasses.replace(full_cfg.reduced(), attn_impl=rail, **kw)
+    name = full_cfg.name + "".join(f" {k} {v}" for k, v in kw.items())
+    cpu = LM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = LM(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    pt = rng.permutation(40)[:32].reshape(2, 16).astype(np.int32)
+    toks = rng.integers(1, cfg.vocab_size, (2, 40)).astype(np.int32)
+    calls = (("paged_prefill", (toks, pt), dict(
+                last_pos=np.array([39, 30], np.int32),
+                start_pos=np.array([0, 0], np.int32))),
+             ("paged_decode_step", (toks[:, :1], pt,
+                                    np.array([40, 31], np.int32)), {}),
+             ("paged_verify_step", (toks[:, 1:6], pt,
+                                    np.array([41, 32], np.int32),
+                                    np.array([5, 5], np.int32)), {}))
+    # fp, then int8 (f32 q over int8 pools) and log16 (f32 q over the
+    # pools' bf16 view); the route counts are the fp run's.
+    counts = None
+    for codec in codecs:
+        caches = {m: m.init_paged_cache(40, 4, codec=codec)
+                  for m in (cpu, gpu)}
+        for meth, args, kwargs in calls:
+            out = {}
+            # The card first: an MoE model's CPU run takes the card's
+            # routing (see card_routing).
+            with card_routing(cfg.family == "moe") as flips:
+                for m in (gpu, cpu):
                     dev = m.device
                     t = [torch.tensor(a, device=dev) for a in args]
                     k = {key: torch.tensor(v, device=dev)
-                         for key, v in kw.items()}
+                         for key, v in kwargs.items()}
                     out[dev.type], caches[m] = getattr(m, meth)(
                         caches[m], *t, codec=codec, **k)
-                err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
-                atol = tol if codec == "fp" else max(tol, 5e-3)
-                if not err <= atol:
-                    raise AssertionError(f"reduced model {meth}[{rail} "
-                                         f"{codec}]: card vs CPU logits "
-                                         f"differ by {err:.3g} (atol {atol})")
-                print(f"reference: reduced qwen3-1.7b {meth} [{rail} {codec}]"
-                      f" card kernels vs CPU plain: max |logit| diff "
-                      f"{err:.3g}")
-            if codec == "fp":
-                counts[rail] = _paged_counts()
+            err = float((out["cuda"].cpu() - out["cpu"]).abs().max())
+            atol = tol if codec == "fp" else max(tol, 5e-3)
+            if not err <= atol:
+                raise AssertionError(f"reduced {name} {meth}[{rail} "
+                                     f"{codec}]: card vs CPU logits "
+                                     f"differ by {err:.3g} (atol {atol})")
+            print(f"reference: reduced {name} {meth} [{rail} {codec}] card "
+                  f"kernels vs CPU plain: max |logit| diff {err:.3g}"
+                  + (f"; MoE tokens the CPU routed otherwise (it took the "
+                     f"card's routing) {flips['n']} of {flips['of']}"
+                     if cfg.family == "moe" else ""))
+        if codec == "fp":
+            counts = _paged_counts()
     return counts
 
+
+@contextlib.contextmanager
+def card_routing(on: bool):
+    """Within the block, the MoE layers of a card run record their
+    routing and those of the CPU run after it take that routing (each
+    layer's experts, slots and drops, with gates from its own router
+    probabilities at those experts).  A router choice is discontinuous:
+    on the H-FA rail the card's and the CPU's attention differ by up to a
+    rail step, which moves a router logit and can swap a token's k-th
+    expert, and then that token's output by its whole FFN.  Holding the
+    routing fixed keeps the check on the kernels; the routing itself is
+    held by :func:`check_moe_layer` on the same inputs.  Yields {"n":
+    tokens whose experts or drops the CPU's own routing changed, "of":
+    tokens routed}."""
+    flips = {"n": 0, "of": 0}
+    if not on:
+        yield flips
+        return
+    orig = moe.route
+    taken: list = []
+
+    def route(p, x, cfg):
+        r = orig(p, x, cfg)
+        if x.device.type == "cuda":
+            taken.append({k: r[k].cpu() for k in ("idx", "pos", "keep")})
+            return r
+        card = taken.pop(0)
+        own = torch.zeros(r["probs"].shape, dtype=torch.int8)
+        own.scatter_(2, r["idx"], torch.where(r["keep"], 2, 1).to(
+            torch.int8))
+        forced = torch.zeros_like(own)
+        forced.scatter_(2, card["idx"], torch.where(card["keep"], 2, 1).to(
+            torch.int8))
+        flips["n"] += int((own != forced).any(-1).sum())
+        flips["of"] += own.shape[0] * own.shape[1]
+        gate = torch.gather(r["probs"], -1, card["idx"])
+        return dict(r, idx=card["idx"], pos=card["pos"], keep=card["keep"],
+                    gate=gate / torch.sum(gate, dim=-1, keepdim=True))
+
+    moe.route = route
+    try:
+        yield flips
+    finally:
+        moe.route = orig
+    if taken:
+        raise AssertionError("card_routing: the CPU run made fewer MoE "
+                             "calls than the card's")
+
+
+def check_small_routes(paged: dict, label: str) -> None:
+    """The routes of the reduced f32 models at page 4: every prefill on
+    the CUDA cores; decode and verify on v2 on the FA-2 rail, on the CUDA
+    cores (a rescale a page) on the H-FA rail."""
+    for rail, c in paged.items():
+        on = "simt" if rail == "hfa" else ""
+        need = {"paged_prefill_simt", f"paged_decode{on and '_simt'}",
+                f"paged_verify{on and '_simt'}"}
+        if any((c[n] > 0) != (n in need) for n in c):
+            raise AssertionError(f"{label} [{rail}]: the reduced f32 "
+                                 f"model's paged launches {c}, need "
+                                 f"exactly {sorted(need)}")
+    print(f"{label}: paged launches of the reduced f32 model (page 4) by "
+          f"route {paged}")
 
 
 # Dense ring on the reduced model, card vs CPU: fa2 is f32 on both sides;
@@ -2068,12 +2196,15 @@ def stack_engine(model, **kw) -> ServingEngine:
     return ServingEngine(model, device=model.device, **{**STACK_KW, **kw})
 
 
-def workload(vocab: int) -> list[Request]:
+def workload(vocab: int, n: int = 16,
+             new_tokens: int = 64) -> list[Request]:
+    """The engine phase's requests (the first ``n`` of them): a 520-token
+    system prompt, tails of 32-256 tokens, ``new_tokens`` each."""
     rng = np.random.default_rng(0)
     sysp = rng.integers(1, vocab, 520).tolist()
     return [Request(rid=i, prompt=sysp + rng.integers(
-        1, vocab, int(rng.integers(32, 257))).tolist(), max_new_tokens=64)
-        for i in range(16)]
+        1, vocab, int(rng.integers(32, 257))).tolist(),
+        max_new_tokens=new_tokens) for i in range(n)]
 
 
 def serve(model, reqs: list, spec_k, capture=None,
@@ -2151,22 +2282,25 @@ def serve(model, reqs: list, spec_k, capture=None,
         "pool_bytes_per_shard": eng.pool_bytes_per_shard()}
 
 
-def run_engine(model, spec_k: int, kv_codec: str = "fp",
-               mesh=None) -> tuple[dict, dict, float]:
-    reqs = workload(model.cfg.vocab_size)
-    done, info = serve(model, reqs, spec_k, kv_codec=kv_codec, mesh=mesh)
+def run_engine(model, spec_k: int, kv_codec: str = "fp", mesh=None,
+               n: int = 16, new_tokens: int = 64,
+               capture=None) -> tuple[dict, dict, float]:
+    reqs = workload(model.cfg.vocab_size, n, new_tokens)
+    done, info = serve(model, reqs, spec_k, capture=capture,
+                       kv_codec=kv_codec, mesh=mesh)
     streams = {rid: f.tokens for rid, f in done.items()}
     if sorted(streams) != list(range(len(reqs))) or any(
-            len(t) != 64 for t in streams.values()):
-        raise AssertionError("not every request finished with 64 tokens")
+            len(t) != new_tokens for t in streams.values()):
+        raise AssertionError(f"not every request finished with "
+                             f"{new_tokens} tokens")
     return streams, info, info["wall_s"]
 
 
 @functools.lru_cache(maxsize=None)
 def rail_model(rail: str) -> LM:
     """Full-width qwen3-1.7b on ``rail`` (random bf16 weights from seed 0),
-    built once for the engine, engine_codecs, engine_sampled and
-    serving_stack phases (``rail_model.cache_clear()`` frees them)."""
+    built once for the engine, engine_codecs and engine_sampled phases
+    (``rail_model.cache_clear()`` frees them)."""
     cfg = dataclasses.replace(get_config("qwen3-1.7b"), attn_impl=rail)
     t0 = time.perf_counter()
     model = LM(cfg, device="cuda").init(
@@ -2178,14 +2312,15 @@ def rail_model(rail: str) -> LM:
     return model
 
 
-# Depth of the engine_sampled phase's sampled runs and of the tp phase's
-# model: rail_model's weights, their first 4 of 28 layers, at full width.
-# The engine phase runs the main path at full depth; these runs' checks
-# hold at any depth, and the script's walls vary up to 1.6x between
-# machines (878.6 and 1,049.2 s of the 1,200 s limit on two of them with
-# the sampled runs at full depth, PERF.md).  The tp phase's ranks share
-# one card and a gather a layer: ~1-1.4 s a layer a tp 2 run (28 layers:
-# 26-55 s).
+# Depth of the engine_sampled phase's sampled runs, of the serving_stack
+# phase's models and of the tp phase's model: rail_model's weights, their
+# first 4 of 28 layers, at full width.  The engine phase runs the main
+# path at full depth; these runs' checks hold at any depth, and the
+# script's walls vary up to 1.6x between machines (878.6 and 1,049.2 s
+# of the 1,200 s limit on two of them with the sampled runs at full
+# depth, PERF.md; the serving stack at 4 layers makes room for the
+# families phase).  The tp phase's ranks share one card and a gather a
+# layer: ~1-1.4 s a layer a tp 2 run (28 layers: 26-55 s).
 CUT_LAYERS = 4
 
 # The engine phase's greedy fp spec_k 0 streams and wall by rail (full
@@ -3100,9 +3235,10 @@ def check_disagg(model, rail: str, codec: str, lifecycle: bool) -> dict:
 
 
 def check_serving_stack() -> dict:
-    """The serving stack over the engine at full width: HTTP/SSE on both
-    rails, the router over two replicas, prefill/decode disaggregation on
-    every codec.  Returns the launches by row."""
+    """The serving stack over the engine at full width (the model cut to
+    CUT_LAYERS layers): HTTP/SSE on both rails, the router over two
+    replicas, prefill/decode disaggregation on every codec.  Returns the
+    launches by row."""
     t0 = time.perf_counter()
     totals = {n: 0 for n in list(PAGED_ROWS) + list(CODEC_ROWS)}
 
@@ -3111,10 +3247,10 @@ def check_serving_stack() -> dict:
             totals[n] += c
 
     for rail in ("fa2", "hfa"):
-        add(check_http(rail_model(rail), rail))
-    add(check_router(rail_model("fa2")))
+        add(check_http(cut_model(rail), rail))
+    add(check_router(cut_model("fa2")))
     for i, (rail, codec) in enumerate(DISAGG_RUNS):
-        add(check_disagg(rail_model(rail), rail, codec, lifecycle=i == 0))
+        add(check_disagg(cut_model(rail), rail, codec, lifecycle=i == 0))
     # The recording and timing wrappers close over their engines, a cycle
     # each: collect them, so their pools are freed before the next phase.
     gc.collect()
@@ -3285,6 +3421,301 @@ def check_tp() -> dict:
     cut_model.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
+    return totals
+
+
+# ------------------------------------------------------------ phase 4e
+# The families phase: every other config the reference's paged engine
+# serves.  hfa-paper-mini and granite-moe-1b-a400m at full width and full
+# depth: (rail, spec_k) runs; the others at full width cut to their first
+# FAMILY_CUT_LAYERS layers (a cut of depth: one card holds neither
+# phi3.5-moe-42b-a6.6b, ~84 GB in bf16, nor command-r-plus-104b, ~208 GB,
+# and the script has a time limit), fa2 at spec_k 0 and 4.
+FAMILY_FULL = {"hfa-paper-mini": (("hfa", 0), ("hfa", 4), ("fa2", 0)),
+               "granite-moe-1b-a400m": (("fa2", 0), ("fa2", 4), ("hfa", 0))}
+FAMILY_CUT = ("qwen1.5-4b", "minitron-8b", "phi3.5-moe-42b-a6.6b",
+              "command-r-plus-104b")
+FAMILY_CUT_LAYERS = 2
+FAMILY_REQS = {"full": (8, 32), "cut": (4, 16)}   # (requests, new tokens)
+# serve --dense on hfa-paper-mini (its own impl, hfa_pallas): prompts,
+# steps, ring.
+FAMILY_DENSE = (8, 256, 16, 288)
+# The MoE layer check: routing card vs CPU equal up to near ties (the
+# router probabilities of a token's k-th and (k+1)-th experts within
+# this of each other), outputs within REL_MOE of each tensor's max.
+MOE_TIE = 1e-6
+REL_MOE = 2.0 ** -7
+
+
+def family_model(arch: str, layers: int | None = None) -> LM:
+    """``arch`` at full width (``layers``: its first layers only) with
+    random bf16 weights from seed 0, drawn tensor by tensor on the card."""
+    cfg = get_config(arch)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    model = LM(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"families: {arch} full width, {cfg.n_layers} of "
+          f"{get_config(arch).n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads} heads over {cfg.n_kv_heads} KV heads, d_head "
+          f"{cfg.d_head}, vocab {cfg.vocab_size}"
+          + (f", {cfg.n_experts} experts top-{cfg.moe_top_k}"
+             if cfg.family == "moe" else "")
+          + f": {nbytes} parameter bytes, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    return model
+
+
+def family_routes(cfg, spec_k: int) -> set:
+    """The paged rows a run of ``cfg`` at page 16 (bf16 pools) launches:
+    its prefill route (``paged_prefill_route``: the tensor cores at d 64
+    and 128, the CUDA cores at d 96) and its decode (v2) or its verify of
+    G K rows (``paged_verify_route``)."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    pf = "paged_prefill" if cfg.d_head in cuda_lib.TC_HEAD_DIMS \
+        else "paged_prefill_simt"
+    if spec_k == 0:
+        step = "paged_decode"
+    else:
+        route = cuda_lib.paged_verify_route(
+            g, spec_k + 1, STACK_KW["page_size"],
+            cfg.attn_impl.startswith("hfa"))
+        step = "paged_verify" + ("_simt" if route == "simt" else "")
+    return {pf, step}
+
+
+def _family_run(model, rail: str, spec_k: int, kind: str, capture=None,
+                tag: str = "") -> tuple[dict, dict]:
+    """One engine run of the families phase on ``rail``: every request
+    finishes with its count, logits finite, invariants kept (``serve``),
+    launches on exactly the expected routes.  Returns (streams, info)."""
+    model.cfg = dataclasses.replace(model.cfg, attn_impl=rail)
+    n, new = FAMILY_REQS[kind]
+    streams, info, wall = run_engine(model, spec_k, n=n, new_tokens=new,
+                                     capture=capture)
+    la = info["launches"]
+    need = family_routes(model.cfg, spec_k)
+    if any((la[r] > 0) != (r in need) for r in la):
+        raise AssertionError(f"families [{model.cfg.name} {rail} spec_k="
+                             f"{spec_k}]: launches {la}, need exactly "
+                             f"{sorted(need)}")
+    st = info["stats"]
+    print(f"families{tag} [{model.cfg.name} {rail} spec_k={spec_k}]: wall "
+          f"{wall:.3f} s, {st['steps']} steps, {st['generated_tokens']} "
+          f"tokens ({st['generated_tokens'] / wall:.1f} tok/s), prefill "
+          f"{st['prefill_tokens']} computed + {st['cached_prefill_tokens']} "
+          f"cached, drafts {st['draft_accepted']}/{st['draft_tokens']}, "
+          f"launches { {r: c for r, c in la.items() if c} }")
+    return streams, info
+
+
+def _simt_share(model, rail: str, spec_k: int, kind: str) -> None:
+    """The families run again under torch.profiler: the device time of
+    the CUDA-core paged kernel (``paged_attention_kernel``: hfa-paper-mini's
+    d 96 prefill, command-r-plus's G K 60 verify) against the device's
+    busy time and the run's wall (not a main-path run: its launches are
+    not counted)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, info = _family_run(model, rail, spec_k, kind, tag=" profiled")
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+    def us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    key = PAGED_ROWS["paged_prefill_simt"][3]
+    busy = sum(us(e) for e in ev) / 1e3
+    simt = sum(us(e) for e in ev if key in e.key) / 1e3
+    n = sum(e.count for e in ev if key in e.key)
+    wall = info["wall_s"] * 1e3
+    print(f"families profile [{model.cfg.name} {rail} spec_k={spec_k}]: "
+          f"{key} {simt:.3f} ms in {n} launches = "
+          f"{simt / max(busy, 1e-9):.1%} of the device's busy {busy:.3f} ms "
+          f"and {simt / wall:.1%} of the run's wall {wall:.1f} ms (profiled)")
+
+
+def check_moe_layer(model, captured: dict) -> None:
+    """Layer 0's MoE on captured inputs (a prefill chunk, a decode batch;
+    padding and free rows included): ``moe_apply`` on the card against
+    the port's on the CPU, the same bf16 inputs upcast to f32 there.
+    Every assignment routes to the same expert and drops alike, but a
+    token whose k-th and (k+1)-th router probabilities lie within MOE_TIE
+    (a near tie) and an assignment whose slot such a tie moved (counted,
+    printed); the outputs of the other tokens within REL_MOE of the
+    tensor's max."""
+    cfg = model.cfg
+    k = cfg.moe_top_k
+    cpu = moe.MoE(cfg, torch.float32, "cpu")
+    cpu.load_state_dict({n: t.detach().to("cpu", torch.float32) for n, t in
+                         model.layers[0].ffn.state_dict().items()})
+    for what, x in captured.items():
+        with torch.no_grad():
+            rg = moe.route(model.layers[0].ffn, x, cfg)
+            out_g, _ = moe.moe_apply(model.layers[0].ffn, x, cfg, rg)
+            xc = x.to("cpu", torch.float32)
+            rc = moe.route(cpu, xc, cfg)
+            out_c, _ = moe.moe_apply(cpu, xc, cfg, rc)
+        ng, g = rc["idx"].shape[:2]
+        e = cfg.n_experts
+        sets = {}
+        for name, r in (("card", rg), ("cpu", rc)):
+            idx = r["idx"].cpu()
+            chosen = torch.zeros((ng, g, e), dtype=torch.bool)
+            chosen.scatter_(2, idx, True)
+            kept = torch.zeros((ng, g, e), dtype=torch.bool)
+            kept.scatter_(2, idx, r["keep"].cpu())
+            sets[name] = (chosen, kept)
+        srt = torch.sort(rc["probs"], dim=-1, descending=True).values
+        tie = (srt[..., k - 1] - srt[..., k]).abs() <= MOE_TIE
+        moved = (sets["card"][0] != sets["cpu"][0]).any(-1)    # (ng, g)
+        if bool((moved & ~tie).any()):
+            raise AssertionError(f"moe layer [{what}]: "
+                                 f"{int((moved & ~tie).sum())} tokens route "
+                                 f"to other experts on the card, no near tie")
+        # A slot moves only after (in token order) a token whose experts
+        # moved, in its group, and only at an expert that token touched.
+        touched = (moved[..., None] & (sets["card"][0] | sets["cpu"][0]))
+        after = torch.cumsum(touched.to(torch.int32), dim=1) > 0
+        both = sets["card"][0] & sets["cpu"][0]
+        keep_diff = both & (sets["card"][1] != sets["cpu"][1])
+        slot_moved = keep_diff & after
+        if bool((keep_diff & ~after).any()):
+            raise AssertionError(f"moe layer [{what}]: "
+                                 f"{int((keep_diff & ~after).sum())} "
+                                 f"assignments drop on one side only, no "
+                                 f"near tie before them")
+        excused = (moved | slot_moved.any(-1)).reshape(-1)
+        og = out_g.reshape(-1, cfg.d_model).cpu().to(torch.float32)
+        oc = out_c.reshape(-1, cfg.d_model)
+        if bool(excused.all()):
+            raise AssertionError(f"moe layer [{what}]: every token excused")
+        err = float((og - oc)[~excused].abs().max())
+        scale = float(oc.abs().max())
+        drops = int((~rg["keep"]).sum())
+        print(f"moe layer [{what}]: x {tuple(x.shape)}, {ng} groups of {g}, "
+              f"capacity {rc['cap']}; {drops} of {rg['keep'].numel()} "
+              f"assignments drop on the card ({int((~rc['keep']).sum())} on "
+              f"the CPU); near-tie tokens routed apart "
+              f"{int(moved.sum())}, slots moved by them "
+              f"{int(slot_moved.sum())}; max |out card - out CPU| {err:.3g} "
+              f"of max {scale:.3g} (tol {REL_MOE:.3g} of it)")
+        if not err <= REL_MOE * scale:
+            raise AssertionError(f"moe layer [{what}]: outputs differ by "
+                                 f"{err:.3g} > {REL_MOE:.3g} x {scale:.3g}")
+
+
+def _family_dense(model) -> dict:
+    """``serve --dense``'s loop on hfa-paper-mini (hfa_pallas): the
+    bf16 forward at d 96 once a layer on the tensor cores and the dense
+    decode every step of every layer.  Returns the dense launches."""
+    cfg = model.cfg = dataclasses.replace(model.cfg, attn_impl="hfa_pallas")
+    b, ell, steps, ring = FAMILY_DENSE
+    batch = DataPipeline.for_config(cfg, ell, b).batch(0)
+    args = argparse.Namespace(batch=b, prompt_len=ell, steps=steps,
+                              max_seq=ring)
+    _reset_dense_counters()
+    res = serve_cli._serve_dense(model, cfg, batch, args)
+    counts = _dense_counts()
+    variants = dict(cuda_lib.dense_fwd_launches)
+    need = {"dense_decode": cfg.n_layers * steps, "hfa_fwd": cfg.n_layers}
+    if any(counts[n] != c for n, c in need.items()) or not res["finite"] \
+            or variants != {"tc": cfg.n_layers, "simt": 0} \
+            or res["tokens"].shape != (b, steps):
+        raise AssertionError(f"families dense [{cfg.name}]: launches "
+                             f"{counts} (need {need}), forward by kernel "
+                             f"{variants}, finite {res['finite']}")
+    print(f"families dense [{cfg.name} hfa_pallas]: prefill "
+          f"{res['prefill_ms']:.1f} ms ({b}x{ell}), decode "
+          f"{res['decode_ms']:.2f} ms/token, {res['tok_s']:.1f} tok/s, "
+          f"launches { {n: c for n, c in counts.items() if c} }")
+    return counts
+
+
+def check_families() -> dict:
+    """The families phase.  Returns the launches by row."""
+    t0 = time.perf_counter()
+    totals: dict = {}
+
+    def add(counts):
+        for n, c in counts.items():
+            totals[n] = totals.get(n, 0) + c
+
+    # The routes these shapes take: hfa-paper-mini's d 96 prefill on the
+    # CUDA cores (not a tensor-core head dim), command-r-plus-104b's verify
+    # of G K = 12 x 5 = 60 rows on the CUDA cores (> PAGED_V2_MAX_ROWS).
+    if "paged_prefill_simt" not in family_routes(
+            get_config("hfa-paper-mini"), 0) or "paged_verify_simt" not in \
+            family_routes(get_config("command-r-plus-104b"), 4):
+        raise AssertionError("families: the route rules changed")
+    # Reference checks on small inputs: the reduced granite and the
+    # reduced hfa-paper-mini at its own d_head 96 (f32, page 4).
+    for arch, kw in (("granite-moe-1b-a400m", {}),
+                     ("hfa-paper-mini", {"d_head": 96})):
+        check_small_routes({rail: small_reference(get_config(arch), rail,
+                                                  **kw)
+                            for rail in SMALL_REF_TOLS},
+                           f"families reference [{arch}]")
+    for arch, runs in FAMILY_FULL.items():
+        model = family_model(arch)
+        captured: dict = {}
+        orig = moe.moe_apply
+
+        def grab(p, x, cfg, routing=None, _m=model):
+            # Layer 0's input: the first decode batch (free slots among
+            # its rows) and the last prefill chunk (a prompt's tail, its
+            # rows padded to the page).
+            if p is _m.layers[0].ffn:
+                if x.shape[1] > 1:
+                    captured["prefill chunk"] = x.detach().clone()
+                else:
+                    captured.setdefault("decode batch", x.detach().clone())
+            return orig(p, x, cfg, routing)
+
+        first = None
+        for i, (rail, spec_k) in enumerate(runs):
+            moe.moe_apply = grab if (i == 0 and model.cfg.family == "moe") \
+                else orig
+            try:
+                streams, info = _family_run(model, rail, spec_k, "full")
+            finally:
+                moe.moe_apply = orig
+            add(info["launches"])
+            if i == 0:
+                first = streams
+        if model.cfg.family == "moe":
+            rail, spec_k = runs[0]
+            again, info = _family_run(model, rail, spec_k, "full")
+            add(info["launches"])
+            print(f"families [{arch} {rail} spec_k={spec_k}] repeated: "
+                  f"{_agreement(again, first)}")
+            if again != first:
+                raise AssertionError(f"families [{arch}]: a repeated run "
+                                     f"differs: {_agreement(again, first)}")
+            check_moe_layer(model, captured)
+        else:
+            _simt_share(model, "hfa", 0, "full")
+            add(_family_dense(model))
+        del model, captured
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in FAMILY_CUT:
+        model = family_model(arch, FAMILY_CUT_LAYERS)
+        for spec_k in (0, 4):
+            _, info = _family_run(model, "fa2", spec_k, "cut")
+            add(info["launches"])
+        if arch == "command-r-plus-104b":
+            _simt_share(model, "fa2", 4, "cut")
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+    print("families: " + card_line())
+    print(f"families: launches of the phase by row "
+          f"{({n: c for n, c in totals.items() if c})}")
+    print(f"families: phase wall {time.perf_counter() - t0:.1f} s")
     return totals
 
 
@@ -3692,7 +4123,8 @@ def main() -> int:
         return 1
     phases = sys.argv[1:] or ["kernels", "pools", "reference", "engine",
                               "engine_codecs", "engine_sampled",
-                              "serving_stack", "tp", "dense_serve", "train"]
+                              "serving_stack", "tp", "families",
+                              "dense_serve", "train"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -3723,20 +4155,7 @@ def main() -> int:
     if "pools" in phases:
         check_pools()
     if "reference" in phases:
-        paged = check_small_reference()
-        # Page 4, f32: every prefill on the CUDA cores; decode and verify
-        # on v2 on the FA-2 rail, on the CUDA cores (a rescale a page) on
-        # the H-FA rail.
-        for rail, c in paged.items():
-            on = "simt" if rail == "hfa" else ""
-            need = {"paged_prefill_simt", f"paged_decode{on and '_simt'}",
-                    f"paged_verify{on and '_simt'}"}
-            if any((c[n] > 0) != (n in need) for n in c):
-                raise AssertionError(f"reference [{rail}]: the reduced f32 "
-                                     f"model's paged launches {c}, need "
-                                     f"exactly {sorted(need)}")
-        print(f"reference: paged launches of the reduced f32 model (page 4) "
-              f"by route {paged}")
+        check_small_routes(check_small_reference(), "reference")
         _reset_dense_counters()
         check_ring_reference()
         check_train_reference()
@@ -3771,11 +4190,14 @@ def main() -> int:
                        ("engine_sampled", check_engine_sampled),
                        ("serving_stack", check_serving_stack),
                        ("tp", check_tp),
+                       ("families", check_families),
                        ("dense_serve", check_dense_serve),
                        ("train", check_train)):
-        if phase in ("dense_serve", "train"):   # the engine phases' models
+        if phase in ("families", "dense_serve", "train"):
+            # The engine phases' models are not used past here.
             rail_model.cache_clear()
             cut_model.cache_clear()
+            gc.collect()
             torch.cuda.empty_cache()
         if phase in phases:
             for n, c in run().items():       # launches of the phase's path

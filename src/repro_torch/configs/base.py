@@ -3,8 +3,8 @@
 ``ModelConfig`` is the reference's dataclass field for field, so a
 config means the same model in both packages.  It covers every family
 of the reference (dense GQA, MoE, hybrid Mamba+attn, pure SSM,
-encoder-decoder, VLM backbone); the port registers and runs only the
-dense ones so far.  ``reduced()`` returns the smoke-test scale-down of
+encoder-decoder, VLM backbone); the port registers and runs the dense
+and MoE ones so far.  ``reduced()`` returns the smoke-test scale-down of
 the same family.
 """
 from __future__ import annotations

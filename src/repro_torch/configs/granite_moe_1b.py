@@ -1,0 +1,20 @@
+"""granite-moe-1b-a400m: 32 experts top-8, every layer
+[hf:ibm-granite/granite-3.0-1b-a400m-base; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+GRANITE_MOE_1B = register(ModelConfig(
+    name="granite-moe-1b-a400m",
+    family="moe",
+    n_layers=24,
+    d_model=1024,
+    n_heads=16,
+    n_kv_heads=8,
+    d_head=64,
+    d_ff=512,
+    vocab_size=49155,
+    n_experts=32,
+    moe_top_k=8,
+    moe_every=1,
+    attn_impl="fa2",
+    param_dtype="bfloat16",
+))

@@ -13,6 +13,16 @@ a contiguous cache.
       --reduced --device cpu --dense
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \\
       --reduced --device cpu --tp 2
+  python -m repro_torch.launch.serve --arch granite-moe-1b-a400m \\
+      --device cuda --spec-k 4
+
+``--arch`` takes every config the reference's paged engine serves:
+qwen3-1.7b, qwen1.5-4b, minitron-8b, command-r-plus-104b, hfa-paper-mini
+(H-FA rail by default), granite-moe-1b-a400m and phi3.5-moe-42b-a6.6b
+(``repro_torch.configs.REGISTRY``; the last two route each token to its
+top-k experts, :mod:`repro_torch.models.moe`).  At full size
+phi3.5-moe-42b-a6.6b (~84 GB in bf16) and command-r-plus-104b (~208 GB)
+do not fit one 80 GB card.
 
 Weights are random (nothing is downloaded): the reference's
 ``LM.init(PRNGKey(0))`` weights, drawn with JAX's generator written in
@@ -219,9 +229,13 @@ def main(argv=None):
     from repro_torch.models.model import build_model
 
     cfg = config(args)
-    if args.dense:
+    if args.dense or not _paged_supported(cfg):
         if args.tp > 1:
             raise SystemExit("--tp requires the paged serving path")
+        if not args.dense:
+            print(f"note: {cfg.name} (family={cfg.family}, "
+                  f"pos_emb={cfg.pos_emb}) is not paged-servable yet; "
+                  "falling back to the dense fixed-batch loop")
         model = build_model(cfg, device=args.device).init_reference(0)
         _serve_dense(model, cfg, DataPipeline.for_config(
             cfg, args.prompt_len, args.batch).batch(0), args)

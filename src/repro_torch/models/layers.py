@@ -75,8 +75,8 @@ def init_dense_(w: torch.Tensor, generator: torch.Generator,
     """Fill ``w`` with N(0, 1) * scale drawn from ``generator`` (on the
     generator's device, then copied to ``w``)."""
     x = torch.randn(tuple(w.shape), generator=generator,
-                    device=generator.device, dtype=torch.float32) * scale
-    w.copy_(x.to(w.dtype))
+                    device=generator.device, dtype=torch.float32)
+    w.copy_(x.mul_(scale).to(w.dtype))
 
 
 # ---------------------------------------------------------------- apply

@@ -10,9 +10,13 @@ own ``LM.init(PRNGKey(seed))`` weights with JAX's generator written in
 torch, and :mod:`repro_torch.models.convert` loads any reference
 parameters.
 
-Ported so far: dense GQA stacks with RoPE, RMSNorm and SwiGLU (the
-qwen3 family); the training forward ``apply`` and ``loss`` (masked
-next-token NLL in f32); the dense fixed-batch decode methods -
+Ported so far: GQA stacks with RoPE and RMSNorm whose FFNs are SwiGLU
+(family "dense") or a Mixture-of-Experts of SwiGLU experts (family
+"moe", :mod:`repro_torch.models.moe`); the hybrid, SSM,
+encoder-decoder and VLM families are ROADMAP.md Queue 1 item 13b.
+Methods: the training forward ``apply`` and ``loss`` (masked next-token
+NLL in f32 plus the MoE's weighted aux losses); the dense fixed-batch
+decode methods -
 ``init_cache``, ``prefill`` and ``decode_step`` over a contiguous ring;
 and the paged serving methods - ``init_paged_cache``, ``paged_prefill``
 (chunked or whole-prompt, the LM head at the last position or at every
@@ -39,17 +43,20 @@ AUX_COEF = {"load_balance": 0.01, "router_z": 0.001}
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if (cfg.family != "dense" or cfg.pos_emb != "rope"
+        if (cfg.family not in ("dense", "moe") or cfg.pos_emb != "rope"
                 or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu"):
             raise NotImplementedError(
-                f"{cfg.name}: only dense rope/rmsnorm/swiglu stacks are "
-                "ported so far")
+                f"{cfg.name} (family {cfg.family}): only dense and MoE "
+                "rope/rmsnorm/swiglu stacks are ported so far (ROADMAP.md "
+                "Queue 1 item 13b)")
         self.cfg = cfg
         dev = resolve_device(device)
         pdt = DTYPES[cfg.param_dtype]
+        _, ffns, period = T.period_pattern(cfg)
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, pdt, dev)
-        self.layers = nn.ModuleList(T.Block(cfg, pdt, dev)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(
+            T.Block(cfg, pdt, dev, ffns[idx % period])
+            for idx in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, pdt, dev)
         if not cfg.tie_embeddings:
             self.lm_head = L._param((cfg.d_model, cfg.padded_vocab), pdt,
@@ -80,14 +87,14 @@ class LM(nn.Module):
         (:mod:`repro_torch.core.jax_random`), drawn on this model's
         device.  Returns self."""
         keys = self._reference_keys(seed)
-        pdt = DTYPES[self.cfg.param_dtype]
         return self._fill(lambda name, w, scale: w.copy_(jr.normal(
-            keys[name], tuple(w.shape), pdt, self.device, scale)))
+            keys[name], tuple(w.shape), w.dtype, self.device, scale)))
 
     def _fill(self, draw) -> "LM":
         """Every weight through ``draw(name, w, scale)`` - the embedding,
-        each layer's projections, the head, in that order - with biases
-        0 and norm scales 1."""
+        each layer's projections (an MoE's router, kept f32, and its
+        experts' wg, wu, wd), the head, in that order - with biases 0 and
+        norm scales 1."""
         cfg = self.cfg
         d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
         draw("embed", self.embed.emb, 0.02)
@@ -102,6 +109,8 @@ class LM(nn.Module):
             for name in ("q_norm", "k_norm"):
                 if hasattr(at, name):
                     getattr(at, name).fill_(1.0)
+            if blk.ffn_kind == "moe":
+                draw((idx, "router"), blk.ffn.router, 1.0 / math.sqrt(d))
             draw((idx, "wg"), blk.ffn.wg, 1.0 / math.sqrt(d))
             draw((idx, "wu"), blk.ffn.wu, 1.0 / math.sqrt(d))
             draw((idx, "wd"), blk.ffn.wd, 1.0 / math.sqrt(cfg.d_ff))
@@ -115,7 +124,8 @@ class LM(nn.Module):
     def _reference_keys(self, seed: int) -> dict:
         """The reference's key of every weight (``LM._init`` ->
         ``stack_init`` -> ``block_init`` -> ``attention_init`` /
-        ``swiglu_init``), named as :meth:`_fill` names them."""
+        ``swiglu_init`` or ``moe_init``), named as :meth:`_fill` names
+        them."""
         ks = jr.split(jr.prng_key(seed), 8)
         keys = {"embed": ks[0], "lm_head": ks[2]}
         period = T.period_pattern(self.cfg)[2]
@@ -125,7 +135,9 @@ class LM(nn.Module):
             kb = jr.split(jr.split(groups[g], period)[i], 4)
             for name, key in zip(("wq", "wk", "wv", "wo"), jr.split(kb[0], 4)):
                 keys[(idx, name)] = key
-            for name, key in zip(("wg", "wu", "wd"), jr.split(kb[2], 3)):
+            ffn = ("router", "wg", "wu", "wd") \
+                if self.layers[idx].ffn_kind == "moe" else ("wg", "wu", "wd")
+            for name, key in zip(ffn, jr.split(kb[2], len(ffn))):
                 keys[(idx, name)] = key
         return keys
 
@@ -147,11 +159,10 @@ class LM(nn.Module):
     def apply(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Dense causal forward over ``batch["tokens"]`` (B, S): logits
         (B, S, padded vocab) in the compute dtype and the aux losses
-        (zero for a dense stack)."""
+        summed over the layers (zero for a dense stack)."""
         x = self._embed_in(batch["tokens"])
-        x, _ = T.stack_apply(self.layers, x, self.cfg)
-        zero = torch.zeros((), dtype=torch.float32, device=x.device)
-        return self._finish(x), {"load_balance": zero, "router_z": zero}
+        x, _, aux = T.stack_apply(self.layers, x, self.cfg)
+        return self._finish(x), aux
 
     def loss(self, batch: dict) -> tuple[torch.Tensor, dict]:
         """Masked next-token NLL in f32 (targets < 0 are masked) plus the
@@ -191,8 +202,8 @@ class LM(nn.Module):
         if cache["pos"] != 0:
             raise ValueError("prefill must start at cache position 0")
         x = self._embed_in(tokens)
-        x, layers = T.stack_apply(self.layers, x, self.cfg,
-                                  caches=cache["layers"], cache_pos=0)
+        x, layers, _ = T.stack_apply(self.layers, x, self.cfg,
+                                     caches=cache["layers"], cache_pos=0)
         out = dict(cache, layers=layers, pos=tokens.shape[1])
         return self._finish(x[:, -1:]), out
 
@@ -202,8 +213,8 @@ class LM(nn.Module):
         (logits (B, 1, V), cache with ``pos`` + 1)."""
         pos = cache["pos"]
         x = self._embed_in(tokens)
-        x, layers = T.stack_apply(self.layers, x, self.cfg,
-                                  caches=cache["layers"], cache_pos=pos)
+        x, layers, _ = T.stack_apply(self.layers, x, self.cfg,
+                                     caches=cache["layers"], cache_pos=pos)
         return self._finish(x), dict(cache, layers=layers, pos=pos + 1)
 
     # ------------------------------------------------ paged decode (serving)
@@ -264,9 +275,9 @@ class LM(nn.Module):
             ps = {"page_table": page_table, "prefill": True, "codec": codec,
                   "mesh": mesh, "start_pos": start_pos,
                   "chunk_lens": last_pos.to(torch.int32) + 1}
-        x, layers = T.stack_apply(self.layers, x, self.cfg,
-                                  positions=positions, caches=layers,
-                                  page_state=ps)
+        x, layers, _ = T.stack_apply(self.layers, x, self.cfg,
+                                     positions=positions, caches=layers,
+                                     page_state=ps)
         if last_pos is not None and not return_all_logits:
             rows = torch.arange(x.shape[0], device=x.device)
             x = x[rows, last_pos.to(torch.int64)][:, None]
@@ -289,9 +300,9 @@ class LM(nn.Module):
         ps = {"page_table": page_table, "seq_lens": seq_lens,
               "codec": codec, "chunk_lens": chunk_lens.to(torch.int32),
               "verify": True, "mesh": mesh}
-        x, layers = T.stack_apply(self.layers, x, self.cfg,
-                                  positions=positions, caches=layers,
-                                  page_state=ps)
+        x, layers, _ = T.stack_apply(self.layers, x, self.cfg,
+                                     positions=positions, caches=layers,
+                                     page_state=ps)
         return self._finish(x), layers
 
     @torch.no_grad()
@@ -304,9 +315,9 @@ class LM(nn.Module):
         seq_lens = seq_lens.to(torch.int32)
         ps = {"page_table": page_table, "seq_lens": seq_lens,
               "codec": codec, "mesh": mesh}
-        x, layers = T.stack_apply(self.layers, x, self.cfg,
-                                  positions=seq_lens[:, None], caches=layers,
-                                  page_state=ps)
+        x, layers, _ = T.stack_apply(self.layers, x, self.cfg,
+                                     positions=seq_lens[:, None],
+                                     caches=layers, page_state=ps)
         return self._finish(x), layers
 
 

@@ -1,7 +1,11 @@
-"""Dense pre-norm transformer blocks and the cache layouts.
+"""Pre-norm transformer blocks and the cache layouts.
 
-A block is attention + SwiGLU FFN, each behind an RMSNorm with a
-residual.  The reference scans over a leading ``groups`` axis
+A block is attention + an FFN - dense SwiGLU or a Mixture-of-Experts
+(:mod:`repro_torch.models.moe`), as ``period_pattern`` names it for the
+layer - each behind an RMSNorm with a residual.  A block returns its
+FFN's aux losses (empty for a dense FFN) and ``stack_apply`` sums them
+over the layers on every path: training, the dense ring and the paged
+pools.  The reference scans over a leading ``groups`` axis
 (``lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
 Python loop.  Both caches keep the reference's stacked layout: the
 paged KV pools ``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups,
@@ -23,29 +27,42 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import page_codec
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 
 class Block(nn.Module):
-    """Attention + dense SwiGLU FFN, pre-norm residual."""
+    """Attention + an FFN of kind ``ffn_kind`` ("dense": SwiGLU, "moe":
+    :class:`repro_torch.models.moe.MoE`), pre-norm residual."""
 
-    def __init__(self, cfg, dtype, device):
+    def __init__(self, cfg, dtype, device, ffn_kind: str = "dense"):
         super().__init__()
+        if ffn_kind not in ("dense", "moe"):
+            raise NotImplementedError(
+                f"FFN kind {ffn_kind!r} is not ported (ROADMAP.md Queue 1 "
+                "item 13b)")
+        self.ffn_kind = ffn_kind
         self.norm1 = L.RMSNorm(cfg.d_model, dtype, device)
         self.mixer = L.Attention(cfg, dtype, device)
         self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+        self.ffn = (moe.MoE(cfg, dtype, device) if ffn_kind == "moe"
+                    else L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
 
 
 def block_apply(blk: Block, x, cfg, *, positions=None, cache=None,
                 cache_pos=None, page_state=None):
-    """Returns (x, this layer's cache); None without a cache."""
+    """Returns (x, this layer's cache or None without one, aux losses:
+    the MoE's {load_balance, router_z}, empty for a dense FFN)."""
     h = L.rmsnorm_apply(blk.norm1, x, cfg.norm_eps)
     y, new_cache = L.attention_apply(blk.mixer, h, cfg, positions=positions,
                                      cache=cache, cache_pos=cache_pos,
                                      page_state=page_state)
     x = x + y
     h = L.rmsnorm_apply(blk.norm2, x, cfg.norm_eps)
-    return x + L.swiglu_apply(blk.ffn, h), new_cache
+    if blk.ffn_kind == "moe":
+        y, aux = moe.moe_apply(blk.ffn, h, cfg)
+    else:
+        y, aux = L.swiglu_apply(blk.ffn, h), {}
+    return x + y, new_cache, aux
 
 
 def period_pattern(cfg) -> tuple[list[str], list[str], int]:
@@ -63,40 +80,49 @@ def period_pattern(cfg) -> tuple[list[str], list[str], int]:
 
 
 def _block_out(blk: Block, x, cfg):
-    return block_apply(blk, x, cfg)[0]
+    x, _, aux = block_apply(blk, x, cfg)
+    return x, aux
 
 
 def stack_apply(layers: nn.ModuleList, x, cfg, *, positions=None,
                 caches=None, cache_pos=None, page_state=None):
-    """Run every layer.  ``caches`` are the stacked paged pools (with
-    ``page_state``, shared by all layers of one step) or dense rings
-    (with ``cache_pos``, a host int), updated in place; without caches
-    the stack is the dense causal (training) forward, each block
-    checkpointed under ``cfg.remat == "full"``."""
-    if caches is None:
-        for blk in layers:
-            if cfg.remat == "none":
-                x = _block_out(blk, x, cfg)
-            else:
-                x = checkpoint(_block_out, blk, x, cfg, use_reentrant=False)
-        return x, None
+    """Run every layer; returns (x, caches, aux summed over the layers:
+    {load_balance, router_z}, f32 zeros for a dense stack).  ``caches``
+    are the stacked paged pools (with ``page_state``, shared by all
+    layers of one step) or dense rings (with ``cache_pos``, a host int),
+    updated in place; without caches the stack is the dense causal
+    (training) forward, each block checkpointed under ``cfg.remat ==
+    "full"``."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    total = {"load_balance": zero, "router_z": zero}
     period = period_pattern(cfg)[2]
     for idx, blk in enumerate(layers):
-        g, i = divmod(idx, period)
-        cache = {key: pool[g] for key, pool in caches[f"l{i}"].items()}
-        x, _ = block_apply(blk, x, cfg, positions=positions, cache=cache,
-                           cache_pos=cache_pos, page_state=page_state)
-    return x, caches
+        if caches is None:
+            if cfg.remat == "none":
+                x, aux = _block_out(blk, x, cfg)
+            else:
+                x, aux = checkpoint(_block_out, blk, x, cfg,
+                                    use_reentrant=False)
+        else:
+            g, i = divmod(idx, period)
+            cache = {key: pool[g] for key, pool in caches[f"l{i}"].items()}
+            x, _, aux = block_apply(blk, x, cfg, positions=positions,
+                                    cache=cache, cache_pos=cache_pos,
+                                    page_state=page_state)
+        for key, val in aux.items():
+            total[key] = total[key] + val
+    return x, caches, total
 
 
 def stack_init_cache(cfg, batch: int, max_seq: int, dtype, device):
     """Dense ring caches for fixed-batch decode, stacked (groups, B,
     max_seq, Hkv, dh), zero-filled.  Self-attention stacks only (no
-    Mamba state, no encoder cross caches)."""
+    Mamba state, no encoder cross caches: ROADMAP.md Queue 1 item 13b)."""
     kinds, _, period = period_pattern(cfg)
     if not all(k == "attn" for k in kinds):
         raise NotImplementedError(
-            f"dense KV cache supports attention-only stacks, got {kinds}")
+            f"dense KV cache supports attention-only stacks, got {kinds} "
+            "(ROADMAP.md Queue 1 item 13b)")
     shape = (cfg.n_layers // period, batch, max_seq, cfg.n_kv_heads,
              cfg.d_head)
     return {f"l{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -118,7 +144,8 @@ def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,
     groups = cfg.n_layers // period
     if not all(k == "attn" for k in kinds):
         raise NotImplementedError(
-            f"paged KV cache supports attention-only stacks, got {kinds}")
+            f"paged KV cache supports attention-only stacks, got {kinds} "
+            "(ROADMAP.md Queue 1 item 13b)")
     c = page_codec.get_codec(codec)
     sdt = c.storage_dtype(dtype)
     hkv = cfg.n_kv_heads if n_kv_heads is None else n_kv_heads

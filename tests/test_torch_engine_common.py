@@ -67,6 +67,39 @@ def models(impl):
     return jm, params, tm
 
 
+@functools.lru_cache(maxsize=None)
+def family_models(arch, impl=None, **cfg_kw):
+    """(reference model, its params, port model) for ``arch`` reduced (the
+    config's own rail unless ``impl``; ``cfg_kw`` replaces config fields
+    in both packages), built once a process.  A config with QKV biases
+    gets nonzero ones (N(0, 0.1^2) from a seed), written into the
+    reference's params before they are carried across: ``init`` leaves
+    them 0, and a zero bias hides a wrong one."""
+    kw = dict(cfg_kw, **({"attn_impl": impl} if impl else {}))
+    jcfg = dataclasses.replace(jget_config(arch).reduced(), **kw)
+    jm = jbuild(jcfg)
+    params = jm.init(jax.random.PRNGKey(0))
+    if jcfg.qkv_bias:
+        params = with_qkv_bias(params)
+    tcfg = dataclasses.replace(get_config(arch).reduced(), **kw)
+    tm = convert.load_reference_params(
+        LM(tcfg, device="cpu"), jax.tree.map(np.asarray, params))
+    return jm, params, tm
+
+
+def with_qkv_bias(params, seed=11):
+    """The reference's params with every ``bq``/``bk``/``bv`` leaf drawn
+    N(0, 0.1^2) from ``seed`` (numpy)."""
+    rng = np.random.default_rng(seed)
+    mixer = dict(params["layers"]["l0"]["mixer"])
+    for name in ("bq", "bk", "bv"):
+        mixer[name] = jax.numpy.asarray(
+            0.1 * rng.standard_normal(mixer[name].shape), mixer[name].dtype)
+    layers = dict(params["layers"], l0=dict(params["layers"]["l0"],
+                                            mixer=mixer))
+    return dict(params, layers=layers)
+
+
 def workload(vocab, n=6, seed=53):
     rng = np.random.default_rng(seed)
     sysp = rng.integers(1, vocab, 12).tolist()

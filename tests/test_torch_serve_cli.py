@@ -5,7 +5,8 @@ and bf16 bit for bit) and, for the same flags on the CPU, the same
 ``sample:`` token ids, dense and paged - greedy, and with seeded
 sampling and speculation, a sequence group, beam search and logprobs
 (the same ``speculation``, ``sequence groups``, completion and
-``logprobs rid`` lines too).  ``serve_async`` prints the reference's
+``logprobs rid`` lines too), and an MoE config (granite-moe-1b-a400m)
+with speculation.  ``serve_async`` prints the reference's
 ``sample:`` line for an open loop whose requests all arrive at once, and
 its ``--smoke`` runs; ``serve_http --smoke`` passes its built-in client,
 one replica and two behind the router; both refuse a ``--tp`` (and
@@ -123,6 +124,15 @@ def test_serve_cli_request_flags_print_the_reference_lines(name, capsys):
         "logprobs rid"))
     assert got == want
     assert len(want) > 1 and want[-1].startswith("sample:")
+
+
+def test_serve_cli_moe_prints_the_reference_lines(capsys):
+    """The reduced granite-moe-1b-a400m through the paged engine with
+    speculation: the same ``sample:`` and ``speculation:`` lines."""
+    flags = ["--arch", "granite-moe-1b-a400m", "--reduced", "--requests",
+             "4", "--steps", "6", "--spec-k", "4"]
+    want, got = _cli_lines(flags, capsys, keep=("sample:", "speculation:"))
+    assert got == want and len(want) == 2
 
 
 def test_serve_async_prints_the_reference_sample(capsys):

@@ -10,9 +10,11 @@ tp 2 job in turn, and one set of four every tp 2 x dp 2 job
 step, and ends it with ``close()``.
 
 (c) The reduced qwen3-1.7b at tp 2 on both rails, spec_k 0 and 4, fp and
-    int8 pools: every rank's greedy streams equal the reference's
-    single-shard engine's; ``triplet_bytes`` equals the reference's
-    formula summed over the model calls the run made;
+    int8 pools, and the reduced granite-moe-1b-a400m (MoE: every rank
+    runs the whole FFN) at tp 2 on fa2, spec_k 0 and 4: every rank's
+    greedy streams equal the reference's single-shard engine's;
+    ``triplet_bytes`` equals the reference's formula summed over the
+    model calls the run made (qwen3-1.7b);
     ``pool_bytes_per_shard`` is half of tp 1's.  tp 2 x dp 2 equals the
     reference and tp 2 alone on both rails at spec_k 0 and 4, its pool a
     shard that of tp 2.  dp 2 with ``max_batch=3`` and a tp that does not
@@ -48,7 +50,8 @@ from repro_torch.launch import ranks
 from repro_torch.serving import (Request, SamplingParams, ServingEngine,
                                  branch_seed)
 from repro_torch.serving import engine as tengine_mod
-from test_torch_engine_common import NEW_TOKENS, models, workload
+from test_torch_engine_common import (NEW_TOKENS, family_models, models,
+                                      workload)
 from test_torch_engine_common import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -56,8 +59,18 @@ pytestmark = pytest.mark.usefixtures("one_torch_thread")
 EKW = dict(max_batch=4, page_size=4, max_seq=48, prefill_budget=6)
 RAILS = ("fa2", "hfa")
 TP_RUNS = list(itertools.product(RAILS, ("fp", "int8"), (0, 4)))
+MOE = "granite"             # the reduced granite-moe-1b-a400m on fa2
+MOE_RUNS = (0, 4)
 TPDP_RUNS = list(itertools.product(RAILS, (0, 4)))
 GROUP_KW = dict(max_batch=6, page_size=4, max_seq=48)
+
+
+def _triple(name):
+    """(reference model, its params, port model) of a job's model name: a
+    rail of the reduced qwen3-1.7b, or :data:`MOE`."""
+    if name == MOE:
+        return family_models("granite-moe-1b-a400m", "fa2")
+    return models(name)
 
 
 def _arrivals(vocab):
@@ -83,6 +96,9 @@ def _jobs(vocab):
         jobs.append(dict(mesh=(2, 1), model=rail,
                          engine=dict(EKW, spec_k=spec_k, kv_codec=codec),
                          drive="workload"))
+    for spec_k in MOE_RUNS:
+        jobs.append(dict(mesh=(2, 1), model=MOE,
+                         engine=dict(EKW, spec_k=spec_k), drive="workload"))
     jobs.append(dict(mesh=(2, 1), model="fa2",
                      engine=GROUP_KW, drive="group"))
     for b in range(3):
@@ -135,7 +151,7 @@ def _drive(eng, arrivals, between=None):
 def _lead_engine(mesh, job, vocab):
     """Rank 0's side of an engine job: drive it, report it, plus the
     (batch, rows) of every paged model call and the lockstep budgets."""
-    model = models(job["model"])[2]
+    model = _triple(job["model"])[2]
     calls, extra = [], {}
     for meth in ("paged_prefill", "paged_decode_step", "paged_verify_step"):
         def record(layers, tokens, *a, _orig=getattr(model, meth), **k):
@@ -201,10 +217,10 @@ def vocab():
 
 @pytest.fixture(scope="module")
 def specs():
-    return {rail: {"cfg": models(rail)[2].cfg,
+    return {name: {"cfg": _triple(name)[2].cfg,
                    "state": {k: v.numpy() for k, v in
-                             models(rail)[2].state_dict().items()}}
-            for rail in RAILS}
+                             _triple(name)[2].state_dict().items()}}
+            for name in RAILS + (MOE,)}
 
 
 def _run_set(world, jobs, vocab, specs):
@@ -242,7 +258,7 @@ def four_ranks(vocab, specs):
 @functools.lru_cache(maxsize=None)
 def _reference_streams(rail, codec, spec_k):
     """The reference's single-shard engine on the workload."""
-    jm, params, _ = models(rail)
+    jm, params, _ = _triple(rail)
     eng = JEngine(jm, params, spec_k=spec_k, kv_codec=codec, **EKW)
     done = eng.run([(2 * i, JRequest(rid=i, prompt=p, max_new_tokens=t))
                     for i, p, t in workload(jm.cfg.vocab_size)])
@@ -285,6 +301,22 @@ def test_tp2_engine_equals_the_reference(two_ranks, rail, codec, spec_k):
         assert rep["stats"] == reports[0]["stats"]
     calls = reports[0]["calls"]
     assert calls and st["triplet_bytes"] == _triplet_formula(cfg, 2, calls)
+
+
+@pytest.mark.parametrize("spec_k", MOE_RUNS)
+def test_tp2_moe_engine_equals_the_reference(two_ranks, spec_k):
+    """The MoE FFN runs whole on every rank, over every row of the call
+    (its capacity is the call's): each rank's streams are the reference
+    single shard's."""
+    reports = two_ranks[("workload", MOE, "fp", spec_k)]
+    want = _reference_streams(MOE, "fp", spec_k)
+    assert len(want) == 6 and all(len(t) == NEW_TOKENS
+                                  for t in want.values())
+    for rank, rep in enumerate(reports):
+        assert _streams(rep) == want, rank
+        assert rep["stats"] == reports[0]["stats"]
+    assert reports[0]["pool_bytes_per_shard"] * 2 == ServingEngine(
+        _triple(MOE)[2], device="cpu", **EKW).pool_bytes_per_shard()
 
 
 @pytest.mark.parametrize("rail,spec_k", TPDP_RUNS)
