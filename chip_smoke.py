@@ -73,7 +73,11 @@ Phases, in order; any failure exits non-zero and prints no result line:
    plain ones bit for bit over every bf16 pattern and rail value, and the
    correction table the plain exp2_neg over all 65,536 d.  Last, every kernel
    at d 96 (hfa-paper-mini's head dim, G 1) and d 32 (G 2), bf16 and f32,
-   against its plain version.
+   against its plain version.  The LNS ablations of Table III: every
+   ``LNSConfig`` (the default, EXACT and each single switch) through
+   ``core.hfa.hfa_attention`` and ``hfa_blockparallel`` at d 64 (q and k
+   on a dyadic grid), card against CPU, the differing output bits
+   counted (none allowed; under exact_mitchell one rail step, reported).
    Pools: int8 data and scales and log16 bits encoded on the card equal
    the CPU's bit for bit.
 3. Reference check on a small input: the reduced qwen3-1.7b (f32) gives
@@ -247,7 +251,31 @@ Phases, in order; any failure exits non-zero and prints no result line:
    are printed.  Then ``Trainer.run`` on the reduced (f32) config with
    an injected failure restarts from its step-4 checkpoint (under
    ``build/``); its backward runs on the CUDA-core kernels.
-7. Print ``{"kernels": [...]}``, the card line again, and last
+7. Adafactor.  command-r-plus-104b at full width (d_model 12288, 96
+   heads over 8 KV heads, d_head 128, vocab 256,000) cut to 2 of 64
+   layers (``ADAFACTOR_LAYERS``; 64 layers are ~208 GB in bf16), bf16,
+   impl fa2, its own optimizer, ``microbatches`` 1 (a second one adds f32
+   gradient sums of 37.8 GB): 3 ``Trainer`` steps at batch 2 x seq 1024
+   from ``DataPipeline``, no checkpoint.  The loss must be finite, the
+   watched rows of the embedding and wq must move (a bf16 norm scale of
+   1 does not at this lr: no f32 master copy), and the forward (12), dq (6)
+   and dk/dv (6) must all run on the tensor-core kernels.  Step walls,
+   losses and peak memory are printed.  Then one Adafactor update of the
+   embedding (3.15e9 values, in chunks of 2^26), the stacked wq, the
+   norm scales (factored across the layers) and the final norm from the
+   same bf16 parameters and gradients: chunked on the card against the
+   unchunked plain update on the CPU, the moments within 1e-5 of their
+   scale and the new parameters at most one bf16 rounding apart.
+8. SSM.  mamba2-2.7b (random bf16 weights from seed 0): ``serve
+   --dense``'s loop at all 64 layers, 8 x 128 prompts and 16 steps
+   (prefill ms and ms/token printed); the model cut to 2 layers at f32,
+   card against CPU on the same weights (prefill of 2 x 128 and 8 greedy
+   steps: logits and the SSM state within 1e-4 of their scale, the greedy
+   tokens equal); layer 0's chunked scan against its token-by-token
+   recurrence over 256 tokens on the card (1e-4); 3 AdamW ``Trainer``
+   steps at 4 of 64 layers, batch 4 x seq 512.  No attention kernel may
+   launch.
+9. Print ``{"kernels": [...]}``, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Opt-in phases, named on the command line (``python3 chip_smoke.py
@@ -304,9 +332,10 @@ from repro_torch.launch import ranks as rank_programs  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch.mesh import (make_tp_dp_mesh,  # noqa: E402
                                      make_tp_mesh, run_ranks)
-from repro_torch.models import moe  # noqa: E402
+from repro_torch.models import mamba2, moe  # noqa: E402
 from repro_torch.models.model import LM  # noqa: E402
-from repro_torch.optim import build_optimizer  # noqa: E402
+from repro_torch.optim import (Adafactor, AdamW,  # noqa: E402
+                               build_optimizer)
 from repro_torch.optim.schedule import warmup_cosine  # noqa: E402
 from repro_torch.parallel import collectives  # noqa: E402
 from repro_torch.runtime.trainer import (  # noqa: E402
@@ -4116,6 +4145,376 @@ def profile_train() -> None:
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------ the LNS ablations
+# Table III's configurations through core.hfa at the paper's d 64: two
+# rows of 32 queries over 96 keys, q and k on a dyadic grid (multiples of
+# 1/4 in [-1, 1]: every score exact in f32 on both devices, so the bf16
+# scores agree), v random bf16.
+ABLATION_CFGS = (lns.DEFAULT, lns.EXACT, lns.LNSConfig(exact_quant=True),
+                 lns.LNSConfig(exact_mitchell=True),
+                 lns.LNSConfig(exact_pwl=True))
+ABLATION_SHAPE = (2, 32, 96, 64)                  # (BH, Lq, Lkv, d)
+RAIL_STEP = 2.0 ** (1 / 128) - 1
+
+
+def check_lns_ablations() -> None:
+    """Every ``LNSConfig`` through ``core.hfa.hfa_attention`` (causal) and
+    ``hfa_blockparallel`` (4 blocks) on the card against the CPU: the
+    bf16 outputs' differing bits are counted; none may differ, except
+    under exact_mitchell, where an ulp of the transcendental may move a
+    rail value: such an output is held to one rail step and reported."""
+    from repro_torch.core import hfa as core_hfa
+    bh, lq, lkv, d = ABLATION_SHAPE
+    gen = torch.Generator().manual_seed(11)
+    q = torch.randint(-4, 5, (bh, lq, d), generator=gen).float() / 4
+    k = torch.randint(-4, 5, (bh, lkv, d), generator=gen).float() / 4
+    v = torch.randn((bh, lkv, d), generator=gen).to(torch.bfloat16)
+    lines = []
+    for cfg in ABLATION_CFGS:
+        for name, fn in (("hfa_attention", functools.partial(
+                core_hfa.hfa_attention, causal=True)),
+                         ("hfa_blockparallel", functools.partial(
+                             core_hfa.hfa_blockparallel, num_blocks=4,
+                             causal=True))):
+            t0 = time.perf_counter()
+            got = fn(q.cuda(), k.cuda(), v.cuda(), cfg=cfg).cpu()
+            card_s = time.perf_counter() - t0
+            want = fn(q, k, v, cfg=cfg)
+            diff = got.view(torch.int16) != want.view(torch.int16)
+            n = int(diff.sum())
+            g, w = got.float(), want.float()
+            far = (g - w).abs() > RAIL_STEP * torch.maximum(g.abs(),
+                                                            w.abs()) * 1.0001
+            if n and (not cfg.exact_mitchell or bool(far.any())):
+                raise AssertionError(f"lns ablation {cfg.tag} {name}: {n} "
+                                     f"outputs differ card vs CPU, "
+                                     f"{int(far.sum())} by more than a "
+                                     f"rail step")
+            lines.append(f"{cfg.tag} {name}: {n}/{diff.numel()} outputs "
+                         f"differ" + (" (each within one rail step: an ulp "
+                                      "of log2 moved a rail value)" if n
+                                      else "") + f", card {card_s:.2f} s")
+    print(f"lns ablations (core.hfa, BH {bh}, Lq {lq}, Lkv {lkv}, d {d}, "
+          f"causal, card vs CPU): " + "; ".join(lines))
+
+
+# ------------------------------------------------------------- adafactor
+# command-r-plus-104b at full width cut to 2 of 64 layers, bf16, impl fa2,
+# Adafactor, microbatches 1 (a second microbatch adds f32 gradient sums,
+# 4 bytes a parameter: 37.8 GB here, more than the card holds beside the
+# 18.9 GB of parameters and their bf16 gradients).
+ADAFACTOR_LAYERS = 2
+ADAFACTOR_BATCH, ADAFACTOR_SEQ, ADAFACTOR_STEPS = 2, 1024, 3
+# The leaves one chunked update on the card is held on against the
+# unchunked plain update on the CPU: the embedding's first
+# ADAFACTOR_EMB_ROWS rows as a leaf of their own (5.5 chunks of 2^26
+# values: the chunk boundaries of the whole 3.15e9-value leaf, at a tenth
+# of its host time and memory), a stacked 3-D projection, the stacked 1-D
+# norm scales (factored across the layers) and the unfactored final norm.
+ADAFACTOR_LEAVES = ("embed.emb", "layers.0.mixer.wq", "layers.1.mixer.wq",
+                    "layers.0.norm1.scale", "layers.1.norm1.scale",
+                    "final_norm.scale")
+ADAFACTOR_EMB_ROWS = 30000
+# The two updates' sums run in other orders (chunks, devices): moments
+# within 1e-5 of each leaf's scale, and the new bf16 parameters equal or
+# one bf16 rounding apart (adjacent bf16 values).
+ADAFACTOR_REL = 1e-5
+
+
+def _adafactor_model():
+    cfg = dataclasses.replace(get_config("command-r-plus-104b"),
+                              n_layers=ADAFACTOR_LAYERS, microbatches=1)
+    assert cfg.attn_impl == "fa2" and cfg.optimizer == "adafactor"
+    return cfg, LM(cfg, device="cuda")
+
+
+def _bf16_order(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in their order (adjacent values one
+    apart; -0 and +0 both 0)."""
+    b = t.view(torch.int16).to(torch.int32)
+    return torch.where(b < 0, -(b & 0x7FFF), b)
+
+
+def check_adafactor_update(model, batch, card) -> None:
+    """One Adafactor update of ADAFACTOR_LEAVES on the card (chunked)
+    against the unchunked plain update on the CPU, from the same bf16
+    parameters and gradients (the embedding cut to its first
+    ADAFACTOR_EMB_ROWS rows)."""
+    for p in model.parameters():
+        p.grad = None
+    loss, _ = model.loss(batch)
+    loss.backward()
+    cut = {n: slice(ADAFACTOR_EMB_ROWS) if n == "embed.emb" else slice(None)
+           for n in ADAFACTOR_LEAVES}
+    params = {n: p.detach()[cut[n]] for n, p in model.named_parameters()
+              if n in ADAFACTOR_LEAVES}
+    grads = {n: p.grad[cut[n]] for n, p in model.named_parameters()
+             if n in ADAFACTOR_LEAVES}
+    cpu_p = {n: t.cpu() for n, t in params.items()}
+    cpu_g = {n: t.cpu() for n, t in grads.items()}
+    grads = {n: t.clone() for n, t in grads.items()}
+    emb_rows = int((grads["embed.emb"] != 0).any(-1).sum())
+    for p in model.parameters():
+        p.grad = None
+    plain = dataclasses.replace(card, chunk_elems=None)
+    card_p = {n: t.clone() for n, t in params.items()}
+    st = card.init(card_p)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.update(grads, st, card_p)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pst = plain.init(cpu_p)
+    plain.update(cpu_g, pst, cpu_p)
+    cpu_s = time.perf_counter() - t0
+    worst = {}
+    for ref, leaf_st in pst["f"].items():
+        for key, want in leaf_st.items():
+            got = st["f"][ref][key].cpu()
+            err = float((got - want).abs().max() / want.abs().max())
+            worst[f"{ref}.{key}"] = err
+            if err > ADAFACTOR_REL:
+                raise AssertionError(f"adafactor: {ref}.{key} card vs CPU "
+                                     f"{err:.3g} of its scale")
+    flips = {}
+    for n, want in cpu_p.items():
+        dist = (_bf16_order(card_p[n].cpu()) - _bf16_order(want)).abs()
+        far = dist > 1
+        flips[n] = int((dist > 0).sum())
+        if bool(far.any()):
+            raise AssertionError(f"adafactor: {n} card vs CPU more than one "
+                                 f"bf16 rounding apart at {int(far.sum())} "
+                                 f"values")
+    print(f"adafactor: one update of {len(ADAFACTOR_LEAVES)} leaves (the "
+          f"embedding's first {ADAFACTOR_EMB_ROWS} rows, {emb_rows} of "
+          f"them with a gradient), card "
+          f"chunked ({card.chunk_elems} values a chunk) {card_s:.3f} s vs "
+          f"CPU unchunked {cpu_s:.1f} s: moments within "
+          f"{max(worst.values()):.3g} of their scale (worst "
+          f"{max(worst, key=worst.get)}), new bf16 parameters differing "
+          f"by one rounding at {flips} values, none further")
+
+
+def check_adafactor() -> dict:
+    """``Trainer`` on command-r-plus-104b (full width, 2 layers, bf16,
+    fa2, Adafactor, microbatches 1): 3 steps, the loss finite, the
+    matrices moved (the bf16 norm scales of 1 may not: no f32 master
+    copy, as in the reference), every dense forward, dq and dk/dv on the
+    tensor-core kernels; then one chunked update against the plain one.
+    Returns the launches of the Trainer's steps."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model = _adafactor_model()
+    tcfg = TrainerConfig(steps=ADAFACTOR_STEPS, ckpt_every=0,
+                         ckpt_dir=str(ROOT / "build" / "chip_smoke_none"),
+                         seq_len=ADAFACTOR_SEQ, global_batch=ADAFACTOR_BATCH,
+                         warmup=1, async_ckpt=False)
+    tr = Trainer(model, tcfg)
+    assert isinstance(tr.opt, Adafactor)
+    # The Trainer draws the same weights again from its seed: keep a few
+    # rows to see them move (the embedding's: rows of the first batch's
+    # tokens, the only ones a gradient reaches).
+    model.init(torch.Generator(device="cuda").manual_seed(tcfg.seed))
+    rows = {n: torch.arange(64, device="cuda") for n in ADAFACTOR_LEAVES}
+    rows["embed.emb"] = torch.unique(torch.from_numpy(
+        tr.pipeline.batch(0)["tokens"][0, :64]).cuda().long())
+    before = {n: p.detach()[rows[n][rows[n] < p.shape[0]]].clone()
+              for n, p in model.named_parameters() if n in ADAFACTOR_LEAVES}
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    print(f"adafactor: command-r-plus-104b full width, {cfg.n_layers} of 64 "
+          f"layers, {n_params} parameters (bf16), batch {ADAFACTOR_BATCH} x "
+          f"seq {ADAFACTOR_SEQ}, microbatches 1, init "
+          f"{time.perf_counter() - t0:.1f} s")
+    _reset_dense_counters()
+    res = tr.run()
+    counts = _dense_counts()
+    variants = dict(cuda_lib.dense_fwd_launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [m["loss"] for m in res["metrics"]]
+    walls = [m["step_time"] for m in res["metrics"]]
+    moved = {n: float((p.detach()[rows[n][rows[n] < p.shape[0]]].float()
+                       - before[n].float()).abs().max())
+             for n, p in model.named_parameters() if n in before}
+    fwd_need = 2 * cfg.n_layers * ADAFACTOR_STEPS
+    bwd_need = cfg.n_layers * ADAFACTOR_STEPS
+    want = {"fa2_fwd": fwd_need, "fa2_bwd_dq": bwd_need,
+            "fa2_bwd_dkv": bwd_need, "fa2_bwd_dq_simt": 0,
+            "fa2_bwd_dkv_simt": 0}
+    if res["final_step"] != ADAFACTOR_STEPS or not np.isfinite(losses).all() \
+            or any(counts[n] != c for n, c in want.items()) \
+            or variants != {"tc": fwd_need, "simt": 0} \
+            or not all(moved[n] > 0 for n in moved if before[n].dim() > 1):
+        raise AssertionError(f"adafactor: {res['final_step']} steps, losses "
+                             f"{losses}, launches {counts} (need {want}), "
+                             f"forward by kernel {variants}, moved {moved}")
+    print(f"adafactor: {ADAFACTOR_STEPS} Trainer steps, walls "
+          f"{['%.4f' % t for t in walls]} s, losses "
+          f"{['%.4f' % x for x in losses]}, peak memory "
+          f"{peak / 2**30:.2f} GiB, launches {counts} (forward by kernel "
+          f"{variants}), largest move of the watched rows "
+          f"{ {n: '%.3g' % v for n, v in moved.items()} } (a bf16 norm scale "
+          f"of 1 stays: lr x its RMS x |u| ~ 3e-4 is under half an ulp)")
+    batch = {"tokens": torch.from_numpy(tr.pipeline.batch(ADAFACTOR_STEPS)
+                                        ["tokens"]).cuda()}
+    check_adafactor_update(model, batch, tr.opt)
+    del tr, model, res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+# ------------------------------------------------------------------- ssm
+SSM_SERVE = (8, 128, 16)              # serve --dense: prompts, length, steps
+SSM_CUT_LAYERS = 2                    # the f32 card-vs-CPU model
+SSM_CUT_PROMPT, SSM_CUT_STEPS = (2, 128), 8
+SSM_TRAIN_LAYERS, SSM_TRAIN_BATCH, SSM_TRAIN_SEQ = 4, 4, 512
+# f32 on both devices, matmul orders apart: logits within 1e-4 of their
+# scale; the chunked scan against the token-by-token recurrence within
+# 1e-4 of the output's and the state's scale (tests/test_mamba_moe.py
+# holds the reference's own to 2e-4 absolute).
+SSM_REL = 1e-4
+
+
+def _ssm_model(layers=None, dtype=None, device="cuda") -> LM:
+    cfg = get_config("mamba2-2.7b")
+    kw = {} if layers is None else {"n_layers": layers}
+    if dtype:
+        kw.update(param_dtype=dtype, compute_dtype=dtype)
+    cfg = dataclasses.replace(cfg, **kw)
+    return LM(cfg, device=device).init(
+        torch.Generator(device=device).manual_seed(0))
+
+
+def _rel(got, want) -> float:
+    return float((got.float().cpu() - want.float().cpu()).abs().max()
+                 / want.float().abs().max())
+
+
+def check_ssm() -> dict:
+    """mamba2-2.7b on the card: ``serve --dense`` at all 64 layers, a
+    2-layer f32 cut card against CPU, the chunked scan against the
+    recurrence, 3 AdamW Trainer steps at 4 layers.  No attention kernel
+    may launch.  Returns the (zero) launches."""
+    _reset_dense_counters()
+    _reset_paged_counters()
+    nb, plen, steps = SSM_SERVE
+    t0 = time.perf_counter()
+    model = _ssm_model()
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    print(f"ssm: mamba2-2.7b full width, {cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, d_inner {cfg.d_inner}, {cfg.d_inner // cfg.m_headdim}"
+          f" heads of {cfg.m_headdim}, d_state {cfg.m_dstate}, "
+          f"{nbytes} parameter bytes, init {time.perf_counter() - t0:.1f} s")
+    assert not serve_cli._paged_supported(cfg)
+    batch = DataPipeline.for_config(cfg, plen, nb).batch(0)
+    args = argparse.Namespace(batch=nb, prompt_len=plen, steps=steps,
+                              max_seq=plen + steps)
+    # One short untimed pass first (the card's first-use costs).
+    warm = model.init_cache(1, 18)
+    toks = torch.as_tensor(batch["tokens"][:1, :16], device="cuda")
+    _, warm = model.prefill(warm, toks)
+    model.decode_step(warm, toks[:, :1])
+    del warm
+    res = serve_cli._serve_dense(model, cfg, batch, args)
+    if not res["finite"] or res["tokens"].shape != (nb, steps):
+        raise AssertionError(f"ssm serve: finite {res['finite']}, tokens "
+                             f"{res['tokens'].shape}")
+    print(f"ssm serve --dense: {nb} x {plen} prompts, {steps} steps, "
+          f"{cfg.n_layers} layers: prefill {res['prefill_ms']:.1f} ms, decode "
+          f"{res['decode_ms']:.2f} ms/token, {res['tok_s']:.1f} tok/s")
+    del model
+    torch.cuda.empty_cache()
+
+    # The 2-layer f32 cut at full width, the same weights on both devices.
+    cpu = _ssm_model(SSM_CUT_LAYERS, "float32", device="cpu")
+    card = LM(cpu.cfg, device="cuda")
+    card.load_state_dict(cpu.state_dict())
+    toks = torch.from_numpy(DataPipeline.for_config(
+        cpu.cfg, SSM_CUT_PROMPT[1], SSM_CUT_PROMPT[0]).batch(1)["tokens"])
+    runs = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        cache = m.init_cache(SSM_CUT_PROMPT[0], 0)
+        logits, cache = m.prefill(cache, toks.to(m.device))
+        out, tok = [logits], torch.argmax(logits[:, -1], -1)[:, None]
+        picks = [tok]
+        for _ in range(SSM_CUT_STEPS):
+            logits, cache = m.decode_step(cache, tok)
+            tok = torch.argmax(logits[:, -1], -1)[:, None]
+            out.append(logits)
+            picks.append(tok)
+        runs[name] = (torch.cat([o.cpu() for o in out], 1),
+                      torch.cat([t.cpu() for t in picks], 1),
+                      cache["layers"]["l0"]["ssm"].cpu())
+    lerr = _rel(runs["card"][0], runs["cpu"][0])
+    serr = _rel(runs["card"][2], runs["cpu"][2])
+    same = bool(torch.equal(runs["card"][1], runs["cpu"][1]))
+    if lerr > SSM_REL or serr > SSM_REL or not same:
+        raise AssertionError(f"ssm card vs CPU: logits {lerr:.3g}, state "
+                             f"{serr:.3g} of their scale, greedy tokens "
+                             f"equal {same}")
+    print(f"ssm card vs CPU (f32, {SSM_CUT_LAYERS} layers, full width, "
+          f"{SSM_CUT_PROMPT[0]} x {SSM_CUT_PROMPT[1]} prefill + "
+          f"{SSM_CUT_STEPS} decode steps): logits within {lerr:.3g}, the "
+          f"SSM state within {serr:.3g} of their scale, greedy tokens equal "
+          f"({runs['card'][1].numel()})")
+
+    # The chunked scan's final state against the recurrence (layer 0).
+    mixer = card.layers[0].mixer
+    x = torch.randn((2, 256, card.cfg.d_model), generator=torch.Generator(
+        device="cuda").manual_seed(5), device="cuda")
+    with torch.no_grad():
+        y_chunk, st_chunk = mamba2.mamba_apply(mixer, x, card.cfg)
+        state = mamba2.mamba_init_state(card.cfg, 2, torch.float32, "cuda")
+        ys = []
+        for t in range(x.shape[1]):
+            y, state = mamba2.mamba_apply(mixer, x[:, t:t + 1], card.cfg,
+                                          state=state)
+            ys.append(y)
+    yerr = _rel(torch.cat(ys, 1), y_chunk)
+    herr = _rel(state["ssm"], st_chunk["ssm"])
+    if yerr > SSM_REL or herr > SSM_REL:
+        raise AssertionError(f"ssm chunked vs recurrent: y {yerr:.3g}, state "
+                             f"{herr:.3g} of their scale")
+    print(f"ssm chunked scan (chunk {card.cfg.m_chunk}, 256 tokens) vs the "
+          f"token-by-token recurrence on the card: outputs within "
+          f"{yerr:.3g}, final SSM state within {herr:.3g} of their scale")
+    del cpu, card
+    torch.cuda.empty_cache()
+
+    # 3 AdamW Trainer steps at 4 layers.
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config("mamba2-2.7b"),
+                              n_layers=SSM_TRAIN_LAYERS)
+    tr = Trainer(LM(cfg, device="cuda"), TrainerConfig(
+        steps=3, ckpt_every=0, ckpt_dir=str(ROOT / "build" / "chip_smoke_none"),
+        seq_len=SSM_TRAIN_SEQ, global_batch=SSM_TRAIN_BATCH, warmup=1,
+        async_ckpt=False))
+    res = tr.run()
+    losses = [m["loss"] for m in res["metrics"]]
+    if res["final_step"] != 3 or not np.isfinite(losses).all() \
+            or not isinstance(tr.opt, AdamW):
+        raise AssertionError(f"ssm train: {res['final_step']} steps, losses "
+                             f"{losses}, optimizer {type(tr.opt).__name__}")
+    print(f"ssm train: {SSM_TRAIN_LAYERS} of 64 layers, batch "
+          f"{SSM_TRAIN_BATCH} x seq {SSM_TRAIN_SEQ}, AdamW, walls "
+          f"{['%.4f' % m['step_time'] for m in res['metrics']]} s, losses "
+          f"{['%.4f' % x for x in losses]}, peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del tr
+    torch.cuda.empty_cache()
+    counts = _dense_counts()
+    paged = _paged_counts()
+    if any(counts.values()) or any(paged.values()):
+        raise AssertionError(f"ssm: attention kernels launched: {counts}, "
+                             f"{paged}")
+    print("ssm: no attention kernel launched (mamba2 has no attention)")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card only",
@@ -4124,7 +4523,7 @@ def main() -> int:
     phases = sys.argv[1:] or ["kernels", "pools", "reference", "engine",
                               "engine_codecs", "engine_sampled",
                               "serving_stack", "tp", "families",
-                              "dense_serve", "train"]
+                              "dense_serve", "train", "adafactor", "ssm"]
     card = card_line()
     print(card)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
@@ -4148,6 +4547,7 @@ def main() -> int:
     if "kernels" in phases:
         check_rail()
         check_lns()
+        check_lns_ablations()
         rows = check_kernels() + check_dense_kernels() + [
             check_decode_kernel(), check_datapath_kernel()]
         check_head_dims()
@@ -4192,8 +4592,10 @@ def main() -> int:
                        ("tp", check_tp),
                        ("families", check_families),
                        ("dense_serve", check_dense_serve),
-                       ("train", check_train)):
-        if phase in ("families", "dense_serve", "train"):
+                       ("train", check_train),
+                       ("adafactor", check_adafactor),
+                       ("ssm", check_ssm)):
+        if phase in ("families", "dense_serve", "train", "adafactor", "ssm"):
             # The engine phases' models are not used past here.
             rail_model.cache_clear()
             cut_model.cache_clear()

@@ -13,7 +13,6 @@ COMMAND_R_PLUS_104B = register(ModelConfig(
     vocab_size=256000,
     attn_impl="fa2",
     param_dtype="bfloat16",
-    optimizer="adafactor",   # >= 100B: factored second moment (the
-                             # port has no adafactor yet: ROADMAP item 12)
+    optimizer="adafactor",   # >= 100B: factored second moment
     microbatches=4,
 ))

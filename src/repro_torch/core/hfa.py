@@ -24,6 +24,11 @@ over the keys (``lax.scan``); here it is a Python loop over the key
 axis.  This module is the plain version of the per-element datapath
 kernel (:mod:`repro_torch.kernels.hfa_datapath`) and the port's impl
 ``hfa`` on the CPU.
+
+Every function takes the reference's ``cfg`` (an ``lns.LNSConfig``, the
+Table III ablations), default ``lns.DEFAULT``.  These functions are
+plain torch on any device; no impl route hands a kernel a ``cfg`` (the
+datapath kernel computes ``DEFAULT`` only, as the reference's does).
 """
 from __future__ import annotations
 
@@ -66,6 +71,7 @@ def _rescale(raw: torch.Tensor, q_d: torch.Tensor) -> torch.Tensor:
 
 def hfa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 scale: float | None = None, mask: torch.Tensor | None = None,
+                cfg: lns.LNSConfig = lns.DEFAULT,
                 init: HFAPartial | None = None) -> HFAPartial:
     """Stream one KV span through the FAU (Alg. 2 with Eq. 14 updates).
 
@@ -79,11 +85,12 @@ def hfa_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s_all = torch.einsum("...qd,...kd->...qk", q.to(torch.float32),
                          k.to(torch.float32)) * scale_v
     return hfa_partial_scores(to_bf16(s_all).to(torch.float32), v,
-                              mask=mask, init=init)
+                              mask=mask, cfg=cfg, init=init)
 
 
 def hfa_partial_scores(s_all: torch.Tensor, v: torch.Tensor, *,
                        mask: torch.Tensor | None = None,
+                       cfg: lns.LNSConfig = lns.DEFAULT,
                        init: HFAPartial | None = None) -> HFAPartial:
     """:func:`hfa_partial` fed the bf16-valued f32 scores s_all (..., Lq,
     Lkv) - already scaled and rounded - in place of its QK^T; the same
@@ -99,7 +106,7 @@ def hfa_partial_scores(s_all: torch.Tensor, v: torch.Tensor, *,
     vb = v.to(torch.bfloat16)
     v_ext = torch.cat([torch.ones(vb.shape[:-1] + (1,), dtype=vb.dtype,
                                   device=vb.device), vb], dim=-1)
-    sgn_v_all, raw_v_all = lns.lns_from_bf16(v_ext)
+    sgn_v_all, raw_v_all = lns.lns_from_bf16(v_ext, cfg)
 
     m_prev, sgn_prev, raw_prev = state
     for i in range(s_all.shape[-1]):
@@ -107,8 +114,8 @@ def hfa_partial_scores(s_all: torch.Tensor, v: torch.Tensor, *,
         valid_i = valid_all[..., i]
         m_new = torch.maximum(m_prev, s_i)
         live = valid_i & (m_new > NEG_INF / 2)
-        q_dm = lns.quant_scorediff(m_prev - m_new)          # Eq. (14b)
-        q_ds = lns.quant_scorediff(s_i - m_new)             # Eq. (14c)
+        q_dm = lns.quant_scorediff(m_prev - m_new, cfg)     # Eq. (14b)
+        q_ds = lns.quant_scorediff(s_i - m_new, cfg)        # Eq. (14c)
         # A: the rescaled previous accumulator.
         a_raw = _rescale(raw_prev, q_dm[..., None])
         # B: the incoming [1, v_i] times the exp term, broadcast over Lq.
@@ -117,14 +124,15 @@ def hfa_partial_scores(s_all: torch.Tensor, v: torch.Tensor, *,
                                    raw_prev.shape)
         sgn_b = torch.broadcast_to(sgn_v_all[..., i, None, :],
                                    sgn_prev.shape)
-        sgn_new, raw_new = lns.lns_add(sgn_prev, a_raw, sgn_b, b_raw)
+        sgn_new, raw_new = lns.lns_add(sgn_prev, a_raw, sgn_b, b_raw, cfg)
         m_prev = torch.where(live, m_new, m_prev)
         sgn_prev = torch.where(live[..., None], sgn_new, sgn_prev)
         raw_prev = torch.where(live[..., None], raw_new, raw_prev)
     return HFAPartial(m_prev, sgn_prev, raw_prev)
 
 
-def logdiv(state: HFAPartial) -> torch.Tensor:
+def logdiv(state: HFAPartial,
+           cfg: lns.LNSConfig = lns.DEFAULT) -> torch.Tensor:
     """Eq. (15)+(22): attention = o_N / l_N as an LNS subtraction ->
     BFloat16."""
     raw_l, sgn_l = state.raw[..., :1], state.sign[..., :1]
@@ -134,16 +142,17 @@ def logdiv(state: HFAPartial) -> torch.Tensor:
     empty = (raw_l <= LOG_ZERO) | (raw_o <= LOG_ZERO)
     raw_attn = torch.where(empty, torch.full_like(raw_attn, float(LOG_ZERO)),
                            raw_attn)
-    return lns.lns_to_bf16(sgn_attn, raw_attn)
+    return lns.lns_to_bf16(sgn_attn, raw_attn, cfg)
 
 
-def acc_merge(a: HFAPartial, b: HFAPartial) -> HFAPartial:
+def acc_merge(a: HFAPartial, b: HFAPartial,
+              cfg: lns.LNSConfig = lns.DEFAULT) -> HFAPartial:
     """Eq. (16): log-domain ACC merge of two partial FAU states.  A side
     that never saw a key has m = NEG_INF; max() recovers the other."""
     m_n = torch.maximum(a.m, b.m)
-    a_raw = _rescale(a.raw, lns.quant_scorediff(a.m - m_n)[..., None])
-    b_raw = _rescale(b.raw, lns.quant_scorediff(b.m - m_n)[..., None])
-    sgn, raw = lns.lns_add(a.sign, a_raw, b.sign, b_raw)
+    a_raw = _rescale(a.raw, lns.quant_scorediff(a.m - m_n, cfg)[..., None])
+    b_raw = _rescale(b.raw, lns.quant_scorediff(b.m - m_n, cfg)[..., None])
+    sgn, raw = lns.lns_add(a.sign, a_raw, b.sign, b_raw, cfg)
     return HFAPartial(m_n, sgn, raw)
 
 
@@ -155,8 +164,8 @@ def causal_mask(lq: int, kv_ids: torch.Tensor, lkv: int) -> torch.Tensor:
 
 
 def hfa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = False,
-                  scale: float | None = None) -> torch.Tensor:
+                  causal: bool = False, scale: float | None = None,
+                  cfg: lns.LNSConfig = lns.DEFAULT) -> torch.Tensor:
     """Full H-FA attention for one KV span (a single FAU): (..., Lq, d)
     bf16."""
     mask = None
@@ -164,12 +173,14 @@ def hfa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         lkv = k.shape[-2]
         mask = causal_mask(q.shape[-2], torch.arange(lkv, device=q.device),
                            lkv)
-    return logdiv(hfa_partial(q, k, v, scale=scale, mask=mask))
+    return logdiv(hfa_partial(q, k, v, scale=scale, mask=mask, cfg=cfg),
+                  cfg)
 
 
 def hfa_blockparallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       num_blocks: int, causal: bool = False,
-                      scale: float | None = None) -> torch.Tensor:
+                      scale: float | None = None,
+                      cfg: lns.LNSConfig = lns.DEFAULT) -> torch.Tensor:
     """Fig. 2: ``num_blocks`` parallel FAU blocks over equal KV spans and
     a cascaded log-domain ACC merge, then LogDiv."""
     lkv, lq = k.shape[-2], q.shape[-2]
@@ -184,8 +195,8 @@ def hfa_blockparallel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask = causal_mask(lq, torch.arange(i * span, (i + 1) * span,
                                                 device=q.device), lkv)
         parts.append(hfa_partial(q, k[..., sl, :], v[..., sl, :],
-                                 scale=scale, mask=mask))
+                                 scale=scale, mask=mask, cfg=cfg))
     acc = parts[0]
     for p in parts[1:]:
-        acc = acc_merge(acc, p)
-    return logdiv(acc)
+        acc = acc_merge(acc, p, cfg)
+    return logdiv(acc, cfg)

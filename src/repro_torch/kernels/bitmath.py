@@ -39,6 +39,30 @@ def log2_mitchell_f32(x: torch.Tensor) -> torch.Tensor:
     return (mag - (F32_BIAS << F32_MANT)).to(torch.float32) * (2.0 ** -F32_MANT)
 
 
+def exp2_mitchell_f32(y: torch.Tensor) -> torch.Tensor:
+    """Inverse Mitchell 2^y ~= the bit pack of (I + bias, F) for f32 y;
+    0 below 2^-126.  (The integer part is clamped before its int32
+    conversion, which saturates in the reference.)"""
+    yi = torch.floor(y)
+    f = y - yi
+    pi = torch.clamp(torch.clamp(yi, -127.0, 128.0).to(torch.int32),
+                     -126, 127)
+    bits = torch.bitwise_left_shift(pi + F32_BIAS, F32_MANT) + torch.round(
+        f * (1 << F32_MANT)).to(torch.int32)
+    out = bits.view(torch.float32)
+    return torch.where(y < -126.0, torch.zeros_like(out), out)
+
+
+def pwl_exp2_frac_f32(f: torch.Tensor) -> torch.Tensor:
+    """The paper's 8-segment PWL 2^{-f}, f in [0, 1), on float values,
+    with the FIX16 datapath's Q1.15 coefficients (:mod:`repro_torch.core.
+    lns`)."""
+    seg = torch.clamp(torch.floor(f * 8.0), 0, 7)
+    av = lns._lut8(seg, lns.PWL_SLOPES_Q15)
+    bv = lns._lut8(seg, lns.PWL_INTERCEPTS_Q15)
+    return (av * f + bv) * (2.0 ** -15)
+
+
 def _ste(hw: torch.Tensor, x: torch.Tensor, smooth) -> torch.Tensor:
     """Straight-through estimator: forward = ``hw`` (bit for bit), grad =
     that of ``smooth()`` with respect to the input ``x``.  The surrogate

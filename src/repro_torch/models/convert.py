@@ -34,6 +34,17 @@ def _flatten(tree: dict, prefix: str = ""):
             yield name, val
 
 
+def reference_leaf(name: str, period: int) -> tuple[str, int | None]:
+    """The reference leaf a port parameter name belongs to, and its slice
+    of the leaf's stacked axis: "layers.{g * period + i}.rest" ->
+    ("layers.l{i}.rest", g); any other name -> (name, None)."""
+    if not name.startswith("layers."):
+        return name, None
+    _, idx, rest = name.split(".", 2)
+    g, i = divmod(int(idx), period)
+    return f"layers.l{i}.{rest}", g
+
+
 def state_dict_from_reference(ref_params: dict, cfg) -> dict:
     """Reference params (numpy leaves) -> the port's ``state_dict``
     (numpy leaves, keys as in :class:`repro_torch.models.model.LM`)."""
@@ -61,15 +72,14 @@ def reference_tree_from_state_dict(sd: dict, cfg) -> dict:
         arr = (val.detach().to(torch.float32).cpu().numpy()
                if isinstance(val, torch.Tensor)
                else np.asarray(val, np.float32))
-        if name.startswith("layers."):
-            _, idx, rest = name.split(".", 2)
-            g, i = divmod(int(idx), period)
-            stacks.setdefault((f"l{i}", rest), {})[g] = arr
-            continue
-        _insert(tree, name.split("."), arr)
-    for (li, rest), by_group in stacks.items():
+        ref, g = reference_leaf(name, period)
+        if g is None:
+            _insert(tree, name.split("."), arr)
+        else:
+            stacks.setdefault(ref, {})[g] = arr
+    for ref, by_group in stacks.items():
         stacked = np.stack([by_group[g] for g in sorted(by_group)])
-        _insert(tree, ["layers", li, *rest.split(".")], stacked)
+        _insert(tree, ref.split("."), stacked)
     return tree
 
 

@@ -12,8 +12,10 @@ parameters.
 
 Ported so far: GQA stacks with RoPE and RMSNorm whose FFNs are SwiGLU
 (family "dense") or a Mixture-of-Experts of SwiGLU experts (family
-"moe", :mod:`repro_torch.models.moe`); the hybrid, SSM,
-encoder-decoder and VLM families are ROADMAP.md Queue 1 item 13b.
+"moe", :mod:`repro_torch.models.moe`), and pure Mamba-2 stacks (family
+"ssm", :mod:`repro_torch.models.mamba2`: no FFN, the dense decode
+methods only); the hybrid, encoder-decoder and VLM families are
+ROADMAP.md Queue 1 item 13b.
 Methods: the training forward ``apply`` and ``loss`` (masked next-token
 NLL in f32 plus the MoE's weighted aux losses); the dense fixed-batch
 decode methods -
@@ -34,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import jax_random as jr
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2
 from repro_torch.models import transformer as T
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -43,19 +46,20 @@ AUX_COEF = {"load_balance": 0.01, "router_z": 0.001}
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        if (cfg.family not in ("dense", "moe") or cfg.pos_emb != "rope"
-                or cfg.norm_type != "rmsnorm" or cfg.mlp_type != "swiglu"):
+        if (cfg.family not in ("dense", "moe", "ssm")
+                or cfg.pos_emb != "rope" or cfg.norm_type != "rmsnorm"
+                or cfg.mlp_type != "swiglu"):
             raise NotImplementedError(
-                f"{cfg.name} (family {cfg.family}): only dense and MoE "
+                f"{cfg.name} (family {cfg.family}): only dense, MoE and SSM "
                 "rope/rmsnorm/swiglu stacks are ported so far (ROADMAP.md "
                 "Queue 1 item 13b)")
         self.cfg = cfg
         dev = resolve_device(device)
         pdt = DTYPES[cfg.param_dtype]
-        _, ffns, period = T.period_pattern(cfg)
+        kinds, ffns, period = T.period_pattern(cfg)
         self.embed = L.Embedding(cfg.padded_vocab, cfg.d_model, pdt, dev)
         self.layers = nn.ModuleList(
-            T.Block(cfg, pdt, dev, ffns[idx % period])
+            T.Block(cfg, pdt, dev, ffns[idx % period], kinds[idx % period])
             for idx in range(cfg.n_layers))
         self.final_norm = L.RMSNorm(cfg.d_model, pdt, dev)
         if not cfg.tie_embeddings:
@@ -93,39 +97,50 @@ class LM(nn.Module):
     def _fill(self, draw) -> "LM":
         """Every weight through ``draw(name, w, scale)`` - the embedding,
         each layer's projections (an MoE's router, kept f32, and its
-        experts' wg, wu, wd), the head, in that order - with biases 0 and
-        norm scales 1."""
+        experts' wg, wu, wd; a Mamba mixer's nine), the head, in that
+        order - with biases 0, norm scales 1 and a Mamba mixer's
+        constants (``mamba2.fill_constants_``)."""
         cfg = self.cfg
         d, h, dh = cfg.d_model, cfg.n_heads, cfg.d_head
         draw("embed", self.embed.emb, 0.02)
         for idx, blk in enumerate(self.layers):
-            at = blk.mixer
-            for name in ("wq", "wk", "wv"):
-                draw((idx, name), getattr(at, name), 1.0 / math.sqrt(d))
-            draw((idx, "wo"), at.wo, 1.0 / math.sqrt(h * dh))
-            for name in ("bq", "bk", "bv"):
-                if hasattr(at, name):
-                    getattr(at, name).zero_()
-            for name in ("q_norm", "k_norm"):
-                if hasattr(at, name):
-                    getattr(at, name).fill_(1.0)
+            blk.norm1.scale.fill_(1.0)
+            if blk.kind == "mamba":
+                for name, scale in mamba2.draw_scales(cfg).items():
+                    draw((idx, name), getattr(blk.mixer, name), scale)
+                mamba2.fill_constants_(blk.mixer)
+            else:
+                self._fill_attention(draw, idx, blk.mixer)
+            if blk.ffn_kind == "none":
+                continue
             if blk.ffn_kind == "moe":
                 draw((idx, "router"), blk.ffn.router, 1.0 / math.sqrt(d))
             draw((idx, "wg"), blk.ffn.wg, 1.0 / math.sqrt(d))
             draw((idx, "wu"), blk.ffn.wu, 1.0 / math.sqrt(d))
             draw((idx, "wd"), blk.ffn.wd, 1.0 / math.sqrt(cfg.d_ff))
-            blk.norm1.scale.fill_(1.0)
             blk.norm2.scale.fill_(1.0)
         self.final_norm.scale.fill_(1.0)
         if not cfg.tie_embeddings:
             draw("lm_head", self.lm_head, 0.02)
         return self
 
+    def _fill_attention(self, draw, idx: int, at) -> None:
+        d, h, dh = self.cfg.d_model, self.cfg.n_heads, self.cfg.d_head
+        for name in ("wq", "wk", "wv"):
+            draw((idx, name), getattr(at, name), 1.0 / math.sqrt(d))
+        draw((idx, "wo"), at.wo, 1.0 / math.sqrt(h * dh))
+        for name in ("bq", "bk", "bv"):
+            if hasattr(at, name):
+                getattr(at, name).zero_()
+        for name in ("q_norm", "k_norm"):
+            if hasattr(at, name):
+                getattr(at, name).fill_(1.0)
+
     def _reference_keys(self, seed: int) -> dict:
         """The reference's key of every weight (``LM._init`` ->
-        ``stack_init`` -> ``block_init`` -> ``attention_init`` /
-        ``swiglu_init`` or ``moe_init``), named as :meth:`_fill` names
-        them."""
+        ``stack_init`` -> ``block_init`` -> ``attention_init`` or
+        ``mamba_init``, then ``swiglu_init`` or ``moe_init``), named as
+        :meth:`_fill` names them."""
         ks = jr.split(jr.prng_key(seed), 8)
         keys = {"embed": ks[0], "lm_head": ks[2]}
         period = T.period_pattern(self.cfg)[2]
@@ -133,10 +148,15 @@ class LM(nn.Module):
         for idx in range(self.cfg.n_layers):
             g, i = divmod(idx, period)
             kb = jr.split(jr.split(groups[g], period)[i], 4)
-            for name, key in zip(("wq", "wk", "wv", "wo"), jr.split(kb[0], 4)):
+            blk = self.layers[idx]
+            mixer = tuple(mamba2.draw_scales(self.cfg)) \
+                if blk.kind == "mamba" else ("wq", "wk", "wv", "wo")
+            for name, key in zip(mixer, jr.split(kb[0], len(mixer))):
                 keys[(idx, name)] = key
+            if blk.ffn_kind == "none":
+                continue
             ffn = ("router", "wg", "wu", "wd") \
-                if self.layers[idx].ffn_kind == "moe" else ("wg", "wu", "wd")
+                if blk.ffn_kind == "moe" else ("wg", "wu", "wd")
             for name, key in zip(ffn, jr.split(kb[2], len(ffn))):
                 keys[(idx, name)] = key
         return keys

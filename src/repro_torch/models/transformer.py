@@ -1,18 +1,22 @@
 """Pre-norm transformer blocks and the cache layouts.
 
-A block is attention + an FFN - dense SwiGLU or a Mixture-of-Experts
-(:mod:`repro_torch.models.moe`), as ``period_pattern`` names it for the
-layer - each behind an RMSNorm with a residual.  A block returns its
+A block is a mixer - attention, or the Mamba-2 SSD mixer
+(:mod:`repro_torch.models.mamba2`) - and an FFN - dense SwiGLU, a
+Mixture-of-Experts (:mod:`repro_torch.models.moe`) or none (a pure SSM
+stack) - as ``period_pattern`` names them for the layer, each behind an
+RMSNorm with a residual.  A block returns its
 FFN's aux losses (empty for a dense FFN) and ``stack_apply`` sums them
 over the layers on every path: training, the dense ring and the paged
 pools.  The reference scans over a leading ``groups`` axis
 (``lax.scan``); here the layers are an ``nn.ModuleList`` walked by a
 Python loop.  Both caches keep the reference's stacked layout: the
 paged KV pools ``{"l{i}": {"k_pages", "v_pages"}}`` with leaves (groups,
-P, page, Hkv, dh), and the dense rings ``{"l{i}": {"k", "v"}}`` with
-leaves (groups, B, max_seq, Hkv, dh).  Layer ``g * period + i`` reads
-``["l{i}"][...][g]`` - a view, so the in-place writes land in the
-stacked tensor.
+P, page, Hkv, dh), and the dense caches - rings ``{"l{i}": {"k", "v"}}``
+with leaves (groups, B, max_seq, Hkv, dh) for attention layers, Mamba
+states ``{"l{i}": {"ssm", "conv_x", "conv_B", "conv_C"}}`` with leaves
+(groups, B, ...) for Mamba layers.  Layer ``g * period + i`` reads
+``["l{i}"][...][g]`` - a view, so the in-place ring writes land in the
+stacked tensor; a Mamba layer's new state is copied into it.
 
 Without caches (training) each block runs under
 ``torch.utils.checkpoint`` when ``cfg.remat == "full"``: its
@@ -27,36 +31,51 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import page_codec
 from repro_torch.models import layers as L
-from repro_torch.models import moe
+from repro_torch.models import mamba2, moe
 
 
 class Block(nn.Module):
-    """Attention + an FFN of kind ``ffn_kind`` ("dense": SwiGLU, "moe":
-    :class:`repro_torch.models.moe.MoE`), pre-norm residual."""
+    """A mixer of kind ``kind`` ("attn", "mamba": :class:`repro_torch.
+    models.mamba2.Mamba2`) + an FFN of kind ``ffn_kind`` ("dense":
+    SwiGLU, "moe": :class:`repro_torch.models.moe.MoE`, "none": no FFN
+    and no second norm), pre-norm residual."""
 
-    def __init__(self, cfg, dtype, device, ffn_kind: str = "dense"):
+    def __init__(self, cfg, dtype, device, ffn_kind: str = "dense",
+                 kind: str = "attn"):
         super().__init__()
-        if ffn_kind not in ("dense", "moe"):
+        if ffn_kind not in ("dense", "moe", "none") \
+                or kind not in ("attn", "mamba"):
             raise NotImplementedError(
-                f"FFN kind {ffn_kind!r} is not ported (ROADMAP.md Queue 1 "
-                "item 13b)")
-        self.ffn_kind = ffn_kind
+                f"block {kind!r} / FFN {ffn_kind!r} is not ported "
+                "(ROADMAP.md Queue 1 item 13b)")
+        self.kind, self.ffn_kind = kind, ffn_kind
         self.norm1 = L.RMSNorm(cfg.d_model, dtype, device)
-        self.mixer = L.Attention(cfg, dtype, device)
-        self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
-        self.ffn = (moe.MoE(cfg, dtype, device) if ffn_kind == "moe"
-                    else L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
+        self.mixer = (L.Attention(cfg, dtype, device) if kind == "attn"
+                      else mamba2.Mamba2(cfg, dtype, device))
+        if ffn_kind != "none":
+            self.norm2 = L.RMSNorm(cfg.d_model, dtype, device)
+            self.ffn = (moe.MoE(cfg, dtype, device) if ffn_kind == "moe"
+                        else L.SwiGLU(cfg.d_model, cfg.d_ff, dtype, device))
 
 
 def block_apply(blk: Block, x, cfg, *, positions=None, cache=None,
                 cache_pos=None, page_state=None):
-    """Returns (x, this layer's cache or None without one, aux losses:
-    the MoE's {load_balance, router_z}, empty for a dense FFN)."""
+    """Returns (x, this layer's cache or None without one - a Mamba
+    layer's new state -, aux losses: the MoE's {load_balance, router_z},
+    empty for a dense FFN or none)."""
     h = L.rmsnorm_apply(blk.norm1, x, cfg.norm_eps)
-    y, new_cache = L.attention_apply(blk.mixer, h, cfg, positions=positions,
-                                     cache=cache, cache_pos=cache_pos,
-                                     page_state=page_state)
+    if blk.kind == "mamba":
+        y, new_cache = mamba2.mamba_apply(blk.mixer, h, cfg, state=cache)
+        if cache is None:
+            new_cache = None
+    else:
+        y, new_cache = L.attention_apply(blk.mixer, h, cfg,
+                                         positions=positions, cache=cache,
+                                         cache_pos=cache_pos,
+                                         page_state=page_state)
     x = x + y
+    if blk.ffn_kind == "none":
+        return x, new_cache, {}
     h = L.rmsnorm_apply(blk.norm2, x, cfg.norm_eps)
     if blk.ffn_kind == "moe":
         y, aux = moe.moe_apply(blk.ffn, h, cfg)
@@ -106,28 +125,37 @@ def stack_apply(layers: nn.ModuleList, x, cfg, *, positions=None,
         else:
             g, i = divmod(idx, period)
             cache = {key: pool[g] for key, pool in caches[f"l{i}"].items()}
-            x, _, aux = block_apply(blk, x, cfg, positions=positions,
-                                    cache=cache, cache_pos=cache_pos,
-                                    page_state=page_state)
+            x, new, aux = block_apply(blk, x, cfg, positions=positions,
+                                      cache=cache, cache_pos=cache_pos,
+                                      page_state=page_state)
+            if blk.kind == "mamba":
+                for key, val in new.items():
+                    cache[key].copy_(val)
         for key, val in aux.items():
             total[key] = total[key] + val
     return x, caches, total
 
 
 def stack_init_cache(cfg, batch: int, max_seq: int, dtype, device):
-    """Dense ring caches for fixed-batch decode, stacked (groups, B,
-    max_seq, Hkv, dh), zero-filled.  Self-attention stacks only (no
-    Mamba state, no encoder cross caches: ROADMAP.md Queue 1 item 13b)."""
+    """Dense caches for fixed-batch decode, stacked with a leading groups
+    axis and zero-filled: an attention layer's ring (groups, B, max_seq,
+    Hkv, dh) for k and v, a Mamba layer's state (``mamba2.
+    mamba_init_state``: the f32 SSM state, the conv windows in
+    ``dtype``).  No encoder cross caches (ROADMAP.md Queue 1 item 13b)."""
     kinds, _, period = period_pattern(cfg)
-    if not all(k == "attn" for k in kinds):
-        raise NotImplementedError(
-            f"dense KV cache supports attention-only stacks, got {kinds} "
-            "(ROADMAP.md Queue 1 item 13b)")
-    shape = (cfg.n_layers // period, batch, max_seq, cfg.n_kv_heads,
-             cfg.d_head)
-    return {f"l{i}": {"k": torch.zeros(shape, dtype=dtype, device=device),
-                      "v": torch.zeros(shape, dtype=dtype, device=device)}
-            for i in range(period)}
+    groups = cfg.n_layers // period
+
+    def one_layer(kind):
+        if kind == "mamba":
+            return {key: torch.zeros((groups,) + tuple(t.shape),
+                                     dtype=t.dtype, device=device)
+                    for key, t in mamba2.mamba_init_state(
+                        cfg, batch, dtype, "meta").items()}
+        shape = (groups, batch, max_seq, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {f"l{i}": one_layer(kinds[i]) for i in range(period)}
 
 
 def stack_init_paged_cache(cfg, num_pages: int, page_size: int, dtype,

@@ -32,6 +32,21 @@ from repro_torch.optim.schedule import warmup_cosine
 DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "build" /
                        "repro_torch" / "ckpt")
 METRIC_KEYS = ("nll", "loss", "load_balance", "router_z")
+NORM_CHUNK = 1 << 26             # values of a leaf squared at a time
+
+
+@torch.no_grad()
+def grad_norm(grads: dict) -> torch.Tensor:
+    """The global f32 norm of ``grads``, at most NORM_CHUNK values of a
+    leaf at a time: a whole leaf's f32 square would be a temporary of 4
+    bytes a value (25 GB for command-r-plus-104b's embedding and head)."""
+    total = 0
+    for g in grads.values():
+        flat = g.reshape(-1)
+        for s0 in range(0, flat.numel(), NORM_CHUNK):
+            total = total + torch.sum(flat[s0:s0 + NORM_CHUNK]
+                                      .to(torch.float32) ** 2)
+    return torch.sqrt(total)
 
 
 def make_train_step(model, opt, *, microbatches: int = 1,
@@ -77,9 +92,7 @@ def make_train_step(model, opt, *, microbatches: int = 1,
         if grad_compression:
             grads, new_carry["grad_error"] = compression.compress_gradients(
                 grads, carry["grad_error"])
-        with torch.no_grad():
-            gnorm = torch.sqrt(sum(torch.sum(g.to(torch.float32) ** 2)
-                                   for g in grads.values()))
+        gnorm = grad_norm(grads)
         new_carry["params"], new_carry["opt_state"] = opt.update(
             grads, carry["opt_state"], params)
         for p in params.values():
@@ -93,7 +106,7 @@ def make_train_step(model, opt, *, microbatches: int = 1,
 @dataclasses.dataclass
 class TrainerConfig:
     steps: int = 100
-    ckpt_every: int = 20
+    ckpt_every: int = 20             # 0: no checkpoints
     ckpt_dir: str = DEFAULT_CKPT_DIR
     keep: int = 3
     peak_lr: float = 3e-4
@@ -176,7 +189,8 @@ class Trainer:
                 metrics["step_time"] = dt
                 self.metrics_log.append(metrics)
                 step += 1
-                if step % tcfg.ckpt_every == 0 or step == tcfg.steps:
+                if tcfg.ckpt_every and (step % tcfg.ckpt_every == 0
+                                        or step == tcfg.steps):
                     self.ckpt.save(step, carry)
             except (FloatingPointError, RuntimeError) as e:
                 restarts += 1

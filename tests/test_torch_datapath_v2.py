@@ -52,8 +52,10 @@ def _np(x):
 _TABLE = torch.from_numpy(lns.exp2_neg_table())
 
 
-def _table_lookup(d):
-    """exp2_neg as the kernel forms it: the table at min(d, 1023)."""
+def _table_lookup(d, cfg=lns.DEFAULT):
+    """exp2_neg as the kernel forms it: the table at min(d, 1023) (the
+    kernel computes the DEFAULT configuration only)."""
+    assert cfg == lns.DEFAULT
     idx = torch.clamp(d, max=lns.EXP2_NEG_TABLE - 1).to(torch.int64)
     return _TABLE[idx].to(torch.float32)
 

@@ -43,8 +43,10 @@ from test_torch_serve_cli import _cli_lines
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
-# (arch, config fields replaced in both packages)
-CASES = [(a, {}) for a in sorted(REGISTRY) if a != "qwen3-1.7b"] + [
+# (arch, config fields replaced in both packages): the paged archs; the
+# SSM mamba2-2.7b has its own file, test_torch_mamba2.py.
+CASES = [(a, {}) for a in sorted(REGISTRY)
+         if a != "qwen3-1.7b" and _paged_supported(REGISTRY[a])] + [
     ("hfa-paper-mini", {"d_head": 96})]
 IDS = [a + ("-d96" if kw else "") for a, kw in CASES]
 
@@ -64,9 +66,10 @@ def _flat(tree, prefix=""):
 
 def test_every_paged_arch_is_registered():
     """The port registers exactly the configs the reference's serve CLI
-    sends to its paged engine, each field for field."""
+    sends to its paged engine, and the SSM mamba2-2.7b, each field for
+    field."""
     assert set(REGISTRY) == {name for name, cfg in JREGISTRY.items()
-                             if _paged_supported(cfg)}
+                             if _paged_supported(cfg)} | {"mamba2-2.7b"}
     for arch in REGISTRY:
         assert dataclasses.asdict(get_config(arch)) == dataclasses.asdict(
             jget_config(arch)), arch

@@ -38,7 +38,7 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import serve_async as tserve_async
 from repro_torch.launch import serve_http as tserve_http
 from repro_torch.launch import train as ttrain
-from repro_torch.optim import build_optimizer
+from repro_torch.optim import Adafactor, build_optimizer
 from repro_torch.models.model import LM
 from repro_torch.serving import (AsyncFrontend, Request, SamplingParams,
                                  ServingEngine)
@@ -194,7 +194,8 @@ def test_engine_refuses_what_is_not_ported():
     """A mesh whose "model" axis does not divide the heads is refused by
     the reference's check (before the mesh is used), an unknown codec by
     name; the int8 and log16 codecs and the request surface the port
-    serves are accepted."""
+    serves are accepted, and ``build_optimizer`` returns the Adafactor for
+    a config that names it."""
     lm = _small_lm()
     with pytest.raises(ValueError, match="tp=3 must divide n_kv_heads"):
         ServingEngine(lm, device="cpu",
@@ -218,9 +219,11 @@ def test_engine_refuses_what_is_not_ported():
         eng.submit(Request(rid=rid, prompt=[1, 2, 3], max_new_tokens=2,
                            **kw))
     cfg = get_config("qwen3-1.7b").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_optimizer(dataclasses.replace(cfg, optimizer="adafactor"),
-                        lambda step: 1e-3)
+    opt = build_optimizer(dataclasses.replace(cfg, optimizer="adafactor"),
+                          lambda step: 1e-3)
+    assert isinstance(opt, Adafactor) and opt.period == 1
+    assert isinstance(build_optimizer(get_config("command-r-plus-104b"),
+                                      lambda step: 1e-3), Adafactor)
 
 
 def test_serving_stack_entry_points_default_to_the_card():
